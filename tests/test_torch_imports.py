@@ -16,8 +16,14 @@ import torch
 import tpunerf.training.config as jconfig
 import tpunerf_torch
 import tpunerf_torch.training.config as tconfig
+from tpunerf_torch.fields.scene import LatentNeRFScene
+from tpunerf_torch.guidance.schedulers import NoiseSchedule
+from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
+from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
 from tpunerf_torch.train_latent_nerf import main, split_device
+from tpunerf_torch.train_latent_paint import main as paint_main
 from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+from tpunerf_torch.training.latent_paint import LatentPaintApp
 from tpunerf_torch.training.trainer import Trainer, unported_settings
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +37,11 @@ def _modules():
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     mods = _modules()
-    assert "tpunerf_torch.train_latent_nerf" in mods
+    for m in ("train_latent_nerf", "train_latent_paint", "core.obj_io",
+              "meshrep.uv_unwrap", "meshrep.textured_mesh", "guidance.vae",
+              "kernels.rasterize", "kernels.texture",
+              "training.latent_paint"):
+        assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -45,15 +55,22 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
 
 
 def test_no_module_names_jax_or_the_jax_package():
-    pat = re.compile(r"\bimport jax\b|\bfrom jax\b|\btpunerf\.")
-    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+    pat = re.compile(r"\bimport jax\b|\bfrom jax\b|\btpunerf\.|"
+                     r"\bimport tpunerf\b|\bfrom tpunerf\b")
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders
 
 
 def test_kernels_are_cuda_sources_of_the_package():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["attention.cu", "hashgrid.cu", "occgrid.cu"]
+    assert names == ["attention.cu", "hashgrid.cu", "occgrid.cu",
+                     "rasterize.cu"]
+    raster = (PKG / "csrc" / "rasterize.cu").read_text()
+    for symbol in ("select_faces_dense", "select_faces_binned",
+                   "__fmul_rn", "__fadd_rn"):
+        assert symbol in raster, symbol
     for p in (PKG / "csrc").glob("*.cu"):
         text = p.read_text()
         assert "Replaces" in text and "bound" in text, p.name
@@ -80,6 +97,31 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
         Trainer(cfg, app=None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--guide.tiny_diffusion", "true"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LatentPaintApp.create(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paint_main(["--guide.tiny_diffusion", "true", "--guide.shape_path",
+                    "sphere"])
+
+
+@pytest.mark.parametrize("create", [
+    lambda: StableDiffusionGuidance.create(tiny=True),
+    lambda: LatentNeRFScene.create(tiny=True),
+    lambda: NoiseSchedule.scaled_linear(),
+    lambda: TexturedMeshScene.create("sphere"),
+], ids=["guidance", "nerf_scene", "noise_schedule", "mesh_scene"])
+def test_constructors_resolve_no_device_to_the_card(monkeypatch, create):
+    """`device=None` means CUDA: here, without a card, each raises the
+    `resolve_device` error instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create()
+
+
+def test_constructors_build_on_a_named_device():
+    assert NoiseSchedule.scaled_linear(device="cpu").betas.device.type == "cpu"
+    scene = LatentNeRFScene.create(tiny=True, device="cpu")
+    assert scene.occ_grid.device.type == "cpu"
 
 
 @pytest.mark.parametrize("setting", [
@@ -94,8 +136,40 @@ def test_trainer_refuses_what_slice_1_lacks(tmp_path, setting):
     for k, v in setting.get("optim", {}).items():
         setattr(cfg.optim, k, v)
     assert unported_settings(cfg)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(cfg, app=None, device="cpu")
+
+
+class _EvalApp:
+    def eval_render(self, views, dims):
+        raise AssertionError("not called")
+
+
+@pytest.mark.parametrize("setting,refused", [
+    (dict(eval_size=10), False), (dict(full_eval_size=100), False),
+    (dict(save_mesh=True), False), (dict(log_images=True), True),
+    (dict(save_interval=100), True), (dict(trace_steps=(2, 4)), True),
+])
+def test_apps_with_an_eval_render_get_the_eval_settings(tmp_path, setting,
+                                                        refused):
+    cfg = _cfg(tmp_path, **setting)
+    assert bool(unported_settings(cfg, _EvalApp())) is refused
+    assert unported_settings(cfg, None)      # an app without one: refused
+
+
+def test_paint_cli_trains_evaluates_and_exports_on_the_cpu(tmp_path):
+    paint_main(["--device", "cpu", "--guide.tiny_diffusion", "true",
+                "--guide.text", "a red fish", "--guide.shape_path",
+                "icosphere", "--guide.texture_resolution", "16",
+                "--optim.iters", "2", "--render.train_grid_size", "16",
+                "--render.eval_grid_size", "16", "--log.exp_root",
+                str(tmp_path), "--log.exp_name", "cli", "--log.eval_size",
+                "1", "--log.full_eval_size", "2", "--log.log_images",
+                "false", "--log.save_interval", "100"])
+    exp = tmp_path / "cli"
+    assert (exp / "vis" / "eval" / "step_000000_000_rgb.png").exists()
+    assert (exp / "mesh" / "mesh.obj").exists()
+    assert (exp / "vt.npy").exists()
 
 
 def _schema(cls):

@@ -18,6 +18,7 @@ from tpunerf_torch.kernels import _build
 from tpunerf_torch.kernels import attention as at
 from tpunerf_torch.kernels import hashgrid as hg
 from tpunerf_torch.kernels import occgrid as og
+from tpunerf_torch.kernels import rasterize as rz
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +106,53 @@ def test_attention_kernel_matches_plain(dtype):
                   "attention")
 
 
+def _projected_sphere(dev, n_views, seed):
+    from tpunerf_torch.core.views import ViewSamplerConfig, rand_poses
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.meshrep import shapes
+    mesh = shapes.uv_sphere().normalize(target_scale=0.6, dy=0.25).to(dev)
+    views = rand_poses(n_views, ViewSamplerConfig(), dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    fv_cam, fv_img, _ = mrender._project(
+        mesh.vertices, mesh.faces, views.theta, views.phi, views.radius,
+        mrender.CameraSpec(look_at_height=0.25))
+    valid = torch.ones(fv_img.shape[:2], dtype=torch.bool, device=dev)
+    return fv_img, fv_cam[..., 2], valid
+
+
+@pytest.mark.parametrize("size", [64, 100])
+def test_dense_selection_kernel_matches_plain_exactly(size):
+    dev = _card()
+    fv_img, fv_z, valid = _projected_sphere(dev, 3, 3)
+    # duplicate faces: exact z ties everywhere they are visible
+    fv_img = torch.cat([fv_img, fv_img[:, :500]], dim=1)
+    fv_z = torch.cat([fv_z, fv_z[:, :500]], dim=1)
+    valid = torch.cat([valid, valid[:, :500]], dim=1)
+    valid[:, 7] = valid[:, 3968 + 7] = False    # a face and its copy
+    rows = rz._face_rows(fv_img, fv_z, valid)
+    pix = rz.pixel_grid_ndc(size, size, dev)   # 100² is no multiple of 64
+    out = _launched(rz.DENSE, lambda: rz.select_faces_dense(rows, pix))
+    ref = rz.select_faces_dense_plain(rows, pix)
+    assert out.dtype == torch.int32 and out.shape == (3, size * size)
+    assert torch.equal(out, ref)               # 0 mismatches
+    assert (ref >= 0).any() and (ref < 0).any() and not (ref == 7).any()
+    assert not (ref >= 3968).any()             # a copy never beats its twin
+
+
+def test_binned_selection_kernel_matches_plain_and_dense_exactly():
+    dev = _card()
+    fv_img, fv_z, valid = _projected_sphere(dev, 2, 4)
+    H = W = 512     # 2-row bands: the sphere's bins stay under K = 256
+    pix = rz.pixel_grid_ndc(H, W, dev)
+    before = dict(_build.LAUNCHES)
+    fid = rz._select_faces_batched(pix, fv_img, fv_z, valid, H, W)
+    assert _build.LAUNCHES[rz.BINNED] == before.get(rz.BINNED, 0) + 1
+    assert _build.LAUNCHES.get(rz.DENSE, 0) == before.get(rz.DENSE, 0)
+    rows = rz._face_rows(fv_img, fv_z, valid)
+    assert torch.equal(fid, rz.select_faces_dense_plain(rows, pix))
+    assert torch.equal(fid, rz.select_faces_dense(rows, pix))
+
+
 def test_wrappers_raise_instead_of_falling_back():
     dev = _card()
     cfg = HashGridConfig()
@@ -117,6 +165,17 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError):
         q = torch.zeros((1, 1, 8, 160), device=dev)
         at.attention(q, q, q, 1.0)
+    pix = rz.pixel_grid_ndc(8, 8, dev)
+    with pytest.raises(TypeError):
+        rz.select_faces_dense(torch.zeros((1, 4, 12), device=dev,
+                                          dtype=torch.float64), pix)
+    with pytest.raises(ValueError):
+        rz.select_faces_dense(torch.zeros((1, 12, 4), device=dev)
+                              .transpose(1, 2), pix)
+    with pytest.raises(ValueError):
+        rz.select_faces_binned(torch.zeros((1, 4, 12), device=dev),
+                               torch.zeros((1, 1, 64), device=dev,
+                                           dtype=torch.int64), pix)
 
 
 def test_tiny_app_step_goes_through_the_kernels(tmp_path):
@@ -140,3 +199,27 @@ def test_tiny_app_step_goes_through_the_kernels(tmp_path):
     # two steps; the refresh at step 1 adds one forward encode
     assert _build.LAUNCHES[hg.FWD] == 3 and _build.LAUNCHES[hg.BWD] == 2
     assert _build.LAUNCHES[og.LOOKUP] == 2
+
+
+def test_tiny_paint_step_and_eval_go_through_the_kernels(tmp_path):
+    dev = _card()
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.training.trainer import Trainer
+    cfg = parse(TrainConfig, [
+        "--guide.tiny_diffusion", "true", "--guide.shape_path", "sphere",
+        "--guide.texture_resolution", "32", "--optim.iters", "2",
+        "--render.train_grid_size", "24", "--render.eval_grid_size", "512",
+        "--log.exp_root", str(tmp_path), "--log.eval_size", "0",
+        "--log.full_eval_size", "2", "--log.save_mesh", "true",
+        "--log.log_images", "false", "--log.save_interval", "100"])
+    app = LatentPaintApp.create(cfg, device=dev)
+    trainer = Trainer(cfg, app, device=dev)
+    _build.reset_launches()
+    losses = []
+    trainer.train(on_step=lambda s, loss: losses.append(loss.item()))
+    assert np.isfinite(losses).all()
+    # mesh and dome per step; the 512² eval render takes the band bins
+    assert _build.LAUNCHES[rz.DENSE] == 4 and _build.LAUNCHES[rz.BINNED] == 1
+    assert (tmp_path / "default" / "mesh" / "mesh.obj").exists()

@@ -1,16 +1,19 @@
-"""Camera math for the volumetric path: spherical poses, look-at transforms,
-prompt-direction buckets.
+"""Camera math: spherical poses, look-at transforms, perspective projection
+of meshes, prompt-direction buckets.
 
 Conventions are those of the JAX package's `core/camera.py`:
 
 * world: +Y up; the camera orbits the origin at spherical (theta, phi, r)
   with position (r·sinθ·sinφ, r·cosθ, r·sinθ·cosφ);
 * camera space: right-handed, camera looks down −z;
-* image/NDC: x right, y up, both in [−1, 1].
+* image/NDC: x right, y up, both in [−1, 1]; perspective divide by −z.
+  There is no near-plane clip: a vertex behind the camera goes through the
+  same divide and its face is z-tested like any other.
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -56,6 +59,78 @@ def look_at_transform(camera_position: torch.Tensor, look_at: torch.Tensor,
     rot = torch.stack([x_axis, y_axis, z_axis], dim=-1)          # (..., 3, 3)
     trans = -torch.einsum("...i,...ij->...j", camera_position, rot)
     return torch.cat([rot, trans[..., None, :]], dim=-2)         # (..., 4, 3)
+
+
+def camera_transform_from_view(theta: torch.Tensor, phi: torch.Tensor,
+                               radius: torch.Tensor,
+                               look_at_height: float = 0.0) -> torch.Tensor:
+    """Spherical view → world→camera (..., 4, 3) transform: look-at target
+    (0, look_at_height, 0), up (0, 1, 0)."""
+    pos = spherical_camera_position(theta, phi, radius)
+    look_at = torch.zeros_like(pos)
+    look_at[..., 1] = look_at_height
+    up = torch.zeros_like(pos)
+    up[..., 1] = 1.0
+    return look_at_transform(pos, look_at, up)
+
+
+def perspective_projection(fovy: float = math.pi / 3, ratio: float = 1.0,
+                           device: torch.device = torch.device("cpu")
+                           ) -> torch.Tensor:
+    """Projection coefficients (3,): NDC x = px·c0/−pz, y = py·c1/−pz."""
+    tanfov = math.tan(fovy / 2.0)
+    proj = torch.full((3,), -1.0, dtype=torch.float32, device=device)
+    proj[0] = 1.0 / (ratio * tanfov)
+    proj[1] = 1.0 / tanfov
+    return proj
+
+
+def transform_vertices(vertices: torch.Tensor,
+                       camera_transform: torch.Tensor) -> torch.Tensor:
+    """World (..., V, 3) → camera space via a (..., 4, 3) transform."""
+    ones = torch.ones((*vertices.shape[:-1], 1), dtype=vertices.dtype,
+                      device=vertices.device)
+    return torch.cat([vertices, ones], dim=-1) @ camera_transform
+
+
+def perspective_project(vertices_camera: torch.Tensor,
+                        camera_proj: torch.Tensor) -> torch.Tensor:
+    """Camera-space (..., V, 3) → NDC image coords (..., V, 2): scale by the
+    projection coefficients, then divide x, y by the third component."""
+    scaled = vertices_camera * camera_proj
+    return scaled[..., :2] / scaled[..., 2:3]
+
+
+def face_normals(face_vertices: torch.Tensor, unit: bool = True
+                 ) -> torch.Tensor:
+    """Normals of (..., F, 3, 3) face vertices → (..., F, 3)."""
+    e1 = face_vertices[..., 1, :] - face_vertices[..., 0, :]
+    e2 = face_vertices[..., 2, :] - face_vertices[..., 0, :]
+    n = _cross3(e1, e2)
+    if unit:
+        n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
+                            min=1e-12)
+    return n
+
+
+def index_vertices_by_faces(vertex_attr: torch.Tensor,
+                            faces: torch.Tensor) -> torch.Tensor:
+    """Gather per-vertex attributes (..., V, C) into per-face
+    (..., F, 3, C)."""
+    return vertex_attr[..., faces.long(), :]
+
+
+def prepare_vertices(vertices: torch.Tensor, faces: torch.Tensor,
+                     camera_proj: torch.Tensor,
+                     camera_transform: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """World mesh + camera → (face_vertices_camera, face_vertices_image,
+    face_normals). Batched over the camera's leading dims."""
+    verts_cam = transform_vertices(vertices, camera_transform)
+    verts_img = perspective_project(verts_cam, camera_proj)
+    fv_cam = index_vertices_by_faces(verts_cam, faces)
+    fv_img = index_vertices_by_faces(verts_img, faces)
+    return fv_cam, fv_img, face_normals(fv_cam)
 
 
 def get_view_direction(thetas: torch.Tensor, phis: torch.Tensor,

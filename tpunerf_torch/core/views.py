@@ -19,6 +19,19 @@ class ViewBatch:
     dirs: torch.Tensor     # int64 view-direction bucket
     is_body: torch.Tensor  # bool — body vs head camera
 
+    @property
+    def batch_size(self) -> int:
+        return self.theta.shape[0]
+
+    def to(self, device: torch.device) -> "ViewBatch":
+        return ViewBatch(*(getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(self)))
+
+    def __getitem__(self, idx) -> "ViewBatch":
+        """The poses at `idx` (a slice or an index tensor)."""
+        return ViewBatch(*(getattr(self, f.name)[idx]
+                           for f in dataclasses.fields(self)))
+
 
 @dataclasses.dataclass(frozen=True)
 class ViewSamplerConfig:
@@ -28,6 +41,8 @@ class ViewSamplerConfig:
     angle_overhead: float = 30.0                      # degrees
     angle_front: float = 60.0                         # degrees
     body_prob: float = 1.0
+    eval_theta: float = 60.0   # degrees — fixed polar angle of the eval orbit
+    eval_radius_scale: float = 1.2  # eval radius = radius_range[1] * scale
 
 
 def rand_poses(size: int, cfg: ViewSamplerConfig, device: torch.device,
@@ -49,3 +64,19 @@ def rand_poses(size: int, cfg: ViewSamplerConfig, device: torch.device,
                               math.radians(cfg.angle_front))
     return ViewBatch(theta=theta, phi=phi, radius=radius, dirs=dirs,
                      is_body=u[3] < cfg.body_prob)
+
+
+def circle_poses(size: int, cfg: ViewSamplerConfig, device: torch.device
+                 ) -> ViewBatch:
+    """Fixed eval orbit: phi = i/size · 360° at the eval polar angle."""
+    theta = torch.full((size,), math.radians(cfg.eval_theta),
+                       dtype=torch.float32, device=device)
+    phi = (torch.arange(size, dtype=torch.float32, device=device) / size
+           * (2 * math.pi))
+    radius = torch.full((size,), cfg.radius_range[1] * cfg.eval_radius_scale,
+                        dtype=torch.float32, device=device)
+    dirs = get_view_direction(theta, phi, math.radians(cfg.angle_overhead),
+                              math.radians(cfg.angle_front))
+    return ViewBatch(theta=theta, phi=phi, radius=radius, dirs=dirs,
+                     is_body=torch.ones((size,), dtype=torch.bool,
+                                        device=device))

@@ -18,6 +18,7 @@ from tpunerf_torch.core.views import ViewBatch
 from tpunerf_torch.fields import occupancy as occ_lib
 from tpunerf_torch.fields import volume_render as vr
 from tpunerf_torch.fields.latent_nerf import LatentNeRFConfig, LatentNeRFField
+from tpunerf_torch.utils import resolve_device
 
 LATER_SLICE = ("not ported yet: the sketch-shape SDF and mesh extraction "
                "come with slice 3 of the port (see ROADMAP.md)")
@@ -47,11 +48,14 @@ class LatentNeRFScene(nn.Module):
                num_compacted: int = 64, train_grid_size: int = 64,
                shape_path: Optional[str] = None, dy: float = 0.0,
                mlp_dtype: str = "auto",
-               device: torch.device = torch.device("cpu"),
+               device: Optional[torch.device] = None,
                generator: Optional[torch.Generator] = None
                ) -> "LatentNeRFScene":
+        """Build the field and its occupancy grid on `device` (CUDA unless
+        the caller names another)."""
         if shape_path is not None:
             raise NotImplementedError(f"guide.shape_path: {LATER_SLICE}")
+        device = resolve_device(device)
         fcfg = LatentNeRFConfig.tiny() if tiny else LatentNeRFConfig()
         fcfg = dataclasses.replace(
             fcfg, out_channels=4 if nerf_type == "latent" else 3, bound=bound,

@@ -7,8 +7,11 @@ with a later slice of the port.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from tpunerf_torch.utils import resolve_device
 
 NUM_TRAIN_TIMESTEPS = 1000
 BETA_START = 0.00085
@@ -27,8 +30,10 @@ class NoiseSchedule:
     def scaled_linear(cls, num_train_timesteps: int = NUM_TRAIN_TIMESTEPS,
                       beta_start: float = BETA_START,
                       beta_end: float = BETA_END,
-                      device: torch.device = torch.device("cpu")
+                      device: Optional[torch.device] = None
                       ) -> "NoiseSchedule":
+        """The tables on `device` (CUDA unless the caller names another)."""
+        device = resolve_device(device)
         sqrt_betas = torch.linspace(beta_start ** 0.5, beta_end ** 0.5,
                                     num_train_timesteps, dtype=torch.float32,
                                     device=device)

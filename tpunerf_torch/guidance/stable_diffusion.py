@@ -1,8 +1,9 @@
 """StableDiffusion guidance backend — text-conditioned SDS in latent mode.
 
-Holds the UNet, the CLIP text tower, the tokenizer and the noise schedule:
-CFG text embeddings (`get_text_embeds`) and the SDS loss on rendered
-latents (`train_step_loss`). The VAE (RGB mode, eval decodes), the DDIM
+Holds the UNet, the VAE, the CLIP text tower, the tokenizer and the noise
+schedule: CFG text embeddings (`get_text_embeds`), the SDS loss on rendered
+latents (`train_step_loss`), VAE encode/decode with the 0.18215 latent
+scaling, and the fixed latent→RGB preview matrix. RGB-mode SDS, the DDIM
 samplers, inversion and pretrained-weight loading come with later slices
 of the port.
 """
@@ -15,11 +16,40 @@ from typing import Optional, Sequence, Union
 import torch
 
 from tpunerf_torch.guidance import sds as sds_lib
+from tpunerf_torch.guidance import vae as vae_lib
 from tpunerf_torch.guidance.clip_text import (CLIPTextConfig, CLIPTextModel,
                                               make_tokenizer)
 from tpunerf_torch.guidance.schedulers import NoiseSchedule
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
-from tpunerf_torch.utils import init_like_flax_, resolve_dtype
+from tpunerf_torch.utils import (init_like_flax_, resolve_device,
+                                 resolve_dtype)
+
+# Fixed 4×3 latent→RGB preview matrix.
+LINEAR_RGB_ESTIMATOR = torch.tensor([
+    #   R       G       B
+    [0.298, 0.207, 0.208],     # L1
+    [0.187, 0.286, 0.173],     # L2
+    [-0.158, 0.189, 0.264],    # L3
+    [-0.184, -0.271, -0.473],  # L4
+], dtype=torch.float32)
+
+# The latent of a mid-grey image.
+LATENT_GRAY = torch.tensor([0.9071, -0.7711, 0.7437, 0.1510],
+                           dtype=torch.float32)
+
+
+def latent_to_rgb_preview(latents: torch.Tensor) -> torch.Tensor:
+    """Cheap latent→RGB linear preview, NHWC (..., 4) → (..., 3)."""
+    return latents @ LINEAR_RGB_ESTIMATOR.to(latents)
+
+
+def rgb_to_latent_init(rgb: torch.Tensor, regularizer: float = 1e-2
+                       ) -> torch.Tensor:
+    """Ridge-regularized pseudo-inverse of the preview matrix — the latent
+    that previews as `rgb`."""
+    A = LINEAR_RGB_ESTIMATOR.T.to(rgb)             # (3, 4)
+    M = torch.linalg.pinv(A.T @ A + regularizer * torch.eye(4).to(rgb)) @ A.T
+    return rgb @ M.T
 
 
 def _build(module_cls, cfg, device: torch.device,
@@ -36,12 +66,15 @@ def _build(module_cls, cfg, device: torch.device,
 @dataclasses.dataclass
 class StableDiffusionGuidance:
     unet: UNet2DCondition
+    vae: vae_lib.AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: object
     sched: NoiseSchedule
     latent_mode: bool = True
     min_step: int = 20            # int(1000·0.02)
     max_step: int = 980           # int(1000·0.98)
+    latent_size: int = 64
+    image_size: int = 512
 
     @property
     def device(self) -> torch.device:
@@ -52,37 +85,38 @@ class StableDiffusionGuidance:
                latent_mode: bool = True,
                min_step: float = 0.02, max_step: float = 0.98,
                unet_dtype: str = "float32",
-               device: torch.device = torch.device("cpu"),
+               device: Optional[torch.device] = None,
                generator: Optional[torch.Generator] = None
                ) -> "StableDiffusionGuidance":
-        """Build the UNet and the text tower, random-initialised like flax
-        from `generator`. `unet_dtype` is the weight/compute dtype of the
-        frozen UNet ("auto" = bf16 on CUDA, f32 on the CPU); the text
-        tower stays f32."""
+        """Build the UNet, the text tower and the VAE on `device` (CUDA
+        unless the caller names another), random-initialised like flax from
+        `generator`, in that order. `unet_dtype` is the weight/compute
+        dtype of the frozen UNet ("auto" = bf16 on CUDA, f32 on the CPU);
+        the VAE and the text tower stay f32."""
         if model_dir is not None:
             raise NotImplementedError(
                 "guide.model_dir: loading pretrained SD weights is not "
                 "ported yet (it waits for the weights to be in the repo)")
-        if not latent_mode:
-            raise NotImplementedError(
-                "RGB mode needs the VAE, which comes with slice 2 of the "
-                "port (see ROADMAP.md)")
-        device = torch.device(device)
+        device = resolve_device(device)
         ucfg = UNetConfig.tiny() if tiny else UNetConfig.sd_v1()
+        vcfg = vae_lib.VAEConfig.tiny() if tiny else vae_lib.VAEConfig.sd_v1()
         tcfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig.vit_l_14()
+        latent_size, image_size = (16, 64) if tiny else (64, 512)
         unet = _build(UNet2DCondition, ucfg, device, generator)
         unet = unet.to(resolve_dtype(unet_dtype, device))
         text = _build(CLIPTextModel, tcfg, device, generator)
         with torch.no_grad():   # flax: normal(0.01) position table
             text.embeddings.position_embedding.weight.normal_(
                 0.0, 0.01, generator=generator)
+        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
         tokenizer = make_tokenizer(model_dir, vocab_size=tcfg.vocab_size,
                                    max_length=tcfg.max_length)
         sched = NoiseSchedule.scaled_linear(device=device)
-        return cls(unet=unet, text_encoder=text, tokenizer=tokenizer,
-                   sched=sched, latent_mode=latent_mode,
+        return cls(unet=unet, vae=vae, text_encoder=text,
+                   tokenizer=tokenizer, sched=sched, latent_mode=latent_mode,
                    min_step=int(sched.num_train_timesteps * min_step),
-                   max_step=int(sched.num_train_timesteps * max_step))
+                   max_step=int(sched.num_train_timesteps * max_step),
+                   latent_size=latent_size, image_size=image_size)
 
     # ------------------------------------------------------------------ #
     def unet_apply(self, latents: torch.Tensor, t: torch.Tensor,
@@ -121,7 +155,29 @@ class StableDiffusionGuidance:
         """SDS loss on rendered latents (B, H, W, 4): its gradient w.r.t.
         `inputs` is w·(ε̂ − ε). `t` and `noise` are drawn from `generator`
         unless given."""
+        if not self.latent_mode:
+            raise NotImplementedError(
+                "RGB-mode SDS (encode the render through the VAE) comes "
+                "with the RGB-finetune slice of the port (see ROADMAP.md)")
         return sds_lib.sds_loss(self.unet_apply, self.sched, inputs,
                                 text_embeddings, guidance_scale,
                                 self.min_step, self.max_step, t=t,
                                 noise=noise, generator=generator)
+
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
+        return vae_lib.decode_latents(self.vae, latents)
+
+    @torch.no_grad()
+    def encode_imgs(self, imgs01: torch.Tensor,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
+                                   generator=generator)
+
+    @torch.no_grad()
+    def encode_imgs_mode(self, imgs01: torch.Tensor) -> torch.Tensor:
+        return vae_lib.encode_imgs_mode(self.vae, imgs01)

@@ -6,8 +6,10 @@ import logging
 import math
 import os
 import random
+import struct
 import sys
 import time
+import zlib
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
@@ -102,6 +104,35 @@ def make_path(path: Path) -> Path:
     path = Path(path)
     path.mkdir(exist_ok=True, parents=True)
     return path
+
+
+def write_png(path: Union[str, Path], img: np.ndarray) -> None:
+    """Write a uint8 image — (H, W) grey, (H, W, 1), (H, W, 3) RGB or
+    (H, W, 4) RGBA — as a PNG, with the standard library only."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"write_png takes uint8, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    try:
+        color_type = {1: 0, 3: 2, 4: 6}[img.shape[2]]
+    except (KeyError, IndexError):
+        raise ValueError(f"write_png: bad image shape {img.shape}") from None
+    height, width = img.shape[:2]
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate(
+        [np.zeros((height, 1), np.uint8), img.reshape(height, -1)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body)))
+
+    header = struct.pack(">IIBBBBB", width, height, 8, color_type, 0, 0, 0)
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+        + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + chunk(b"IEND", b""))
 
 
 def init_logger(exp_dir: Optional[Path] = None,

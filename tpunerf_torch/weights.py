@@ -10,7 +10,10 @@ convert as
 * biases, the hash table and the occupancy grid as they are;
 
 and module paths are renamed onto the port's (diffusers- and
-transformers-style) names.
+transformers-style) names. The textured-mesh scene's three parameters
+(`background_sphere_colors`, `texture_img`, `texture_img_rgb_finetune`)
+keep their layout: the port holds textures NHWC and dome colours
+(1, F, 3, C), exactly as the JAX package does, so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -32,6 +35,15 @@ _RENAMES = {
         (r"^mid_res_(\d+)$", r"mid_block.resnets.\1"),
         (r"^mid_attn$", r"mid_block.attentions.0"),
         (r"^block_(\d+)$", r"transformer_blocks.\1"),
+        (r"^to_out$", r"to_out.0"),
+    ],
+    "vae": [
+        (r"^down_(\d+)_res_(\d+)$", r"down_blocks.\1.resnets.\2"),
+        (r"^down_(\d+)_downsample$", r"down_blocks.\1.downsamplers.0.conv"),
+        (r"^up_(\d+)_res_(\d+)$", r"up_blocks.\1.resnets.\2"),
+        (r"^up_(\d+)_upsample$", r"up_blocks.\1.upsamplers.0.conv"),
+        (r"^mid_res_(\d+)$", r"mid_block.resnets.\1"),
+        (r"^mid_attn$", r"mid_block.attentions.0"),
         (r"^to_out$", r"to_out.0"),
     ],
     "clip_text": [
@@ -71,8 +83,12 @@ def state_dict_from_flax(tree: Mapping[str, Any], kind: str
 
     kind "field": a `LatentNeRFField`'s params; "scene": the scene params
     {"field": …, "occ_grid": …} (→ `LatentNeRFScene`, whose packed bitfield
-    is derived from the grid); "unet": `UNet2DCondition`; "clip_text":
+    is derived from the grid); "paint_scene": a `TexturedMeshScene`'s
+    params; "unet": `UNet2DCondition`; "vae": `AutoencoderKL`; "clip_text":
     `CLIPTextModel`. A leading "params" collection is unwrapped."""
+    if kind == "paint_scene":
+        return {k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in tree.items()}
     if kind == "scene":
         from tpunerf_torch.fields.occupancy import (OccupancyGridConfig,
                                                     packed_bitfield)
