@@ -17,11 +17,13 @@ import tpunerf.training.config as jconfig
 import tpunerf_torch
 import tpunerf_torch.training.config as tconfig
 from tpunerf_torch.fields.scene import LatentNeRFScene
-from tpunerf_torch.guidance.schedulers import NoiseSchedule
+from tpunerf_torch.guidance.schedulers import NoiseSchedule, ddim_timesteps
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
 from tpunerf_torch.train_latent_nerf import main, split_device
 from tpunerf_torch.train_latent_paint import main as paint_main
+from tpunerf_torch.train_latent_paint_mesh import main as mesh_main
+from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
 from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
 from tpunerf_torch.training.latent_paint import LatentPaintApp
 from tpunerf_torch.training.trainer import Trainer, unported_settings
@@ -40,7 +42,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     for m in ("train_latent_nerf", "train_latent_paint", "core.obj_io",
               "meshrep.uv_unwrap", "meshrep.textured_mesh", "guidance.vae",
               "kernels.rasterize", "kernels.texture",
-              "training.latent_paint"):
+              "training.latent_paint", "train_latent_paint_mesh",
+              "training.latent_paint_mesh", "meshrep.laplacian",
+              "meshrep.displacement_mlp"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -69,8 +73,13 @@ def test_kernels_are_cuda_sources_of_the_package():
                      "rasterize.cu"]
     raster = (PKG / "csrc" / "rasterize.cu").read_text()
     for symbol in ("select_faces_dense", "select_faces_binned",
-                   "__fmul_rn", "__fadd_rn"):
+                   "soft_fwd_dense", "soft_fwd_binned", "soft_bwd_dense",
+                   "soft_bwd_binned", "expf(", "__fmul_rn", "__fadd_rn"):
         assert symbol in raster, symbol
+    assert raster.count("__global__") == 6 and "__expf" not in raster
+    assert "use_fast_math" not in " ".join(
+        __import__("tpunerf_torch.kernels._build",
+                   fromlist=["NVCC_FLAGS"]).NVCC_FLAGS)
     for p in (PKG / "csrc").glob("*.cu"):
         text = p.read_text()
         assert "Replaces" in text and "bound" in text, p.name
@@ -102,6 +111,11 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         paint_main(["--guide.tiny_diffusion", "true", "--guide.shape_path",
                     "sphere"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LatentPaintMeshApp.create(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh_main(["--guide.tiny_diffusion", "true", "--guide.shape_path",
+                   "sphere"])
 
 
 @pytest.mark.parametrize("create", [
@@ -109,7 +123,9 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
     lambda: LatentNeRFScene.create(tiny=True),
     lambda: NoiseSchedule.scaled_linear(),
     lambda: TexturedMeshScene.create("sphere"),
-], ids=["guidance", "nerf_scene", "noise_schedule", "mesh_scene"])
+    lambda: ddim_timesteps(50),
+], ids=["guidance", "nerf_scene", "noise_schedule", "mesh_scene",
+        "ddim_timesteps"])
 def test_constructors_resolve_no_device_to_the_card(monkeypatch, create):
     """`device=None` means CUDA: here, without a card, each raises the
     `resolve_device` error instead of building on the CPU."""

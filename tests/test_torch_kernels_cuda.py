@@ -153,6 +153,93 @@ def test_binned_selection_kernel_matches_plain_and_dense_exactly():
     assert torch.equal(fid, rz.select_faces_dense(rows, pix))
 
 
+def _soft_inputs(dev, size, n_views, seed, wide=True):
+    """Soft rows of the projected sphere (the wide camera sees its rim),
+    with a degenerate face, a face outside the view and a padded row."""
+    fv_img, _, _ = _projected_sphere(dev, n_views, seed)
+    fv_img = fv_img.clone()
+    fv_img[:, 5, 2] = fv_img[:, 5, 1]
+    fv_img[:, 6] += 3.0
+    rows = rz._soft_rows(fv_img).contiguous()
+    rows[:, 9, 15] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pix = rz.pixel_grid_ndc(size, size, dev)
+    return fv_img, rows, pix, gen
+
+
+@pytest.mark.parametrize("size", [64, 50])
+def test_dense_soft_kernels_match_plain(size):
+    dev = _card()
+    _, rows, pix, gen = _soft_inputs(dev, size, 2, 5)
+    P = pix.shape[0]                           # 50² is no multiple of 32
+    prod = _launched(rz.SOFT_FWD_DENSE,
+                     lambda: rz.soft_prod_dense(rows, pix, 1e-4))
+    ref = rz.soft_prod_dense_plain(rows, pix, 1e-4)
+    assert prod.shape == (2, P)
+    # a product of the same factors in eight slices: rounding only
+    assert (prod - ref).abs().max().item() <= 5e-6
+    assert ((ref > 0.01) & (ref < 0.99)).any() and (ref == 0).any()
+    g = torch.randn((2, P), generator=gen, device=dev)
+    grad = _launched(rz.SOFT_BWD_DENSE,
+                     lambda: rz.soft_grad_dense(rows, pix, g, prod, 1e-4))
+    # each backward with its own forward's prod; sums in another order
+    _close_to_max(grad, rz.soft_grad_dense_plain(rows, pix, g, ref, 1e-4),
+                  2e-5, "dense soft backward")
+    assert torch.isfinite(grad).all()
+    assert grad[:, 6].abs().max() == 0 and grad[:, 9].abs().max() == 0
+    # deterministic: no atomics
+    assert torch.equal(grad, rz.soft_grad_dense(rows, pix, g, prod, 1e-4))
+
+
+def test_binned_soft_kernels_match_plain_and_dense():
+    dev = _card()
+    H = W = 512
+    fv_img, _, pix, gen = _soft_inputs(dev, H, 2, 6)
+    B, F = fv_img.shape[:2]
+    K = rz._SOFT_BIN_K
+    ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    if int(maxc) > K:                          # bins that hold, whatever K
+        K = -(-int(maxc) // 128) * 128
+        ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    rows = rz._with_filler(rz._soft_rows(fv_img)).contiguous()
+    prod = _launched(rz.SOFT_FWD_BINNED,
+                     lambda: rz.soft_prod_binned(rows, ids, pix, 1e-4))
+    ref = rz.soft_prod_binned_plain(rows, ids, pix, 1e-4)
+    assert (prod - ref).abs().max().item() <= 5e-6
+    g = torch.randn(prod.shape, generator=gen, device=dev)
+    slots = _launched(rz.SOFT_BWD_BINNED, lambda: rz.soft_grad_binned(
+        rows, ids, pix, g, prod, 1e-4))
+    _close_to_max(slots,
+                  rz.soft_grad_binned_plain(rows, ids, pix, g, ref, 1e-4),
+                  2e-5, "binned soft backward rows")
+    # against the dense kernels: the bins drop tails below 1e-12; the sum
+    # back to faces (index_add_) runs in an order that varies
+    dense_rows = rows[:, :F].contiguous()
+    dense = rz.soft_prod_dense(dense_rows, pix, 1e-4)
+    assert (prod.reshape(B, -1) - dense).abs().max().item() <= 1e-5
+    _close_to_max(rz._slots_to_faces(slots, ids, F),
+                  rz.soft_grad_dense(dense_rows, pix,
+                                     g.reshape(B, -1).contiguous(), dense,
+                                     1e-4), 1e-4, "binned vs dense backward")
+
+
+def test_soft_silhouette_autograd_runs_the_kernels():
+    dev = _card()
+    fv_img, _, _, gen = _soft_inputs(dev, 64, 1, 7)
+    before = dict(_build.LAUNCHES)
+    v = fv_img.clone().requires_grad_()
+    rz.soft_silhouette(64, 64, v).square().sum().backward()
+    assert _build.LAUNCHES[rz.SOFT_FWD_DENSE] == \
+        before.get(rz.SOFT_FWD_DENSE, 0) + 1
+    assert _build.LAUNCHES[rz.SOFT_BWD_DENSE] == \
+        before.get(rz.SOFT_BWD_DENSE, 0) + 1
+    assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0
+    # card against CPU, the whole pair
+    c = fv_img.cpu().requires_grad_()
+    rz.soft_silhouette(64, 64, c).square().sum().backward()
+    _close_to_max(v.grad.cpu(), c.grad, 1e-4, "soft silhouette gradient")
+
+
 def test_wrappers_raise_instead_of_falling_back():
     dev = _card()
     cfg = HashGridConfig()
@@ -176,6 +263,17 @@ def test_wrappers_raise_instead_of_falling_back():
         rz.select_faces_binned(torch.zeros((1, 4, 12), device=dev),
                                torch.zeros((1, 1, 64), device=dev,
                                            dtype=torch.int64), pix)
+    with pytest.raises(TypeError):
+        rz.soft_prod_dense(torch.zeros((1, 4, 16), device=dev,
+                                       dtype=torch.float64), pix, 1e-4)
+    with pytest.raises(ValueError):
+        rz.soft_grad_dense(torch.zeros((1, 4, 16), device=dev), pix,
+                           torch.zeros((1, 63), device=dev),
+                           torch.zeros((1, 64), device=dev), 1e-4)
+    with pytest.raises(ValueError):      # a CPU map beside CUDA rows
+        rz.soft_grad_dense(torch.zeros((1, 4, 16), device=dev), pix,
+                           torch.zeros((1, 64)),
+                           torch.zeros((1, 64), device=dev), 1e-4)
 
 
 def test_tiny_app_step_goes_through_the_kernels(tmp_path):
@@ -222,4 +320,31 @@ def test_tiny_paint_step_and_eval_go_through_the_kernels(tmp_path):
     assert np.isfinite(losses).all()
     # mesh and dome per step; the 512² eval render takes the band bins
     assert _build.LAUNCHES[rz.DENSE] == 4 and _build.LAUNCHES[rz.BINNED] == 1
+    assert (tmp_path / "default" / "mesh" / "mesh.obj").exists()
+
+
+def test_tiny_mesh_app_step_and_eval_go_through_the_kernels(tmp_path):
+    dev = _card()
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+    from tpunerf_torch.training.trainer import Trainer
+    cfg = parse(TrainConfig, [
+        "--guide.tiny_diffusion", "true", "--guide.shape_path", "sphere",
+        "--guide.texture_resolution", "32", "--optim.iters", "2",
+        "--render.train_grid_size", "24", "--render.eval_grid_size", "64",
+        "--render.body_prob", "0.5", "--log.exp_root", str(tmp_path),
+        "--log.eval_size", "0", "--log.full_eval_size", "2",
+        "--log.save_mesh", "true", "--log.log_images", "false",
+        "--log.save_interval", "100"])
+    app = LatentPaintMeshApp.create(cfg, device=dev)
+    trainer = Trainer(cfg, app, device=dev)
+    _build.reset_launches()
+    losses = []
+    trainer.train(on_step=lambda s, loss: losses.append(loss.item()))
+    assert np.isfinite(losses).all()
+    # two cameras per step and per eval chunk; no loss reads the soft mask
+    assert _build.LAUNCHES[rz.SOFT_FWD_DENSE] == 2 * 2 + 2
+    assert _build.LAUNCHES.get(rz.SOFT_BWD_DENSE, 0) == 0
+    assert app.scene.displacement.abs().max() > 0
     assert (tmp_path / "default" / "mesh" / "mesh.obj").exists()

@@ -268,10 +268,13 @@ def test_icosphere_goes_through_the_unwrap(tiny_sd_guidance, apps, tmp_path):
 def test_unported_options_are_refused_naming_their_slice(apps):
     from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
     _, _, tapp = apps
-    for kw in (dict(enable_displacement=True), dict(dual_camera=True),
-               dict(soft_mask_sigma=1e-4)):
-        with pytest.raises(NotImplementedError, match="latent-paint-mesh"):
-            TexturedMeshScene.create("sphere", device="cpu", **kw)
+    # the mesh-slice options are ported: each builds its part of the scene
+    scene = TexturedMeshScene.create(
+        "sphere", device="cpu", enable_displacement=True, dual_camera=True,
+        soft_mask_sigma=1e-4)
+    assert scene.displacement.shape == scene.mesh.vertices.shape
+    assert scene.head_camera is not None and scene.soft_mask_sigma == 1e-4
+    assert tapp.scene.head_camera is None and tapp.scene.laplacian is None
     with pytest.raises(NotImplementedError, match="checkpoint"):
         tapp.migrate_params()
     with pytest.raises(NotImplementedError, match="checkpoint"):

@@ -52,14 +52,14 @@ def test_projection_and_prepare_vertices_match_jax(rng):
     radius = np.array([0.5, 1.4], np.float32)
     for fovy in (math.pi / 3, math.pi / 4):
         np.testing.assert_allclose(
-            tcam.perspective_projection(fovy).numpy(),
+            tcam.perspective_projection(fovy, device="cpu").numpy(),
             np.asarray(jcam.perspective_projection(fovy)), rtol=1e-7)
     jtr = jcam.camera_transform_from_view(theta, phi, radius)
     ttr = tcam.camera_transform_from_view(_t(theta), _t(phi), _t(radius))
     ref = jcam.prepare_vertices(jnp.asarray(verts), jnp.asarray(faces),
                                 jcam.perspective_projection(), jtr)
     got = tcam.prepare_vertices(_t(verts), _t(faces),
-                                tcam.perspective_projection(), ttr)
+                                tcam.perspective_projection(device="cpu"), ttr)
     assert (np.asarray(ref[0])[..., 2] > 0).any(), "some vertex is behind"
     for g, r, name in zip(got, ref, ("camera", "image", "normals")):
         r = np.asarray(r)
@@ -222,14 +222,41 @@ def test_renderers_match_jax_on_the_dome_seen_from_inside(rng):
     assert (~close).sum() <= 2, "only pixels within rounding of an edge"
 
 
-@pytest.mark.parametrize("kw", [dict(compute_normals=True),
-                                dict(lights=torch.zeros((1, 9))),
-                                dict(displacement=torch.zeros((4, 3))),
-                                dict(soft_mask_sigma=1e-4)])
-def test_mesh_slice_branches_are_refused(kw):
-    verts = torch.zeros((4, 3))
-    faces = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="latent-paint-mesh"):
-        trender.render_single_view_texture(
-            verts, faces, torch.zeros((1, 2, 3, 2)), torch.zeros((1, 2, 2, 3)),
-            1.0, 0.0, 2.0, **kw)
+@pytest.mark.parametrize("kw", ["compute_normals", "lights", "displacement",
+                                "soft_mask_sigma"])
+def test_mesh_slice_branches_match_jax(rng, kw):
+    """Each branch of the textured renderer that latent-paint-mesh adds,
+    switched on alone, against the JAX package's."""
+    jm = jshapes.uv_sphere(12, 16)
+    verts = np.asarray(jm.vertices, np.float32) * 0.6
+    faces = np.asarray(jm.faces)
+    uv = np.asarray(jm.vt)[np.asarray(jm.ft)][None].astype(np.float32)
+    tex = rng.uniform(size=(1, 16, 16, 3)).astype(np.float32)
+    opts = {"compute_normals": dict(compute_normals=True),
+            "lights": dict(compute_normals=True,
+                           lights=rng.normal(size=(1, 9)).astype(np.float32)),
+            "displacement": dict(displacement=(0.03 * rng.normal(
+                size=verts.shape)).astype(np.float32)),
+            "soft_mask_sigma": dict(soft_mask_sigma=1e-3)}[kw]
+    conv = lambda f: {k: f(v) if isinstance(v, np.ndarray) else v  # noqa
+                      for k, v in opts.items()}
+    ref = jrender.render_single_view_texture(
+        jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(uv),
+        jnp.asarray(tex), [1.0], [0.7], [1.3], dims=(24, 24),
+        **conv(jnp.asarray))
+    got = trender.render_single_view_texture(
+        _t(verts), _t(faces), _t(uv), _t(tex), [1.0], [0.7], [1.3],
+        dims=(24, 24), **conv(_t))
+    same = got.face_idx.numpy() == np.asarray(ref.face_idx)
+    assert (~same).sum() <= 2, "only pixels within rounding of an edge"
+    for name in ("image", "mask", "depth", "normals", "lighting"):
+        g, r = getattr(got, name), getattr(ref, name)
+        assert (g is None) == (r is None), name
+        if g is not None:
+            # f32 barycentrics; the soft mask's exp(−d²/σ) at σ = 1e-3
+            np.testing.assert_allclose(g.numpy()[same], np.asarray(r)[same],
+                                       atol=2e-5, err_msg=name)
+    assert (got.normals is not None) == (kw in ("compute_normals", "lights"))
+    assert (got.lighting is not None) == (kw == "lights")
+    if kw == "soft_mask_sigma":
+        assert ((got.mask > 0.01) & (got.mask < 0.99)).any()

@@ -38,13 +38,13 @@ def _dense_both(fv_img, fv_z, valid, H, W):
     ref = JR._select_faces_pallas(pix, jnp.asarray(fv_img), jnp.asarray(fv_z),
                                   jnp.asarray(valid), interpret=True)
     rows = TR._face_rows(_t(fv_img)[None], _t(fv_z)[None], _t(valid)[None])
-    got = TR.select_faces_dense(rows, TR.pixel_grid_ndc(H, W))
+    got = TR.select_faces_dense(rows, TR.pixel_grid_ndc(H, W, torch.device("cpu")))
     return got[0].numpy(), np.asarray(ref), rows
 
 
 def test_pixel_grid_and_band_ranges_equal_jax_bitwise():
     for H, W in ((24, 24), (128, 128), (96, 160)):
-        np.testing.assert_array_equal(TR.pixel_grid_ndc(H, W).numpy(),
+        np.testing.assert_array_equal(TR.pixel_grid_ndc(H, W, torch.device("cpu")).numpy(),
                                       np.asarray(JR.pixel_grid_ndc(H, W)))
         nb = -(-H * W // 1024)
         ylo, yhi = TR._band_ranges(H, W, nb, torch.device("cpu"))
@@ -108,7 +108,7 @@ def test_dense_plain_chunking_keeps_the_tie_rule(monkeypatch):
     fv_z = np.full((37, 3), -2.0, np.float32)
     rows = TR._face_rows(_t(fv_img)[None], _t(fv_z)[None],
                          torch.ones((1, 37), dtype=torch.bool))
-    pix = TR.pixel_grid_ndc(16, 16)
+    pix = TR.pixel_grid_ndc(16, 16, torch.device("cpu"))
     whole = TR.select_faces_dense_plain(rows, pix)
     monkeypatch.setattr(TR, "_PLAIN_BLOCK", 5 * 256)      # 5 faces a block
     parts = TR.select_faces_dense_plain(rows, pix)
@@ -145,7 +145,7 @@ def test_binned_plain_equals_pallas_binned_and_dense():
     ref = JR._select_faces_batched(
         JR.pixel_grid_ndc(H, W), jnp.asarray(fv_img), jnp.asarray(fv_z),
         jnp.asarray(valid), H, W, K=K, interpret=True)
-    pix = TR.pixel_grid_ndc(H, W)
+    pix = TR.pixel_grid_ndc(H, W, torch.device("cpu"))
     launched = []
     binned = TR.select_faces_binned
     TR.select_faces_binned = lambda *a: launched.append(1) or binned(*a)
@@ -179,7 +179,7 @@ def test_binned_overflow_takes_the_dense_sweep(monkeypatch):
         raise AssertionError("an overflowing bin was swept")
 
     monkeypatch.setattr(TR, "select_faces_binned", refuse)
-    got = TR._select_faces_batched(TR.pixel_grid_ndc(H, W), _t(fv_img)[None],
+    got = TR._select_faces_batched(TR.pixel_grid_ndc(H, W, torch.device("cpu")), _t(fv_img)[None],
                                    _t(fv_z)[None], _t(valid)[None], H, W, K=K)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert (got.numpy() == F - 1).any()       # the nearest copy wins
@@ -300,7 +300,22 @@ def test_oracle_barycentric_affine_exactness():
                                f(px)[covered], atol=1e-5)
 
 
-def test_soft_silhouette_is_refused_naming_its_slice():
-    for fn in (TR.soft_silhouette, TR.dibr_rasterization):
-        with pytest.raises(NotImplementedError, match="latent-paint-mesh"):
-            fn(8, 8, None)
+def test_soft_silhouette_of_one_triangle_is_an_oracle():
+    """Inside the triangle the mask is 1; outside it is exp(−d²/σ) of the
+    distance to the nearest edge, here the bottom edge y = −0.5."""
+    tri = torch.tensor([[[[-0.6, -0.5], [0.6, -0.5], [0.0, 0.7]]]])
+    sigma = 1e-2
+    mask = TR.soft_silhouette(8, 8, tri, sigma=sigma)[0].numpy()
+    xs, ys = _pix_axes(8)
+    assert mask[3, 3] == 1.0 and mask[3, 4] == 1.0         # interior
+    for row in (6, 7):                                     # below the base
+        d = -0.5 - ys[row]
+        # 1 − (1 − p) in f32: an ulp of 1
+        np.testing.assert_allclose(mask[row, 3], np.exp(-d * d / sigma),
+                                   rtol=1e-5, atol=1.2e-7)
+    assert mask[0, 0] < 1e-12                              # far corner
+    feats, soft, fid = TR.dibr_rasterization(
+        8, 8, torch.full((1, 1, 3), -2.0), tri, torch.ones((1, 1, 3, 1)),
+        sigma=sigma)
+    np.testing.assert_array_equal(soft[0].numpy(), mask)
+    assert ((fid[0].numpy() >= 0) == (mask == 1.0)).all()

@@ -74,9 +74,8 @@ def camera_transform_from_view(theta: torch.Tensor, phi: torch.Tensor,
     return look_at_transform(pos, look_at, up)
 
 
-def perspective_projection(fovy: float = math.pi / 3, ratio: float = 1.0,
-                           device: torch.device = torch.device("cpu")
-                           ) -> torch.Tensor:
+def perspective_projection(fovy: float = math.pi / 3, ratio: float = 1.0, *,
+                           device: torch.device) -> torch.Tensor:
     """Projection coefficients (3,): NDC x = px·c0/−pz, y = py·c1/−pz."""
     tanfov = math.tan(fovy / 2.0)
     proj = torch.full((3,), -1.0, dtype=torch.float32, device=device)

@@ -1,13 +1,13 @@
-"""Diffusion noise schedule: the DDPM tables SDS needs.
+"""Diffusion noise schedule: the DDPM tables SDS needs, and the DDIM step.
 
 Tables from the Stable-Diffusion config (scaled_linear β ∈ [0.00085,
-0.012], 1000 train steps). The DDIM / PNDM samplers of the JAX package come
-with a later slice of the port.
+0.012], 1000 train steps). The DDIM-inverse and PNDM samplers of the JAX
+package come with a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +25,15 @@ class NoiseSchedule:
     alphas: torch.Tensor           # (T,)
     alphas_cumprod: torch.Tensor   # (T,)
     num_train_timesteps: int = NUM_TRAIN_TIMESTEPS
+    # the SD DDIM default (set_alpha_to_one=False): the step past t = 0
+    # uses ᾱ₀
+    final_alpha_cumprod_is_one: bool = False
+
+    @property
+    def final_alpha_cumprod(self) -> torch.Tensor:
+        if self.final_alpha_cumprod_is_one:
+            return torch.ones_like(self.alphas_cumprod[0])
+        return self.alphas_cumprod[0]
 
     @classmethod
     def scaled_linear(cls, num_train_timesteps: int = NUM_TRAIN_TIMESTEPS,
@@ -54,3 +63,37 @@ class NoiseSchedule:
         """SDS weight w(t) = √ᾱ_t·(1−ᾱ_t)."""
         a = self.alphas_cumprod[t]
         return torch.sqrt(a) * (1.0 - a)
+
+
+def ddim_timesteps(num_inference_steps: int,
+                   num_train_timesteps: int = NUM_TRAIN_TIMESTEPS,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
+    """Descending timestep grid ('leading' spacing, as SD uses it):
+    t_i = (S−1−i)·(T//S) + 1 (50 steps: 981, 961, … 1), int64, on `device`
+    (CUDA unless the caller names another)."""
+    ratio = num_train_timesteps // num_inference_steps
+    steps = torch.arange(num_inference_steps - 1, -1, -1, dtype=torch.int64,
+                         device=resolve_device(device))
+    return steps * ratio + 1
+
+
+class DDIMStepOutput(NamedTuple):
+    prev_sample: torch.Tensor
+    pred_x0: torch.Tensor
+
+
+def ddim_step(sched: NoiseSchedule, eps: torch.Tensor, t: torch.Tensor,
+              sample: torch.Tensor, num_inference_steps: int
+              ) -> DDIMStepOutput:
+    """Deterministic DDIM update x_t → x_{t−Δ} (ε-prediction, η = 0)."""
+    step = sched.num_train_timesteps // num_inference_steps
+    prev_t = t - step
+    a_t = sched.alphas_cumprod[t]
+    a_prev = torch.where(prev_t >= 0,
+                         sched.alphas_cumprod[prev_t.clamp(min=0)],
+                         sched.final_alpha_cumprod)
+    shape = (1,) * sample.ndim
+    a_t, a_prev = a_t.reshape(shape), a_prev.reshape(shape)
+    pred_x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * eps
+    return DDIMStepOutput(prev_sample=prev, pred_x0=pred_x0)

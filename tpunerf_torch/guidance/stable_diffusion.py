@@ -4,8 +4,8 @@ Holds the UNet, the VAE, the CLIP text tower, the tokenizer and the noise
 schedule: CFG text embeddings (`get_text_embeds`), the SDS loss on rendered
 latents (`train_step_loss`), VAE encode/decode with the 0.18215 latent
 scaling, and the fixed latent→RGB preview matrix. RGB-mode SDS, the DDIM
-samplers, inversion and pretrained-weight loading come with later slices
-of the port.
+sampling loops, inversion and pretrained-weight loading come with later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -170,11 +170,13 @@ class StableDiffusionGuidance:
         """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
         return vae_lib.decode_latents(self.vae, latents)
 
-    @torch.no_grad()
     def encode_imgs(self, imgs01: torch.Tensor,
                     noise: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
+        """[0, 1] images (B, 8h, 8w, 3) → scaled latents, a sample of the
+        posterior; differentiable to the images (the weights are
+        frozen)."""
         return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
                                    generator=generator)
 

@@ -85,6 +85,7 @@ class LatentPaintApp:
             generator=generator)
         return loss, {"image": render["image"].detach()}
 
+    @torch.no_grad()
     def eval_render(self, views: ViewBatch, dims: Tuple[int, int]
                     ) -> Dict[str, torch.Tensor]:
         return self.scene.render_test(

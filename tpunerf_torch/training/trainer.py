@@ -7,9 +7,9 @@ app's `post_step` (the occupancy refresh). Every random draw comes from one
 `grad_norm`, `steps_per_s`, `rays_per_s` and the app's scalars) go to
 `<exp_dir>/metrics.jsonl` every 50 steps.
 
-For an app with an `eval_render` (latent-paint) the trainer also renders
-the eval orbit: `log.eval_size` frames before the first step into
-`vis/eval/`, and after the last step `log.full_eval_size` frames into
+For an app with an `eval_render` (latent-paint, latent-paint-mesh) the
+trainer also renders the eval orbit, under `no_grad`: `log.eval_size`
+frames before the first step into `vis/eval/`, and after the last step `log.full_eval_size` frames into
 `results/` (a video where an encoder is installed, PNGs otherwise) and the
 mesh export of `log.save_mesh`. Checkpoints, train-render images, the
 chunked trainer and profiler traces are not ported yet; a config that asks
@@ -56,6 +56,7 @@ def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
             optim.resume or optim.ckpt is not None,
         "optim.check_nan (last-good checkpoint)": optim.check_nan,
         "optim.train_chunk > 1 (chunked trainer)": optim.train_chunk > 1,
+        "optim.use_opt_txt (text-token optimisation)": optim.use_opt_txt,
     }
     return [k for k, v in asks.items() if v]
 
@@ -159,6 +160,7 @@ class Trainer:
             self.logger.info("\tDone!")
 
     # ------------------------------------------------------------------ #
+    @torch.no_grad()
     def evaluate(self, step: int, size: int, save_as_video: bool = False,
                  out_dir: Optional[Path] = None) -> List[np.ndarray]:
         """Render and save `size` frames of the eval orbit, in chunks of

@@ -10,10 +10,11 @@ convert as
 * biases, the hash table and the occupancy grid as they are;
 
 and module paths are renamed onto the port's (diffusers- and
-transformers-style) names. The textured-mesh scene's three parameters
-(`background_sphere_colors`, `texture_img`, `texture_img_rgb_finetune`)
-keep their layout: the port holds textures NHWC and dome colours
-(1, F, 3, C), exactly as the JAX package does, so nothing is transposed.
+transformers-style) names. The textured-mesh scene's parameters (`background_sphere_colors`,
+`texture_img`, `texture_img_rgb_finetune` and, for latent-paint-mesh,
+`displacement` and `lights`) keep their layout: the port holds textures
+NHWC, dome colours (1, F, 3, C) and displacements (V, 3), exactly as the JAX
+package does, so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -45,6 +46,10 @@ _RENAMES = {
         (r"^mid_res_(\d+)$", r"mid_block.resnets.\1"),
         (r"^mid_attn$", r"mid_block.attentions.0"),
         (r"^to_out$", r"to_out.0"),
+    ],
+    "displacement_mlp": [
+        (r"^norm_(\d+)$", r"norms.\1"),
+        (r"^dense_(\d+)$", r"denses.\1"),
     ],
     "clip_text": [
         (r"^layer_(\d+)$", r"encoder.layers.\1"),
@@ -83,10 +88,11 @@ def state_dict_from_flax(tree: Mapping[str, Any], kind: str
 
     kind "field": a `LatentNeRFField`'s params; "scene": the scene params
     {"field": …, "occ_grid": …} (→ `LatentNeRFScene`, whose packed bitfield
-    is derived from the grid); "paint_scene": a `TexturedMeshScene`'s
-    params; "unet": `UNet2DCondition`; "vae": `AutoencoderKL`; "clip_text":
+    is derived from the grid); "paint_scene" / "paint_mesh_scene": a
+    `TexturedMeshScene`'s three / five params; "displacement_mlp":
+    `DisplacementMLP`; "unet": `UNet2DCondition`; "vae": `AutoencoderKL`; "clip_text":
     `CLIPTextModel`. A leading "params" collection is unwrapped."""
-    if kind == "paint_scene":
+    if kind in ("paint_scene", "paint_mesh_scene"):
         return {k: torch.from_numpy(np.array(v, np.float32))
                 for k, v in tree.items()}
     if kind == "scene":
