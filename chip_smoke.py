@@ -2,29 +2,34 @@
 """Drive the PyTorch/CUDA port (tpunerf_torch) on one NVIDIA card.
 
 1. Builds the CUDA kernels of tpunerf_torch/csrc/ with nvcc (sm_90a).
-2. Holds each of the ten kernels against its plain PyTorch version on the
-   card at the shapes of the full-width latent-NeRF, latent-paint and
+2. Holds each of the first ten kernels against its plain PyTorch version
+   on the card at the shapes of the full-width latent-NeRF, latent-paint and
    latent-paint-mesh paths, and times kernel, plain version and (for
    attention) PyTorch's SDPA with CUDA events.
-3. Checks a tiny step of each app, and the soft silhouette's gradient to
+3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
+   `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
+   at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
+   points-per-block settings, each timed in a CUDA graph and held against
+   its plain version, `full` at 8192 against kernel #2.
+4. Checks a tiny step of each app, and the soft silhouette's gradient to
    the displacement, on the card against the same on the CPU.
-4. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
+5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
    128^3 occupancy grid; S=128, K=64 at 64x64; the 859M-parameter SD-v1
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
    from the seed) through `Trainer.train()` for 17+ steps, so that the
    occupancy refreshes at steps 1 and 16 run.
-5. Trains the port's latent-paint app at full width with the same guidance
+6. Trains the port's latent-paint app at full width with the same guidance
    (procedural sphere of 3968 faces, 960-face background dome, 128^2 latent
    texture, 64x64 train grid) through `Trainer.train()`, which ends with the
    eval orbit (5 frames at 512^2: VAE decode of the texture to 1024^2,
    band-binned face selection, texture sampling) and the mesh export.
-6. Trains the port's latent-paint-mesh app at full width with the same
+7. Trains the port's latent-paint-mesh app at full width with the same
    guidance (sphere, body and head cameras at body_prob 0.7, displacement,
    normals, soft silhouette): mode 0 for 24 steps through `Trainer.train()`
    with the eval orbit (5 frames at 512^2, soft mask by the binned kernel)
    and the export of the displaced mesh, then 4 steps each of mode 1 (TADA,
    512^2 renders, two VAE encodes) and mode 2 (SDEdit).
-7. Drives the soft silhouette's backward kernels through the scene: the
+8. Drives the soft silhouette's backward kernels through the scene: the
    gradient of sum(mask^2) to the displacement through
    `render_train(...)["soft_mask"]` at 64^2 and `render_test(...)["mask"]`
    at 512^2 (no loss of the app reads the soft mask, so no training step
@@ -43,7 +48,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,35 +56,19 @@ ROOT = Path(__file__).resolve().parent
 STEPS = 24      # > 16, so that the refreshes at steps 1 and 16 both run
 DEVICE = "cuda"  # where the latent-paint-mesh phases build and run
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W).
-MEM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
-
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+sys.path.insert(0, str(ROOT))
+try:
+    # the card's peaks, bounds and CUDA-event timing, shared with the
+    # experiments
+    from tpunerf_torch.scripts.card import bound, cuda_ms, nvidia_smi
+except ImportError as exc:
+    fail(f"no tpunerf_torch package beside {Path(__file__).name} ({exc})")
 
 
 def check_kernels(seed: int):
@@ -211,6 +199,70 @@ def check_kernels(seed: int):
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {r['library_ms']}")
     return rows
+
+
+def check_hash_bwd_experiment(seed: int):
+    """Kernel #11, the hash-grid table gradient's cost split, through the
+    experiment's `run` (`python -m tpunerf_torch.scripts.exp_hash_bwd`) at
+    full width: every mode and points per block against its plain version,
+    `full` at 8192 against kernel #2. Returns the kernel's row with this
+    run's launches."""
+    import torch
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+
+    cfg = ex.CFG
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    n = ex.FULL_N
+    iters = 20   # calls a graph (the experiment's default is 50): ~0.4 s
+    _build.reset_launches()
+    rows = ex.run("cuda", n=n, seed=seed, iters=iters)
+    launches = _build.LAUNCHES.get(hg.VARIANT, 0)
+    # the kernels that ran: each variant's warm-ups and two graph replays
+    if launches != len(rows) * (ex.WARMUP + 2 * iters):
+        fail(f"the experiment counted {launches} launches of {hg.VARIANT}, "
+             f"not {len(rows) * (ex.WARMUP + 2 * iters)}")
+    for r in rows:
+        print(ex.format_row(r))
+    if not all(r["ok"] for r in rows):
+        fail("a hash-grid backward variant disagrees with its plain version")
+    for line in ex.split_lines(rows):
+        print(line)
+
+    x, g = ex.make_inputs(n, seed, "cuda")
+    full = hg.hash_bwd_variant_cuda(x, g, cfg, "full", 8192)
+    base = hg.hash_bwd_cuda(x, g, cfg)
+    torch.cuda.synchronize()
+    err = (full - base).abs().max().item()
+    tol = ex.REL_TOL * base.abs().max().item()   # atomics: order varies
+    print(f"hashgrid_bwd_variant full ppb=8192 vs hashgrid_bwd: max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        fail("the variant full at 8192 disagrees with kernel #2")
+    flat, wg = ex.index_add_operands(x, g)
+    b_ms, b_by = ex.bound_ms(n)
+    mhz = ex.max_sm_mhz()
+    at8192 = next(r for r in rows
+                  if r["mode"] == "full" and r["points_per_block"] == 8192)
+    row = dict(
+        name=hg.VARIANT, route="cuda", source="tpunerf_torch/csrc/hashgrid.cu",
+        replaces="scripts/exp_hash_bwd.py:146", launches=launches,
+        max_abs_err=at8192["max_abs_err"], ms=at8192["ms"],
+        plain_ms=cuda_ms(lambda: hg.hash_bwd_variant_plain(
+            x, g, cfg, "full", 8192), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.zeros(
+            (L * T, F), device="cuda").index_add_(0, flat, wg), 5),
+        atomics_bound_ms=None if mhz is None else ex.atomics_bound_ms(
+            n, mhz),
+        variants={f"{r['mode']}@{r['points_per_block']}": r["ms"]
+                  for r in rows})
+    print(f"  {row['name']}: full@8192 {row['ms']:.4f} ms (CUDA graph), "
+          f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"shared atomics {row['atomics_bound_ms']} ms at {mhz} MHz, "
+          f"index_add_ {row['library_ms']:.4f} ms, launches {launches}")
+    return row
 
 
 SEL_FLOPS = 25   # per face-pixel pair: 4 affine forms, 3 compares, a select
@@ -1453,15 +1505,11 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
-    sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
+    smi = nvidia_smi("name,power.limit")
     print(f"device: {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(f"nvidia-smi: {smi[0] if smi else 'unavailable'}")
@@ -1479,6 +1527,7 @@ def main() -> int:
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
+    exp_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
     launches, app, trainer = train_full_width(STEPS, args.seed, guidance)
@@ -1505,7 +1554,8 @@ def main() -> int:
     # the latent-paint run for the two selection kernels, the
     # latent-paint-mesh run for the soft forwards (the binned one from its
     # eval chunk or, where those bins overflow, from mode 1's 512² steps),
-    # the silhouette phase for the soft backwards
+    # the silhouette phase for the soft backwards, the experiment's run for
+    # the cost-split variants
     from tpunerf_torch.kernels import rasterize as rz
     kernels = [dict(row, launches=launches.get(name, 0))
                for name, row in rows.items()]
@@ -1519,6 +1569,7 @@ def main() -> int:
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
     kernels += [dict(row, launches=soft_counts[name])
                 for name, row in soft_rows.items()]
+    kernels.append(exp_row)   # launches from the experiment's own run
     if any(k["launches"] <= 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     # the card once more, where the end of a long output still shows it

@@ -20,6 +20,7 @@ from tpunerf_torch.fields.scene import LatentNeRFScene
 from tpunerf_torch.guidance.schedulers import NoiseSchedule, ddim_timesteps
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
+from tpunerf_torch.scripts.exp_hash_bwd import main as exp_hash_bwd_main
 from tpunerf_torch.train_latent_nerf import main, split_device
 from tpunerf_torch.train_latent_paint import main as paint_main
 from tpunerf_torch.train_latent_paint_mesh import main as mesh_main
@@ -44,7 +45,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
               "kernels.rasterize", "kernels.texture",
               "training.latent_paint", "train_latent_paint_mesh",
               "training.latent_paint_mesh", "meshrep.laplacian",
-              "meshrep.displacement_mlp"):
+              "meshrep.displacement_mlp", "scripts.exp_hash_bwd"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -116,6 +117,9 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh_main(["--guide.tiny_diffusion", "true", "--guide.shape_path",
                    "sphere"])
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            exp_hash_bwd_main(argv + ["--n", "64"])
 
 
 @pytest.mark.parametrize("create", [

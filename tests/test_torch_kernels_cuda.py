@@ -63,6 +63,50 @@ def test_hashgrid_kernels_match_plain(grid):
     _close_to_max(dt, hg.hash_bwd_plain(x, g, cfg), 1e-5, "backward")
 
 
+@pytest.mark.parametrize("ppb", [2048, 8192])
+@pytest.mark.parametrize("mode", ["full", "global", "addr", "accum"])
+def test_hash_bwd_variants_match_plain(mode, ppb):
+    dev = _card()
+    cfg = HashGridConfig()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((70001, 3), generator=gen, device=dev)
+    g = torch.randn((x.shape[0], cfg.out_dim), generator=gen, device=dev)
+    out = _launched(hg.VARIANT,
+                    lambda: hg.hash_bwd_variant(x, g, cfg, mode, ppb))
+    ref = hg.hash_bwd_variant_plain(x, g, cfg, mode, ppb)
+    # f32 sums in another order (atomics: run-dependent): 1e-5 of max;
+    # addr's per-level Σ idx is exact
+    if mode == "addr":
+        assert torch.equal(out[0], ref[0])
+        _close_to_max(out[1], ref[1], 1e-5, "addr Σ w·g")
+    else:
+        _close_to_max(out, ref, 1e-5, mode)
+
+
+def test_hash_bwd_variant_full_matches_the_baseline_kernel():
+    dev = _card()
+    cfg = HashGridConfig()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((262144, 3), generator=gen, device=dev)
+    g = torch.randn((x.shape[0], cfg.out_dim), generator=gen, device=dev)
+    full = _launched(hg.VARIANT, lambda: hg.hash_bwd_variant_cuda(
+        x, g, cfg, "full", 8192))
+    _close_to_max(full, hg.hash_bwd_cuda(x, g, cfg), 1e-5, "full vs #2")
+
+
+def test_experiment_graph_counts_the_kernels_that_run():
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    dev = _card()
+    x, g = ex.make_inputs(70001, 5, dev)
+    _build.reset_launches()
+    ms, out = ex.graph_ms(
+        lambda: hg.hash_bwd_variant_cuda(x, g, ex.CFG, "full", 4096), 4)
+    # the warm-ups and two replays of 4 calls ran; the capture ran none
+    assert _build.LAUNCHES[hg.VARIANT] == ex.WARMUP + 2 * 4
+    assert ms > 0
+    _close_to_max(out, hg.hash_bwd_plain(x, g, ex.CFG), 1e-5, "graph")
+
+
 def test_hash_encode_autograd_runs_the_kernels():
     dev = _card()
     cfg = HashGridConfig()
@@ -246,6 +290,10 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(TypeError):
         hg.hash_encode_cuda(torch.rand((8, 3), device=dev, dtype=torch.float64),
                             torch.zeros((12, 2048, 2), device=dev), cfg)
+    x, g = torch.rand((8, 3), device=dev), torch.zeros((8, 24), device=dev)
+    for mode, ppb in (("vpu", 8192), ("full", 100)):
+        with pytest.raises(ValueError):
+            hg.hash_bwd_variant(x, g, cfg, mode, ppb)
     with pytest.raises(TypeError):
         q = torch.zeros((1, 1, 8, 40), device=dev, dtype=torch.float16)
         at.attention(q, q, q, 1.0)

@@ -8,7 +8,9 @@ Nothing here runs at import time, so the package imports on machines
 without `nvcc` or a card.
 
 Every kernel wrapper counts its launches in `LAUNCHES`, so that a run can
-show which kernels its path went through.
+show which kernels its path went through. A launch enqueued while a CUDA
+graph is captured runs nothing then: it goes to `CAPTURED`, and whoever
+replays the graph counts it at each replay (`count_launch(name, times)`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {}
+CAPTURED: Dict[str, int] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -36,8 +39,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+def count_launch(name: str, times: int = 1) -> None:
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    counts = CAPTURED if capturing else LAUNCHES
+    counts[name] = counts.get(name, 0) + times
 
 
 def nvcc_path() -> str:
