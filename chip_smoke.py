@@ -5,7 +5,9 @@
 2. Holds each of the first ten kernels against its plain PyTorch version
    on the card at the shapes of the full-width latent-NeRF, latent-paint and
    latent-paint-mesh paths, and times kernel, plain version and (for
-   attention) PyTorch's SDPA with CUDA events.
+   attention) PyTorch's SDPA with CUDA events; attention also in a CUDA
+   graph, against f32 attention, beside its bound by bytes, tensor-core
+   operations and exponentials, with the tensor-core opcodes of its SASS.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
    `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
    at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
@@ -66,7 +68,8 @@ sys.path.insert(0, str(ROOT))
 try:
     # the card's peaks, bounds and CUDA-event timing, shared with the
     # experiments
-    from tpunerf_torch.scripts.card import bound, cuda_ms, nvidia_smi
+    from tpunerf_torch.scripts.card import (bound, bound_terms, cuda_ms,
+                                           max_sm_mhz, nvidia_smi)
 except ImportError as exc:
     fail(f"no tpunerf_torch package beside {Path(__file__).name} ({exc})")
 
@@ -160,12 +163,45 @@ def check_kernels(seed: int):
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # --- #4 attention: (2, 8, 4096, 40), the UNet's 64² self-attention ----
+    rows[at.ATTN] = check_attention(gen)
+    for r in rows.values():
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def attention_sass():
+    """{kernel: Counter of tensor-core opcodes} in `cuobjdump -sass` of the
+    built attention library, one entry per template instance."""
+    import re
+    from collections import Counter
+    from tpunerf_torch.scripts.card import sass_functions
+    found = {}
+    for head, chunk in sass_functions("attention").items():
+        m = re.search(r"(attention_\w*?_kernel)ILi(\d+)E", head)
+        if m:
+            found[f"{m.group(1)}<{m.group(2)}>"] = Counter(
+                re.findall(r"\b(HGMMA|HMMA)\.[A-Z0-9_.]+", chunk))
+    return found
+
+
+def check_attention(gen):
+    """#4 at the UNet's shape: f32 and bf16 against the plain version, bf16
+    also against f32 attention; kernel and SDPA eager and in a CUDA graph;
+    the bound by bytes, tensor-core operations and ex2; the tensor-core
+    opcodes of the built kernels. Returns the kernel's row."""
+    import torch
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+
     B, H, S, D = 2, 8, 4096, 40
     scale = D ** -0.5
     errs = {}
     for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         # bf16: the plain path rounds the probabilities to bf16 before P·V
-        q, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+        q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
                    .to(dtype).permute(0, 2, 1, 3) for _ in range(3))
         o = at.attention_cuda(q, k, v, scale)
         r = at.attention_plain(q, k, v, scale)
@@ -178,27 +214,65 @@ def check_kernels(seed: int):
             fail(f"attention kernel disagrees with its plain version "
                  f"({dtype})")
         errs[dtype] = err
+    # bf16 against attention in f32 on the same (bf16) inputs: the kernel
+    # may err at most twice as much as the plain bf16 path
+    ref = at.attention_plain(q.float(), k.float(), v.float(), scale)
+    e_kernel = (o.float() - ref).abs().max().item()
+    e_plain = (r.float() - ref).abs().max().item()
+    print(f"attention_fwd bf16 vs f32 attention: kernel {e_kernel:.3e}, "
+          f"plain bf16 {e_plain:.3e} (tol {2 * e_plain + 1e-6:.3e})")
+    if not e_kernel <= 2 * e_plain + 1e-6:
+        fail("bf16 attention kernel is further from f32 than the plain path")
+
     # the main path's dtype: bf16 under unet_dtype "auto"
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms_f32 = cuda_ms(lambda: at.attention_cuda(*(t.float() for t in (q, k, v)),
                                                scale), 3)
     print(f"attention_fwd f32 {(B, H, S, D)}: {ms_f32:.4f} ms")
-    flops = 4 * B * H * S * S * D
+
+    def kernel():
+        return at.attention_cuda(q, k, v, scale)
+
+    def library():
+        return sdpa(q, k, v, scale=scale)
+
+    ms = cuda_ms(kernel, 20)
+    lib_ms = cuda_ms(library, 20)
+    iters = 20
+    before = _build.LAUNCHES.get(at.ATTN, 0)
+    graph_ms, out = ex.graph_ms(kernel, iters)
+    ran = _build.LAUNCHES.get(at.ATTN, 0) - before
+    lib_graph_ms, _ = ex.graph_ms(library, iters)
+    torch.cuda.synchronize()
+    if ran != ex.WARMUP + 2 * iters or not torch.equal(out, o):
+        fail(f"attention graph: {ran} launches ran, not "
+             f"{ex.WARMUP + 2 * iters}, or its output differs from eager")
+    mhz = max_sm_mhz()
     nbytes = 4 * B * H * S * D * 2
-    b_ms, b_by = bound(nbytes, flops, "bf16")
-    rows[at.ATTN] = dict(
+    flops = 4 * B * H * S * S * D
+    ex2 = B * H * S * S   # one exponential per score
+    terms = bound_terms(nbytes, flops, "bf16", ex2, mhz)
+    b_ms, b_by = bound(nbytes, flops, "bf16", ex2, mhz)
+    print(f"attention_fwd bf16 {(B, H, S, D)}: kernel {ms:.4f} ms eager, "
+          f"{graph_ms:.4f} ms graph ({ran} launches ran); SDPA {lib_ms:.4f} "
+          f"ms eager, {lib_graph_ms:.4f} ms graph; f32 kernel {ms_f32:.4f} ms")
+    print(f"attention_fwd bound: bytes {terms['bytes']:.4f} ms, bf16 tensor "
+          f"cores {terms['bf16']:.4f} ms, ex2 {terms['ex2']:.4f} ms ({ex2} at "
+          f"16 a clock per SM, {mhz} MHz max SM clock) -> {b_ms:.4f} ms; "
+          f"share of the bound: eager {b_ms / ms:.3f}, graph "
+          f"{b_ms / graph_ms:.3f}")
+    sass = attention_sass()
+    for name, ops in sass.items():
+        print(f"attention SASS {name}: {dict(ops) or 'no tensor-core op'}")
+    if not any(ops for name, ops in sass.items() if "bf16" in name):
+        fail("no HGMMA/HMMA in the bf16 attention kernel's SASS")
+    return dict(
         name=at.ATTN, route="cuda", source="tpunerf_torch/csrc/attention.cu",
         replaces="tpunerf/guidance/unet.py:167",
-        max_abs_err=errs[torch.bfloat16],
-        ms=cuda_ms(lambda: at.attention_cuda(q, k, v, scale), 10),
+        max_abs_err=errs[torch.bfloat16], ms=ms, graph_ms=graph_ms,
         plain_ms=cuda_ms(lambda: at.attention_plain(q, k, v, scale), 5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: sdpa(q, k, v, scale=scale), 20))
-    for r in rows.values():
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {r['library_ms']}")
-    return rows
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library_graph_ms=lib_graph_ms, f32_ms=ms_f32)
 
 
 def check_hash_bwd_experiment(seed: int):
@@ -242,7 +316,7 @@ def check_hash_bwd_experiment(seed: int):
         fail("the variant full at 8192 disagrees with kernel #2")
     flat, wg = ex.index_add_operands(x, g)
     b_ms, b_by = ex.bound_ms(n)
-    mhz = ex.max_sm_mhz()
+    mhz = max_sm_mhz()
     at8192 = next(r for r in rows
                   if r["mode"] == "full" and r["points_per_block"] == 8192)
     row = dict(

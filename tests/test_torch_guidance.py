@@ -144,3 +144,18 @@ def test_attention_wrapper_takes_plain_path_on_cpu():
     out = at.attention(q, q, q, 0.1)
     torch.testing.assert_close(out, at.attention_plain(q, q, q, 0.1))
     assert _build.LAUNCHES.get(at.ATTN, 0) == 0
+
+
+def test_attention_kernel_refuses_bf16_it_cannot_copy():
+    """The bf16 kernel copies 16-byte chunks: it refuses a head dim that is
+    not a multiple of 8 and a misaligned input, before it asks for a card."""
+    q = torch.randn(1, 2, 2048, 12).bfloat16()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        at.attention_cuda(q, q, q, 0.1)
+    off = torch.zeros(2 * 2048 * 40 + 1, dtype=torch.bfloat16)[1:].view(
+        1, 2, 2048, 40)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.attention_cuda(off, off, off, 0.1)
+    with pytest.raises(ValueError, match="scale > 0"):
+        at.attention_cuda(q[..., :8], q[..., :8], q[..., :8], -0.1)
+

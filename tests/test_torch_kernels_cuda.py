@@ -150,6 +150,104 @@ def test_attention_kernel_matches_plain(dtype):
                   "attention")
 
 
+def _bf16_qkv(dev, B, H, N, D, layout, seed):
+    """bf16 q, k, v (B, H, N, D): views of (B, N, H, D) projections, as the
+    UNet passes them, or contiguous."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, N, H, D) if layout == "strided" else (B, H, N, D)
+    out = []
+    for _ in range(3):
+        t = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        out.append(t.permute(0, 2, 1, 3) if layout == "strided" else t)
+    return out
+
+
+@pytest.mark.parametrize("n,d,layout", [
+    (4096, 40, "strided"), (4096 + 77, 40, "strided"),
+    (1000, 40, "contiguous"), (4096, 8, "strided"), (1000, 8, "contiguous"),
+    (4096 + 77, 64, "strided"), (4096, 64, "contiguous"),
+    (1000, 128, "strided"), (4096 + 77, 128, "contiguous")])
+def test_attention_bf16_error_against_f32(n, d, layout):
+    """The kernel's error against f32 attention on the same bf16 inputs is
+    at most twice the plain bf16 path's, plus 1e-6: a skipped or doubled
+    128-key tile would be far above it."""
+    dev = _card()
+    q, k, v = _bf16_qkv(dev, 2, 3, n, d, layout, seed=n + d)
+    scale = d ** -0.5
+    out = _launched(at.ATTN, lambda: at.attention_cuda(q, k, v, scale))
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = at.attention_plain(q.float(), k.float(), v.float(), scale)
+    err = (out.float() - ref).abs().max().item()
+    plain = (at.attention_plain(q, k, v, scale).float() - ref).abs().max()
+    assert err <= 2 * plain.item() + 1e-6, (err, plain.item())
+
+
+@pytest.mark.parametrize("n", [4096, 4096 + 77, 1000])
+def test_attention_bf16_uniform_is_mean_of_v(n):
+    """q = 0: every logit is 0, so each output row is the mean of v over all
+    N keys; a lost tile, or a padded key of the ragged tile that is not
+    masked, moves the mean."""
+    dev = _card()
+    _, k, v = _bf16_qkv(dev, 1, 2, n, 40, "strided", seed=5)
+    q = torch.zeros_like(k)
+    out = at.attention_cuda(q, k, v, 40 ** -0.5).float()
+    mean = v.float().mean(dim=2, keepdim=True).expand_as(out)
+    # P = 1 is exact in bf16; the output's rounding to bf16 is 2^-9
+    assert ((out - mean).abs() <= 2 ** -8 * mean.abs() + 1e-6).all()
+
+
+def test_attention_bf16_routes_each_query_to_its_key():
+    """One dominant key per routed query, in the first, a middle and the
+    last (ragged) key tile: the output row is that key's v row."""
+    dev = _card()
+    n, d = 4096 + 77, 40
+    _, _, v = _bf16_qkv(dev, 1, 1, n, d, "strided", seed=6)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    k = (torch.randn((1, 1, n, d), generator=gen, device=dev) * 0.01
+         ).to(torch.bfloat16)
+    q = torch.zeros_like(k)
+    # query -> key; channel c holds the pair's logit 16 * 16 / sqrt(40)
+    routes = {0: n - 1, 130: 2000, 2100: 5, n - 1: 1500, 64: 4100}
+    for c, (qi, ki) in enumerate(routes.items()):
+        k[0, 0, ki] = 0
+        k[0, 0, ki, c] = 16
+        q[0, 0, qi, c] = 16
+    out = at.attention_cuda(q, k, v, d ** -0.5).float()
+    for qi, ki in routes.items():
+        want = v[0, 0, ki].float()
+        got = out[0, 0, qi]
+        assert ((got - want).abs() <= 2 ** -8 * want.abs() + 1e-3).all(), \
+            (qi, ki)
+
+
+def test_attention_bf16_refuses_what_it_cannot_copy():
+    dev = _card()
+    q, k, v = _bf16_qkv(dev, 1, 2, 256, 12, "strided", seed=8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        at.attention_cuda(q, k, v, 12 ** -0.5)
+    buf = torch.zeros(2 * 256 * 40 + 1, dtype=torch.bfloat16, device=dev)
+    off = buf[1:].view(1, 2, 256, 40)   # 2 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.attention_cuda(off, off, off, 40 ** -0.5)
+
+
+def test_attention_bf16_graph_replay_equals_eager():
+    dev = _card()
+    q, k, v = _bf16_qkv(dev, 2, 8, 4096, 40, "strided", seed=9)
+    eager = at.attention_cuda(q, k, v, 40 ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        at.attention_cuda(q, k, v, 40 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = at.attention_cuda(q, k, v, 40 ** -0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
 def _projected_sphere(dev, n_views, seed):
     from tpunerf_torch.core.views import ViewSamplerConfig, rand_poses
     from tpunerf_torch.meshrep import render as mrender

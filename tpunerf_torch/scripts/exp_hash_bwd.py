@@ -33,11 +33,9 @@ from __future__ import annotations
 
 import argparse
 import re
-import subprocess
 import sys
 from collections import Counter
-from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -204,24 +202,13 @@ def index_add_operands(x: torch.Tensor, g: torch.Tensor):
     return flat, wg
 
 
-def max_sm_mhz() -> Optional[float]:
-    """The card's maximum SM clock in MHz, None where nvidia-smi gives none."""
-    clock = card.nvidia_smi("clocks.max.sm")
-    return float(clock[0].split()[0]) if clock else None
-
-
 def sass_atomics() -> Dict[str, Counter]:
     """Atomic opcodes per F = 2 backward kernel in `cuobjdump -sass` of the
     built library: whether the shared f32 add is a native ATOMS.ADD or a
     compare-and-swap loop."""
-    lib = _build._library_path(_build.CSRC / "hashgrid.cu")
-    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
     found = {}
-    for chunk in sass.split("Function : ")[1:]:
-        m = re.search(r"(hashgrid_bwd\w*?_kernel)ILi2E(?:Li(\d)E)?",
-                      chunk.split("\n", 1)[0])
+    for head, chunk in card.sass_functions("hashgrid").items():
+        m = re.search(r"(hashgrid_bwd\w*?_kernel)ILi2E(?:Li(\d)E)?", head)
         if m is None:
             continue
         name = m.group(1) + ("" if m.group(2) is None else
@@ -278,7 +265,7 @@ def main(argv=None) -> int:
           f"{L * T * F * 4 / 1e6:.2f} MB = {table_bytes(args.n) / 1e6:.2f} "
           f"MB at {card.MEM_BYTES_PER_S / 1e12:.2f} TB/s -> {b_ms:.4f} ms "
           f"({b_by}; full, global, addr)")
-    mhz = max_sm_mhz()
+    mhz = card.max_sm_mhz()
     if mhz is not None:
         print(f"bound shared atomics: {shared_atomics(args.n)} updates / "
               f"({card.SMS} SMs x {card.WARP} lanes x {mhz:.0f} MHz) -> "
