@@ -8,6 +8,10 @@
    attention) PyTorch's SDPA with CUDA events; attention also in a CUDA
    graph, against f32 attention, beside its bound by bytes, tensor-core
    operations and exponentials, with the tensor-core opcodes of its SASS.
+   The hash-grid kernels #1 and #2 also in a CUDA graph, beside the
+   level-per-block designs of both (timed in the same call), at uniform x with N(0,1) and
+   with heavy-tailed g; #2 bit for bit against its fixed-point emulation,
+   and its SASS free of compare-and-swap loops.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
    `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
    at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
@@ -19,7 +23,9 @@
    128^3 occupancy grid; S=128, K=64 at 64x64; the 859M-parameter SD-v1
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
    from the seed) through `Trainer.train()` for 17+ steps, so that the
-   occupancy refreshes at steps 1 and 16 run.
+   occupancy refreshes at steps 1 and 16 run. It copies the x, table and g
+   that reach #1 and #2 on step 10 and then times both kernels, and the
+   level-per-block designs, on those ray-ordered inputs.
 6. Trains the port's latent-paint app at full width with the same guidance
    (procedural sphere of 3968 faces, 960-face background dome, 128^2 latent
    texture, 64x64 train grid) through `Trainer.train()`, which ends with the
@@ -48,6 +54,7 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -74,6 +81,70 @@ except ImportError as exc:
     fail(f"no tpunerf_torch package beside {Path(__file__).name} ({exc})")
 
 
+def hash_grid_rows(x, table, g, cfg, label: str):
+    """Kernels #1 and #2 on (x, table) and (x, g): each against its plain
+    version (1e-5 of the largest value; #2 also bit for bit against its
+    fixed-point emulation); eager and CUDA-graph times beside the
+    level-per-block designs (#1: `hashgrid_fwd_level`; #2: #11's `full` at
+    8192 points per block), the plain version, the bound and the share of the bound.
+    Returns the two kernels' rows."""
+    import torch
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    N = x.shape[0]
+    flops = N * L * 8 * (2 + 2 * F)
+    zero_g = (g == 0).all(dim=1).float().mean().item()
+    print(f"hash grid, {label}: N={N}, rows of g all zero {zero_g:.4f}")
+    calls = {
+        hg.FWD: (lambda: hg.hash_encode_cuda(x, table, cfg),
+                 lambda: hg.hash_encode_level_cuda(x, table, cfg),
+                 lambda: hg.hash_encode_plain(x, table, cfg),
+                 x.numel() + table.numel() + N * L * F,
+                 "tpunerf/kernels/hashgrid.py:252"),
+        hg.BWD: (lambda: hg.hash_bwd_cuda(x, g, cfg),
+                 lambda: hg.hash_bwd_variant_cuda(x, g, cfg, "full", 8192),
+                 lambda: hg.hash_bwd_plain(x, g, cfg),
+                 x.numel() + g.numel() + L * T * F,
+                 "tpunerf/kernels/hashgrid.py:408"),
+    }
+    rows = {}
+    for name, (new, old, plain, words, site) in calls.items():
+        out, ref, before = new(), plain(), old()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()   # f32, other summation order
+        old_err = (before - ref).abs().max().item()
+        print(f"{name} {label}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+              f"level-per-block design {old_err:.3e}")
+        if not (err <= tol and old_err <= tol):
+            fail(f"{name} disagrees with its plain version ({label})")
+        if name == hg.BWD:
+            blocks = hg.bwd_blocks(N, cfg, x.device)
+            emu = hg.hash_bwd_fixed_point_plain(x, g, cfg, blocks)
+            if not torch.equal(out, emu):
+                fail(f"{name} differs from its fixed-point emulation "
+                     f"({label})")
+        b_ms, b_by = bound(4 * words, flops, "f32")
+        ms, old_ms = cuda_ms(new, 50), cuda_ms(old, 50)
+        graph, _ = ex.graph_ms(new, 50)
+        old_graph, _ = ex.graph_ms(old, 50)
+        ms2 = cuda_ms(new, 50)     # new, old, old, new in one call
+        rows[name] = dict(
+            name=name, route="cuda", source="tpunerf_torch/csrc/hashgrid.cu",
+            replaces=site, max_abs_err=err, ms=ms, graph_ms=graph,
+            eager_ms_again=ms2, level_per_block_ms=old_ms,
+            level_per_block_graph_ms=old_graph,
+            plain_ms=cuda_ms(plain, 5), bound_ms=b_ms, bound_by=b_by,
+            share_of_bound=b_ms / graph, library_ms=None)
+        print(f"  {name} {label}: eager {ms:.4f} / {ms2:.4f} ms, graph "
+              f"{graph:.4f} ms; level-per-block design eager {old_ms:.4f}, graph "
+              f"{old_graph:.4f}; plain {rows[name]['plain_ms']:.4f}; bound "
+              f"{b_ms:.4f} ms ({b_by}), share {b_ms / graph:.3f} (graph)")
+    return rows[hg.FWD], rows[hg.BWD]
+
+
 def check_kernels(seed: int):
     """Each kernel vs its plain version at full-width shapes. Returns
     {name: row} without launch counts."""
@@ -83,6 +154,7 @@ def check_kernels(seed: int):
     from tpunerf_torch.kernels import attention as at
     from tpunerf_torch.kernels import hashgrid as hg
     from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -95,43 +167,20 @@ def check_kernels(seed: int):
     N = 64 * 64 * 64
     x = torch.rand((N, 3), generator=gen, device=dev)
     table = torch.rand((L, T, F), generator=gen, device=dev) * 2 - 1
-    out = hg.hash_encode_cuda(x, table, cfg)
-    ref = hg.hash_encode_plain(x, table, cfg)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    tol = 1e-5 * ref.abs().max().item()   # same f32 math, other sum order
-    print(f"hashgrid_fwd N={N}: max_abs_err {err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        fail("hash-grid forward kernel disagrees with its plain version")
-    nbytes = x.numel() * 4 + table.numel() * 4 + out.numel() * 4
-    flops = N * L * 8 * (2 + 2 * F)
-    b_ms, b_by = bound(nbytes, flops, "f32")
-    rows[hg.FWD] = dict(
-        name=hg.FWD, route="cuda", source="tpunerf_torch/csrc/hashgrid.cu",
-        replaces="tpunerf/kernels/hashgrid.py:252",
-        max_abs_err=err, ms=cuda_ms(lambda: hg.hash_encode_cuda(x, table, cfg),
-                                    50),
-        plain_ms=cuda_ms(lambda: hg.hash_encode_plain(x, table, cfg), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-
     g = torch.randn((N, L * F), generator=gen, device=dev)
-    dt = hg.hash_bwd_cuda(x, g, cfg)
-    dref = hg.hash_bwd_plain(x, g, cfg)
-    torch.cuda.synchronize()
-    err = (dt - dref).abs().max().item()
-    tol = 1e-5 * dref.abs().max().item()  # atomics: summation order varies
-    print(f"hashgrid_bwd N={N}: max_abs_err {err:.3e} (tol {tol:.3e})")
-    if not err <= tol:
-        fail("hash-grid backward kernel disagrees with its plain version")
-    nbytes = x.numel() * 4 + g.numel() * 4 + dt.numel() * 4
-    flops = N * L * 8 * (2 + 2 * F)
-    b_ms, b_by = bound(nbytes, flops, "f32")
-    rows[hg.BWD] = dict(
-        name=hg.BWD, route="cuda", source="tpunerf_torch/csrc/hashgrid.cu",
-        replaces="tpunerf/kernels/hashgrid.py:408",
-        max_abs_err=err, ms=cuda_ms(lambda: hg.hash_bwd_cuda(x, g, cfg), 50),
-        plain_ms=cuda_ms(lambda: hg.hash_bwd_plain(x, g, cfg), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    fwd, bwd = hash_grid_rows(x, table, g, cfg, "uniform x, N(0,1) g")
+    # (b) heavy-tailed g: 1 % of the entries scaled by 1e4
+    heavy = torch.rand(g.shape, generator=gen, device=dev) < 0.01
+    _, bwd_heavy = hash_grid_rows(x, table, torch.where(heavy, g * 1e4, g),
+                                  cfg, "uniform x, heavy-tailed g")
+    bwd["heavy_tailed_g"] = {k: bwd_heavy[k] for k in (
+        "max_abs_err", "ms", "graph_ms", "level_per_block_ms",
+        "level_per_block_graph_ms")}
+    rows[hg.FWD], rows[hg.BWD] = fwd, bwd
+    sass = dict(ex.sass_atomics().get("hashgrid_bwd_kernel", {}))
+    print(f"hashgrid_bwd SASS atomics: {sass}")
+    if "ATOMS.ADD" not in sass or any("CAS" in op for op in sass):
+        fail("kernel #2's shared adds are not native ATOMS.ADD")
 
     # --- #3 occupancy lookup: (1, 4096, 128) samples, G = 128 ------------
     ocfg = OccupancyGridConfig()
@@ -1047,7 +1096,8 @@ def train_full_width(steps: int, seed: int, guidance):
     torch.cuda.synchronize()
     print(f"latent-NeRF setup (text embeddings, field): "
           f"{time.perf_counter() - t0:.2f} s")
-    _, times, _, launches = timed_train(trainer, steps)
+    with capture_hash_inputs(CAPTURE_STEP) as captured:
+        _, times, _, launches = timed_train(trainer, steps)
     # steady steps: past the first, excluding refresh steps (1, 16, 32, …)
     steady = sorted(t for i, t in enumerate(times, start=1)
                     if i > 1 and i % 16 != 0)
@@ -1060,7 +1110,55 @@ def train_full_width(steps: int, seed: int, guidance):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     occ_frac = app.metric_scalars().get("occ_frac")
     print(f"occ_frac after training: {occ_frac}")
-    return launches, app, trainer
+    return launches, app, trainer, captured
+
+
+CAPTURE_STEP = 10   # a steady latent-NeRF step: past step 1, no refresh
+
+
+@contextlib.contextmanager
+def capture_hash_inputs(step: int):
+    """While open, copies what reaches kernels #1 and #2 on training step
+    `step` (the step-th table gradient): {"x", "table", "g"}. It wraps the
+    module functions `HashEncode` calls and calls through to them, so every
+    launch still counts; the package is not changed."""
+    from tpunerf_torch.kernels import hashgrid as hg
+    fwd, bwd = hg.hash_encode_fwd, hg.hash_encode_bwd
+    last, captured, seen = {}, {}, [0]
+
+    def fwd_spy(x, table, cfg):
+        last.update(x=x, table=table)   # references only, no copy
+        return fwd(x, table, cfg)
+
+    def bwd_spy(x, g, cfg):
+        seen[0] += 1
+        if seen[0] == step:
+            # before the optimizer step, so `table` is still this step's
+            captured.update(x=x.clone(), g=g.clone(),
+                            table=last["table"].clone(), cfg=cfg)
+        return bwd(x, g, cfg)
+
+    hg.hash_encode_fwd, hg.hash_encode_bwd = fwd_spy, bwd_spy
+    try:
+        yield captured
+    finally:
+        hg.hash_encode_fwd, hg.hash_encode_bwd = fwd, bwd
+
+
+def check_hash_step_inputs(captured, rows) -> None:
+    """(c) Kernels #1 and #2 on the x, table and g of one steady
+    full-width latent-NeRF step (ray-ordered: 64 compacted samples a ray),
+    beside the level-per-block designs; the times go into the rows as `step_inputs`."""
+    from tpunerf_torch.kernels import hashgrid as hg
+    if not captured:
+        fail(f"no table gradient reached kernel #2 on step {CAPTURE_STEP}")
+    fwd, bwd = hash_grid_rows(captured["x"], captured["table"],
+                              captured["g"], captured["cfg"],
+                              f"latent-NeRF step {CAPTURE_STEP}'s inputs")
+    for name, row in ((hg.FWD, fwd), (hg.BWD, bwd)):
+        rows[name]["step_inputs"] = {k: row[k] for k in (
+            "max_abs_err", "ms", "graph_ms", "level_per_block_ms",
+            "level_per_block_graph_ms", "bound_ms", "share_of_bound")}
 
 
 def train_paint_full_width(steps: int, seed: int, guidance):
@@ -1604,10 +1702,13 @@ def main() -> int:
     exp_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
-    launches, app, trainer = train_full_width(STEPS, args.seed, guidance)
+    launches, app, trainer, captured = train_full_width(STEPS, args.seed,
+                                                        guidance)
     missing = [n for n in rows if launches.get(n, 0) <= 0]
     if missing:
         fail(f"latent-NeRF path never launched {missing}")
+    check_hash_step_inputs(captured, rows)
+    del captured
     breakdown(app, trainer)
     del app, trainer
     paint_launches, papp, ptrainer = train_paint_full_width(

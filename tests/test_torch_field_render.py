@@ -179,7 +179,7 @@ def test_train_render_with_injected_jitter_matches_jax(scenes):
 
 def test_sketch_shape_and_mesh_extraction_name_their_slice(scenes):
     _, _, ts = scenes
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="A.7"):
         TScene.create(tiny=True, shape_path="sphere")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="A.7"):
         ts.extract_mesh()

@@ -42,25 +42,145 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("grid", ["tiny", "default"])
-def test_hashgrid_kernels_match_plain(grid):
-    dev = _card()
-    cfg = (HashGridConfig(n_levels=4, log2_hashmap_size=12,
-                          base_resolution=8, desired_resolution=64)
-           if grid == "tiny" else HashGridConfig())
-    gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand((70001, 3), generator=gen, device=dev)
-    x[:4] = torch.tensor([[0.0, 0, 0], [1, 1, 1], [0.5, 0.5, 0.5], [1, 0, 1]])
+# the tiny field's grid, the default one, one whose table exceeds shared
+# memory (#1 in 3 level groups, #2 in 6) and one whose single level does
+# not fit #2's 64-bit sums (#2 cuts each level's slots in two)
+GRIDS = {
+    "tiny": dict(n_levels=4, log2_hashmap_size=12, base_resolution=8,
+                 desired_resolution=64),
+    "default": {},
+    "groups": dict(n_levels=16, log2_hashmap_size=12),
+    "split": dict(n_levels=3, n_features_per_level=1, log2_hashmap_size=15),
+}
+
+
+def _hash_inputs(cfg, n, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    x[:4] = torch.tensor([[0.0, 0, 0], [1, 1, 1], [0.5, 0.5, 0.5],
+                          [1, 0, 1]])[:n]
     table = torch.rand((cfg.n_levels, cfg.table_size,
                         cfg.n_features_per_level), generator=gen,
                        device=dev) * 2 - 1
-    g = torch.randn((x.shape[0], cfg.out_dim), generator=gen, device=dev)
+    g = torch.randn((n, cfg.out_dim), generator=gen, device=dev)
+    return x, table, g
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_hashgrid_kernels_match_plain(grid):
+    dev = _card()
+    cfg = HashGridConfig(**GRIDS[grid])
+    x, table, g = _hash_inputs(cfg, 70001, 0, dev)
     out = _launched(hg.FWD, lambda: hg.hash_encode_cuda(x, table, cfg))
     dt = _launched(hg.BWD, lambda: hg.hash_bwd_cuda(x, g, cfg))
     # f32 both; the forward sums 8 corners in another order, the backward
-    # with atomics in run-dependent order
+    # in fixed point and in another order
     _close_to_max(out, hg.hash_encode_plain(x, table, cfg), 1e-5, "forward")
     _close_to_max(dt, hg.hash_bwd_plain(x, g, cfg), 1e-5, "backward")
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_hash_bwd_kernel_equals_its_fixed_point_emulation(grid):
+    dev = _card()
+    cfg = HashGridConfig(**GRIDS[grid])
+    x, _, g = _hash_inputs(cfg, 70001, 1, dev)
+    dt = hg.hash_bwd_cuda(x, g, cfg)
+    blocks = hg.bwd_blocks(x.shape[0], cfg, x.device)
+    # the same f32 products, exact integer sums, the same conversions and
+    # the same order of the chunk sums: bit for bit, and so every call
+    assert torch.equal(dt, hg.hash_bwd_fixed_point_plain(x, g, cfg, blocks))
+    assert torch.equal(dt, hg.hash_bwd_cuda(x, g, cfg))
+
+
+@pytest.mark.parametrize("n", [0, 1, 255])
+def test_hashgrid_kernels_at_ragged_and_empty_n(n):
+    dev = _card()
+    cfg = HashGridConfig()
+    x, table, g = _hash_inputs(cfg, n, 2, dev)
+    out = hg.hash_encode_cuda(x, table, cfg)
+    dt = hg.hash_bwd_cuda(x, g, cfg)
+    assert out.shape == (n, cfg.out_dim) and dt.shape == table.shape
+    ref = hg.hash_bwd_plain(x, g, cfg)
+    if n == 0:
+        assert torch.equal(dt, ref)        # all zeros, written by #2
+        return
+    _close_to_max(out, hg.hash_encode_plain(x, table, cfg), 1e-5, "forward")
+    _close_to_max(dt, ref, 1e-5, "backward")
+
+
+@pytest.mark.parametrize("grid", ["tiny", "default"])
+def test_hashgrid_kernels_on_the_cube_faces_and_corners(grid):
+    dev = _card()
+    cfg = HashGridConfig(**GRIDS[grid])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((20000, 3), generator=gen, device=dev)
+    # every point on a face, a third of them on an edge or a corner
+    axis = torch.randint(0, 3, (20000,), generator=gen, device=dev)
+    side = torch.randint(0, 2, (20000,), generator=gen, device=dev).float()
+    x[torch.arange(20000, device=dev), axis] = side
+    rows = torch.arange(0, 20000, 3, device=dev)
+    x[rows, (axis[rows] + 1) % 3] = 1.0
+    x[:8] = torch.tensor([[i >> 2 & 1, i >> 1 & 1, i & 1] for i in range(8)],
+                         dtype=torch.float32)
+    _, table, g = _hash_inputs(cfg, 20000, 4, dev)
+    _close_to_max(hg.hash_encode_cuda(x, table, cfg),
+                  hg.hash_encode_plain(x, table, cfg), 1e-5, "forward")
+    _close_to_max(hg.hash_bwd_cuda(x, g, cfg), hg.hash_bwd_plain(x, g, cfg),
+                  1e-5, "backward")
+
+
+def test_hash_bwd_heavy_tailed_and_non_finite_g():
+    dev = _card()
+    cfg = HashGridConfig()
+    x, _, g = _hash_inputs(cfg, 262144, 5, dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    heavy = torch.rand(g.shape, generator=gen, device=dev) < 0.01
+    g = torch.where(heavy, g * 1e4, g)
+    _close_to_max(hg.hash_bwd_cuda(x, g, cfg), hg.hash_bwd_plain(x, g, cfg),
+                  1e-5, "heavy-tailed g")
+    # inf, -inf and NaN in g reach only the slots that their point
+    # touches, as in the plain version's f32 sums; the rest is finite
+    x[0] = 0.5                  # on the even levels' lattices: zero weights
+    for (p, j), v in {(0, 1): float("inf"), (1000, 5): float("inf"),
+                      (2000, 5): -float("inf"), (3000, 16): float("nan")
+                      }.items():
+        g[p, j] = v
+    dt = hg.hash_bwd_cuda(x, g, cfg)
+    blocks = hg.bwd_blocks(x.shape[0], cfg, x.device)
+    emu = hg.hash_bwd_fixed_point_plain(x, g, cfg, blocks)
+    plain = hg.hash_bwd_plain(x, g, cfg)
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(dt), kind(emu)), kind.__name__
+        assert torch.equal(kind(dt), kind(plain)), kind.__name__
+    fin = torch.isfinite(plain)
+    assert torch.isfinite(dt[3]).all() and not fin.all()
+    assert torch.equal(dt[fin], emu[fin])
+    _close_to_max(dt[fin], plain[fin], 1e-5, "finite slots")
+
+
+def test_hashgrid_graph_replay_equals_eager():
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    dev = _card()
+    cfg = HashGridConfig()
+    x, table, g = _hash_inputs(cfg, 70001, 7, dev)
+    out, dt = hg.hash_encode_cuda(x, table, cfg), hg.hash_bwd_cuda(x, g, cfg)
+    _build.reset_launches()
+    ms, gout = ex.graph_ms(lambda: hg.hash_encode_cuda(x, table, cfg), 3)
+    assert ms > 0 and torch.equal(gout, out)
+    ms, gdt = ex.graph_ms(lambda: hg.hash_bwd_cuda(x, g, cfg), 3)
+    assert ms > 0 and torch.equal(gdt, dt)
+    assert _build.LAUNCHES[hg.FWD] == ex.WARMUP + 2 * 3
+    assert _build.LAUNCHES[hg.BWD] == ex.WARMUP + 2 * 3
+
+
+def test_level_per_block_forward_matches_plain():
+    dev = _card()
+    cfg = HashGridConfig()
+    x, table, _ = _hash_inputs(cfg, 70001, 8, dev)
+    out = _launched(hg.FWD_LEVEL,
+                    lambda: hg.hash_encode_level_cuda(x, table, cfg))
+    _close_to_max(out, hg.hash_encode_plain(x, table, cfg), 1e-5,
+                  "level-per-block forward")
 
 
 @pytest.mark.parametrize("ppb", [2048, 8192])

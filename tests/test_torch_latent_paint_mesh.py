@@ -24,9 +24,8 @@ from tpunerf_torch import train_latent_paint_mesh as cli
 from tpunerf_torch.core import views as tviews
 from tpunerf_torch.core.obj_io import load_obj
 from tpunerf_torch.training import config as tconfig
-from tpunerf_torch.training.latent_paint_mesh import (LatentPaintMeshApp
-                                                      as TApp,
-                                                      slice_4_settings)
+from tpunerf_torch.training.latent_paint_mesh import (
+    LatentPaintMeshApp as TApp, unported_guidance_settings)
 from tpunerf_torch.training.trainer import Trainer, unported_settings
 from tpunerf_torch.weights import load_flax_params
 
@@ -380,16 +379,16 @@ def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
-    assert slice_4_settings(cfg)
+    assert unported_guidance_settings(cfg)
     with pytest.raises(NotImplementedError, match=word) as err:
         TApp.create(cfg, device="cpu")
-    assert "slice 4" in str(err.value)
+    assert "A.6" in str(err.value)
 
 
 def test_clip_loss_text_token_opt_and_bad_mode_are_refused(guidances,
                                                            tmp_path, rng):
     _, _, tapp = _apps(guidances, tmp_path, 0, rng)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="A.6"):
         tapp.clip_loss(None)
     cfg = _cfg(tconfig, tmp_path)
     cfg.optim.use_opt_txt = True
@@ -397,4 +396,4 @@ def test_clip_loss_text_token_opt_and_bad_mode_are_refused(guidances,
     cfg = _cfg(tconfig, tmp_path, mode=3)
     with pytest.raises(ValueError, match="optim.mode"):
         TApp.create(cfg, guidance=tapp.guidance, device="cpu")
-    assert slice_4_settings(_cfg(tconfig, tmp_path)) == []
+    assert unported_guidance_settings(_cfg(tconfig, tmp_path)) == []

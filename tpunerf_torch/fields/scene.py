@@ -3,7 +3,7 @@
 The hash-grid NeRF field (trainable parameters), the occupancy grid and its
 packed bitfield (buffers, refreshed by `update_occupancy`), and train-time
 rendering with its regularizers. The sketch-shape SDF loss and mesh
-extraction belong to a later slice of the port.
+extraction are not ported yet (ROADMAP.md item A.7).
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from tpunerf_torch.fields import volume_render as vr
 from tpunerf_torch.fields.latent_nerf import LatentNeRFConfig, LatentNeRFField
 from tpunerf_torch.utils import resolve_device
 
-LATER_SLICE = ("not ported yet: the sketch-shape SDF and mesh extraction "
-               "come with slice 3 of the port (see ROADMAP.md)")
+ROADMAP_A7 = ("not ported yet: the sketch-shape SDF and mesh extraction "
+              "are ROADMAP.md item A.7")
 
 
 class LatentNeRFScene(nn.Module):
@@ -54,7 +54,7 @@ class LatentNeRFScene(nn.Module):
         """Build the field and its occupancy grid on `device` (CUDA unless
         the caller names another)."""
         if shape_path is not None:
-            raise NotImplementedError(f"guide.shape_path: {LATER_SLICE}")
+            raise NotImplementedError(f"guide.shape_path: {ROADMAP_A7}")
         device = resolve_device(device)
         fcfg = LatentNeRFConfig.tiny() if tiny else LatentNeRFConfig()
         fcfg = dataclasses.replace(
@@ -143,4 +143,4 @@ class LatentNeRFScene(nn.Module):
                                                       self.occ_cfg))
 
     def extract_mesh(self, resolution: int = 128, iso: float = 10.0):
-        raise NotImplementedError(f"extract_mesh: {LATER_SLICE}")
+        raise NotImplementedError(f"extract_mesh: {ROADMAP_A7}")

@@ -2,18 +2,25 @@
 PyTorch versions.
 
 `hash_encode_auto` is what the field calls. On CUDA tensors it runs
-`HashEncode`, whose forward and backward are the hand-written kernels; on
-CPU tensors the same autograd function runs the plain versions. The
-backward returns the table gradient only: ray positions are not trained,
-so dx ≡ 0, as in the JAX package's custom VJP.
+`HashEncode`, whose forward and backward are the hand-written kernels #1
+and #2; on CPU tensors the same autograd function runs the plain versions.
+The backward returns the table gradient only: ray positions are not
+trained, so dx ≡ 0, as in the JAX package's custom VJP.
+
+Both kernels hold a part of the table in shared memory (`table_parts`).
+#2 accumulates in fixed point; `hash_bwd_fixed_point_plain` repeats its
+arithmetic in PyTorch. `hash_encode_level_cuda` runs the level-per-block
+forward, kept only to be timed beside #1.
 
 `hash_bwd_variant` runs the table gradient's cost-split variants of the
 same kernel file (full, global, addr, accum); only the experiment
-`python -m tpunerf_torch.scripts.exp_hash_bwd` calls it.
+`python -m tpunerf_torch.scripts.exp_hash_bwd` and `chip_smoke.py` call it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +32,49 @@ from tpunerf_torch.kernels import _build
 
 FWD = "hashgrid_fwd"
 BWD = "hashgrid_bwd"
-# the table gradient's cost-split experiment (tpunerf_torch/scripts/
+FWD_LEVEL = "hashgrid_fwd_level"   # level-per-block forward, timed only
+# the table gradient's cost split experiment (tpunerf_torch/scripts/
 # exp_hash_bwd.py): kernel modes in the order of their codes
 VARIANT = "hashgrid_bwd_variant"
 VARIANT_MODES = ("full", "global", "addr", "accum")
-THREADS = 256                 # threads per block of the kernels
+THREADS = 256                 # threads per block of the variants
+# shared memory a block can use on Hopper, and what #1 and #2 keep beside
+# their part of the table (an mbarrier; the per-level maxima)
+SMEM_BYTES = 227 * 1024
+SMEM_RESERVED = 1024
+FWD_VALUE_BYTES = 4           # #1 stages the f32 table
+BWD_VALUE_BYTES = 8           # #2 sums each value in 64-bit fixed point
+FIXED_POINT_BITS = 30         # #2: every update |v| < 2^30
+FWD_MIN_POINTS = 256          # #1: points a block at least
+BWD_MIN_POINTS = 512          # #2: points a block at least (its fill, flush)
+BWD_MAX_POINTS = 8192         # #2: points a block at most (the sums' bound)
+
+Part = Tuple[int, int, int, int]     # (l0, nl, j0, nj)
+
+
+def table_parts(cfg: HashGridConfig, value_bytes: int) -> List[Part]:
+    """Cut the (L, T, F) table into the parts that one block of kernel #1
+    (value_bytes 4) or #2 (8) holds in shared memory: levels [l0, l0 + nl),
+    slots [j0, j0 + nj) of each, every (level, slot) in exactly one part,
+    each part within SMEM_BYTES - SMEM_RESERVED bytes. Whole levels where
+    one fits, in as few groups as fit and of sizes that differ by at most
+    one; otherwise each level cut into equal power-of-two slot ranges."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    budget = SMEM_BYTES - SMEM_RESERVED
+    level_bytes = T * F * value_bytes
+    if level_bytes <= budget:
+        groups = -(-L // (budget // level_bytes))
+        parts, l0 = [], 0
+        for k in range(groups):
+            nl = L // groups + (k < L % groups)
+            parts.append((l0, nl, 0, T))
+            l0 += nl
+        return parts
+    cuts = 1
+    while (T // cuts) * F * value_bytes > budget:
+        cuts *= 2
+    nj = T // cuts
+    return [(l, 1, k * nj, nj) for l in range(L) for k in range(cuts)]
 
 
 def hash_encode_plain(x: torch.Tensor, table: torch.Tensor,
@@ -64,10 +109,11 @@ def _check_inputs(x: torch.Tensor, other: torch.Tensor, cfg: HashGridConfig,
     if not (x.is_contiguous() and other.is_contiguous()):
         raise ValueError("hash-grid kernels take contiguous tensors")
     _build.check_cuda(x, other)
-    if cfg.table_size * cfg.n_features_per_level * 4 > 227 * 1024:
+    if cfg.table_size * cfg.n_features_per_level * 4 > SMEM_BYTES:
         raise ValueError("one level of the table must fit shared memory")
 
 
+@functools.lru_cache(maxsize=None)
 def _level_arrays(cfg: HashGridConfig):
     """Per-level resolution and dense flag as C int arrays."""
     res = cfg.level_resolutions().astype(np.int32).tolist()
@@ -75,44 +121,192 @@ def _level_arrays(cfg: HashGridConfig):
     return (ctypes.c_int * len(res))(*res), (ctypes.c_int * len(dense))(*dense)
 
 
-def _launch(symbol: str, x: torch.Tensor, other: torch.Tensor,
-            out: torch.Tensor, cfg: HashGridConfig) -> None:
-    """Launch `hashgrid_fwd` (other = table) or `hashgrid_bwd` (other = g)
-    of csrc/hashgrid.cu; both take (x, other, out, n, L, T, F, res, dense,
-    stream)."""
-    fn = getattr(_build.load("hashgrid"), symbol)
-    fn.argtypes = [_build.VOIDP] * 3 + [_build.LONG] + [_build.INT] * 3 \
-        + [_build.VOIDP] * 3
-    fn.restype = _build.INT
-    res_c, dense_c = _level_arrays(cfg)
-    err = fn(x.data_ptr(), other.data_ptr(), out.data_ptr(), x.shape[0],
-             cfg.n_levels, cfg.table_size, cfg.n_features_per_level,
-             ctypes.addressof(res_c), ctypes.addressof(dense_c),
-             _build.stream_ptr(x.device))
-    _build.check(err, symbol)
-    _build.count_launch(symbol)
+@functools.lru_cache(maxsize=None)
+def _part_arrays(cfg: HashGridConfig, value_bytes: int):
+    """(n_parts, [l0, nl, j0, nj] as C int arrays, the most (level, slot)
+    pairs a part holds) of `table_parts(cfg, value_bytes)`."""
+    parts = table_parts(cfg, value_bytes)
+    cols = [(ctypes.c_int * len(parts))(*col) for col in zip(*parts)]
+    return len(parts), cols, max(nl * nj for _, nl, _, nj in parts)
+
+
+def grid_blocks(n: int, n_parts: int, resident: int, min_points: int,
+                max_points: int = 0) -> int:
+    """Blocks per part along x for n points: about one a resident block
+    slot (`resident` for the card, shared by the parts), none with under
+    `min_points` points and, where max_points > 0, none with over it; 0
+    only for n = 0."""
+    blocks = min(max(1, resident // n_parts), -(-n // min_points))
+    if max_points:
+        blocks = max(blocks, -(-n // max_points))
+    return blocks
+
+
+_P, _I, _L = _build.VOIDP, _build.INT, _build.LONG
+# argument types of the C entry points; every pointer, also the stream, a
+# void*
+_SIGNATURES = {
+    FWD: ([_P] * 3 + [_L] + [_I] * 3 + [_P] * 2 + [_I] + [_P] * 4 + [_L, _P],
+          _I),
+    FWD_LEVEL: ([_P] * 3 + [_L] + [_I] * 3 + [_P] * 3, _I),
+    BWD: ([_P] * 4 + [_L] + [_I] * 3 + [_P] * 2 + [_I] + [_P] * 4 + [_L, _P],
+          _I),
+    "hashgrid_resident_blocks": ([_I] * 3 + [_P], _I),
+    VARIANT: ([_P] * 4 + [_L] + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P], _I),
+}
+
+
+_symbols: Dict[str, object] = {}
+
+
+def _symbol(name: str):
+    """The C entry point `name` of csrc/hashgrid.cu, typed."""
+    fn = _symbols.get(name)
+    if fn is None:
+        fn = _symbols[name] = getattr(_build.load("hashgrid"), name)
+        fn.argtypes, fn.restype = _SIGNATURES[name]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(kernel: str, cfg: HashGridConfig, device: int) -> int:
+    """Blocks of kernel #1 (FWD) or #2 (BWD) at `cfg` that card `device`
+    holds at once, asked once; the query also opens the kernel's shared
+    memory on that card, which its launches need."""
+    value_bytes = FWD_VALUE_BYTES if kernel == FWD else BWD_VALUE_BYTES
+    _, _, most = _part_arrays(cfg, value_bytes)
+    blocks = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        err = _symbol("hashgrid_resident_blocks")(
+            int(kernel == BWD), cfg.n_features_per_level, most,
+            ctypes.addressof(blocks))
+    _build.check(err, "hashgrid_resident_blocks")
+    return blocks.value
+
+
+def bwd_blocks(n: int, cfg: HashGridConfig, device: torch.device) -> int:
+    """The blocks per part that kernel #2 runs for n points on the card
+    `device` (a tensor's device, which has its index): the chunks of
+    `hash_bwd_fixed_point_plain`."""
+    return grid_blocks(n, _part_arrays(cfg, BWD_VALUE_BYTES)[0],
+                       _resident(BWD, cfg, device.index), BWD_MIN_POINTS,
+                       BWD_MAX_POINTS)
 
 
 def hash_encode_cuda(x: torch.Tensor, table: torch.Tensor,
                      cfg: HashGridConfig) -> torch.Tensor:
-    """Kernel forward: x (N, 3) f32 in [0, 1], table (L, T, F) f32 →
+    """Kernel #1: x (N, 3) f32 in [0, 1], table (L, T, F) f32 →
     (N, L·F) f32."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
     _check_inputs(x, table, cfg, (L, T, F))
     out = torch.empty((x.shape[0], L * F), dtype=torch.float32,
                       device=x.device)
-    _launch(FWD, x, table, out, cfg)
+    res_c, dense_c = _level_arrays(cfg)
+    n_parts, cols, _ = _part_arrays(cfg, FWD_VALUE_BYTES)
+    blocks = grid_blocks(x.shape[0], n_parts,
+                         _resident(FWD, cfg, x.device.index), FWD_MIN_POINTS)
+    err = _symbol(FWD)(x.data_ptr(), table.data_ptr(), out.data_ptr(),
+                       x.shape[0], L, T, F, res_c, dense_c, n_parts, *cols,
+                       blocks, _build.stream_ptr(x.device))
+    _build.check(err, FWD)
+    _build.count_launch(FWD)
+    return out
+
+
+def hash_encode_level_cuda(x: torch.Tensor, table: torch.Tensor,
+                           cfg: HashGridConfig) -> torch.Tensor:
+    """The level-per-block forward (the first #1), with #1's contract; only
+    `chip_smoke.py` calls it, to time it beside #1."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    _check_inputs(x, table, cfg, (L, T, F))
+    out = torch.empty((x.shape[0], L * F), dtype=torch.float32,
+                      device=x.device)
+    res_c, dense_c = _level_arrays(cfg)
+    err = _symbol(FWD_LEVEL)(x.data_ptr(), table.data_ptr(), out.data_ptr(),
+                             x.shape[0], L, T, F, res_c, dense_c,
+                             _build.stream_ptr(x.device))
+    _build.check(err, FWD_LEVEL)
+    _build.count_launch(FWD_LEVEL)
     return out
 
 
 def hash_bwd_cuda(x: torch.Tensor, g: torch.Tensor,
                   cfg: HashGridConfig) -> torch.Tensor:
-    """Kernel table gradient: x (N, 3), g (N, L·F) → (L, T, F) f32."""
+    """Kernel #2: x (N, 3), g (N, L·F) → (L, T, F) f32, equal to
+    `hash_bwd_fixed_point_plain(x, g, cfg, bwd_blocks(N, cfg, x.device))`."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
     _check_inputs(x, g, cfg, (x.shape[0], L * F))
-    dtable = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
-    _launch(BWD, x, g, dtable, cfg)
+    n_parts, cols, most = _part_arrays(cfg, BWD_VALUE_BYTES)
+    blocks = bwd_blocks(x.shape[0], cfg, x.device)
+    partial = torch.empty((n_parts * blocks * most * F,),
+                          dtype=torch.float32, device=x.device)
+    dtable = torch.empty((L, T, F), dtype=torch.float32, device=x.device)
+    res_c, dense_c = _level_arrays(cfg)
+    err = _symbol(BWD)(x.data_ptr(), g.data_ptr(), dtable.data_ptr(),
+                       partial.data_ptr(), x.shape[0], L, T, F, res_c,
+                       dense_c, n_parts, *cols, blocks,
+                       _build.stream_ptr(x.device))
+    _build.check(err, BWD)
+    _build.count_launch(BWD)
     return dtable
+
+
+def fixed_point_exponent(gmax: torch.Tensor) -> torch.Tensor:
+    """#2's exponent s per G = max |g| ≥ 0 (f32, finite): the largest
+    s ≤ 126 with 2^s · G < 2^30, read off G's exponent bits; 0 for G = 0."""
+    bits = gmax.float().contiguous().view(torch.int32).long()
+    e = (bits >> 23) - 127                      # G < 2^(e + 1)
+    s = torch.clamp(FIXED_POINT_BITS - 1 - e, max=126)
+    return torch.where(bits == 0, torch.zeros_like(s), s)
+
+
+def _pow2(s: torch.Tensor) -> torch.Tensor:
+    """2^s as f32, exactly, for -126 ≤ s ≤ 127."""
+    return ((s + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def hash_bwd_fixed_point_plain(x: torch.Tensor, g: torch.Tensor,
+                               cfg: HashGridConfig,
+                               blocks: int) -> torch.Tensor:
+    """Kernel #2's arithmetic in PyTorch: the N points cut into `blocks`
+    chunks of ⌈N / blocks⌉; per chunk and level, s from G = max |g| over
+    the finite g (`fixed_point_exponent`), every update v = rint(w·g_f ·
+    2^s) of a finite g summed exactly in int64, the sums converted back
+    (one f32 rounding, then · 2^-s), the updates w·g_f of a non-finite g
+    added to them in f32, and the chunks' tables added in chunk order.
+    (L, T, F) f32."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    N = x.shape[0]
+    dev = x.device
+    dtable = torch.zeros((L * T, F), dtype=torch.float32, device=dev)
+    if N == 0:
+        return dtable.reshape(L, T, F)
+    chunk = -(-N // blocks)
+    idx8, w8 = corner_indices_and_weights(x, cfg)               # (L, N, 8)
+    flat = idx8 + torch.arange(L, device=dev)[:, None, None] * T
+    g_lnf = g.reshape(N, L, F).permute(1, 0, 2)                 # (L, N, F)
+    for b in range(blocks):
+        lo, hi = b * chunk, min(N, (b + 1) * chunk)
+        if lo >= hi:
+            continue
+        gb = g_lnf[:, lo:hi]
+        finite = torch.isfinite(gb)
+        g_fin = torch.where(finite, gb, torch.zeros_like(gb))
+        s = fixed_point_exponent(g_fin.abs().amax(dim=(1, 2)))  # (L,)
+        v = w8[:, lo:hi, :, None] * g_fin[:, :, None, :]        # f32 w·g_f
+        q = torch.round(v * _pow2(s)[:, None, None, None]).long()
+        slots = flat[:, lo:hi].reshape(-1)
+        sums = torch.zeros((L * T, F), dtype=torch.int64, device=dev)
+        sums.index_add_(0, slots, q.reshape(-1, F))
+        back = (sums.reshape(L, T, F).float() * _pow2(-s)[:, None, None]
+                ).reshape(L * T, F)
+        if not finite.all():
+            odd = torch.where(finite, torch.zeros_like(gb), gb)
+            back.index_add_(0, slots, (w8[:, lo:hi, :, None]
+                                       * odd[:, :, None, :]).reshape(-1, F)
+                            .float())
+        dtable = dtable + back
+    return dtable.reshape(L, T, F)
 
 
 def _variant_mode(mode: str, points_per_block: int) -> int:
@@ -196,15 +390,11 @@ def hash_bwd_variant_cuda(x: torch.Tensor, g: torch.Tensor,
         sums = torch.zeros((L, 1 + F), dtype=torch.int32, device=x.device)
     else:
         dtable = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
-    fn = _build.load("hashgrid").hashgrid_bwd_variant
-    fn.argtypes = [_build.VOIDP] * 4 + [_build.LONG] + [_build.INT] * 3 \
-        + [_build.VOIDP] * 2 + [_build.INT] * 2 + [_build.VOIDP]
-    fn.restype = _build.INT
     res_c, dense_c = _level_arrays(cfg)
-    err = fn(x.data_ptr(), g.data_ptr(),
+    err = _symbol(VARIANT)(x.data_ptr(), g.data_ptr(),
              None if dtable is None else dtable.data_ptr(),
              None if sums is None else sums.data_ptr(), x.shape[0], L, T, F,
-             ctypes.addressof(res_c), ctypes.addressof(dense_c), code,
+             res_c, dense_c, code,
              points_per_block, _build.stream_ptr(x.device))
     _build.check(err, VARIANT)
     _build.count_launch(VARIANT)

@@ -1,12 +1,13 @@
 """Experiment: where the hash-grid table gradient's time goes on the card.
 
-Counterpart of the JAX package's scripts/exp_hash_bwd.py. Kernel #2
-(`hashgrid_bwd`, csrc/hashgrid.cu) has two parts: the address part (load x
-and g, floor and clamp, hash, the 8 trilinear weights) and the accumulation
-part (shared-memory atomicAdds, then one global atomicAdd per non-zero
-slot). `hashgrid_bwd_variant` runs them apart, one mode each:
+Counterpart of the JAX package's scripts/exp_hash_bwd.py. Kernel #2 as
+first written (one level a block, f32 shared atomics) has two parts: the
+address part (load x and g, floor and clamp, hash, the 8 trilinear
+weights) and the accumulation part (shared-memory atomicAdds, then one
+global atomicAdd per non-zero slot). `hashgrid_bwd_variant` runs them
+apart, one mode each:
 
-  full    #2's design, at any number of points per block
+  full    that first #2, at any number of points per block
   global  every update an atomicAdd straight to the global table gradient,
           no shared copy
   addr    the address part alone (per-level Σ idx and Σ w·g)
@@ -16,7 +17,7 @@ slot). `hashgrid_bwd_variant` runs them apart, one mode each:
 
 If full ≈ addr + accum, the two parts run one after the other; if full ≈
 max(addr, accum), they overlap. Every mode runs at 2048 … 32768 points per
-block (8192 is #2's own setting), on the default grid (L=12, T=2^11,
+block (8192 is its own setting), on the default grid (L=12, T=2^11,
 F=2). A time is one replay of `iters` calls captured in a CUDA graph,
 between CUDA events, over `iters`: no host time falls between launches, as
 in the JAX script's lax.scan. Each call is timed as the wrapper makes it,
@@ -239,7 +240,7 @@ def main(argv=None) -> int:
                                  args.iters)
         ref = hg.hash_bwd_plain(x, g, CFG)
         err = (base - ref).abs().max().item()
-        print(f"baseline kernel (hashgrid_bwd):  {base_ms:.4f} ms  "
+        print(f"kernel #2 (hashgrid_bwd, fixed point):  {base_ms:.4f} ms  "
               f"max|err|={err:.2e}")
     else:
         print("device cpu: plain versions, no times")
@@ -254,7 +255,7 @@ def main(argv=None) -> int:
     full = hg.hash_bwd_variant_cuda(x, g, CFG, "full", 8192)
     err = (full - base).abs().max().item()
     tol = REL_TOL * base.abs().max().item()
-    print(f"variant full ppb=8192 vs baseline kernel: max|err|={err:.2e} "
+    print(f"variant full ppb=8192 vs kernel #2: max|err|={err:.2e} "
           f"(tol {tol:.2e})")
     ok = ok and err <= tol
     for line in split_lines(rows):

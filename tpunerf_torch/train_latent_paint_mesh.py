@@ -11,7 +11,7 @@ given. `optim.mode` is 0 (latent SDS at the train grid), 1 (TADA: give
 `--render.train_grid_size 512`) or 2 (SDEdit). `render.body_prob` below 1
 turns on the body and head cameras. Guidance is text-conditioned SD v1;
 depth-conditioned SD, Paint-by-Example, the CLIP losses and
-`guide.sampled_texture` are refused by name until their slice of the port.
+`guide.sampled_texture` are refused by name (ROADMAP.md item A.6).
 Checkpoints and train-render images are not ported yet, so
 `log.save_interval` must exceed `optim.iters` and `log.log_images` must be
 off. Eval frames, the final orbit and the mesh export (with the displaced

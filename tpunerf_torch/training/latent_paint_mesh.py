@@ -12,7 +12,8 @@ as loss strategies (`optim.mode`):
 
 Guidance is text-conditioned Stable Diffusion v1. The depth-conditioned
 backend, Paint-by-Example, the CLIP image losses and a texture seeded from
-a sampled image come with slice 4 of the port and are refused by name.
+a sampled image are not ported yet (ROADMAP.md item A.6) and are refused
+by name.
 The texture and the dome colours train at `optim.lr`, the displacement and
 the lights at `optim.disp_lr`.
 
@@ -38,12 +39,12 @@ from tpunerf_torch.training.latent_nerf_app import (
     directional_text_embeddings, select_text_embeddings)
 from tpunerf_torch.utils import make_generator, resolve_device
 
-SLICE_4 = "comes with slice 4 of the port (see ROADMAP.md)"
+ROADMAP_A6 = "is not ported yet: ROADMAP.md item A.6"
 SOFT_MASK_SIGMA = 1e-4
 SDEDIT_STEP_INDEX = 40       # mode 2 renoises at this DDIM step
 
 
-def slice_4_settings(cfg: TrainConfig) -> list:
+def unported_guidance_settings(cfg: TrainConfig) -> list:
     """The settings of `cfg` that need a guidance backend or a loss the
     port does not have yet."""
     guide, optim = cfg.guide, cfg.optim
@@ -79,9 +80,9 @@ class LatentPaintMeshApp:
         """Build the guidance stack and the scene on `device` (CUDA unless
         the caller names another; raises when there is no card). `mesh`
         overrides `guide.shape_path`."""
-        missing = slice_4_settings(cfg)
+        missing = unported_guidance_settings(cfg)
         if missing:
-            raise NotImplementedError(f"{'; '.join(missing)}: {SLICE_4}")
+            raise NotImplementedError(f"{'; '.join(missing)} {ROADMAP_A6}")
         if cfg.optim.mode not in (0, 1, 2):
             raise ValueError(f"unknown optim.mode {cfg.optim.mode}")
         device = resolve_device(device)
@@ -209,8 +210,8 @@ class LatentPaintMeshApp:
         return torch.mean((lat - target) ** 2)
 
     def clip_loss(self, views: ViewBatch) -> torch.Tensor:
-        raise NotImplementedError(
-            f"clip_loss (the CLIP image loss against guide.image) {SLICE_4}")
+        raise NotImplementedError("clip_loss (the CLIP image loss against "
+                                  f"guide.image) {ROADMAP_A6}")
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
