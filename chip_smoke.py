@@ -11,7 +11,13 @@
    The hash-grid kernels #1 and #2 also in a CUDA graph, beside the
    level-per-block designs of both (timed in the same call), at uniform x with N(0,1) and
    with heavy-tailed g; #2 bit for bit against its fixed-point emulation,
-   and its SASS free of compare-and-swap loops.
+   and its SASS free of compare-and-swap loops. The soft-silhouette
+   forwards #7 and #8, which cull per warp tile, at their inputs (#7: 64²
+   wide and head camera, 512² dense; #8: the 5-view eval chunk and one
+   mode-1 view at 512²) eager and in a CUDA graph beside the all-pairs
+   designs, bit for bit against them, with the bound of the live pairs
+   (factor 1 - p != 1.0f), the all-pairs bound and the cull's candidate
+   pairs; and on faces with NaN or inf vertices against the plain version.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
    `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
    at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
@@ -579,6 +585,104 @@ def _soft_grad_pairs(rz, rows, pix, g, prod, sigma: float, ids=None) -> int:
     return int(total.item())
 
 
+def _soft_live_pairs(rz, rows, pix, sigma: float, ids=None) -> int:
+    """The (face, pixel) pairs that the soft forward must evaluate: those
+    whose factor 1 − p is not exactly 1.0f under the plain arithmetic
+    (`_soft_face_prob`). Dense rows (B, F, 16) or, with ids (B, nb, K),
+    banded rows (B, F+1, 16) with the filler (p = 0) last."""
+    import torch
+    tab = rz._soft_stage(rows)
+    B = rows.shape[0]
+    if ids is None:
+        n, per = rows.shape[1], B * pix.shape[0]
+        px, py = pix[:, 0][None, None, :], pix[:, 1][None, None, :]
+        take = lambda a, b: tab[:, a:b]  # noqa: E731
+    else:
+        nb, n = ids.shape[1:]
+        per = B * nb * 1024
+        px, py = rz._band_operands(pix, nb)
+        bidx = torch.arange(B, device=rows.device)[:, None, None]
+        take = lambda a, b: tab[bidx, ids[:, :, a:b].long()]  # noqa: E731
+    chunk = max(1, rz._PLAIN_BLOCK // per)
+    total = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for a in range(0, n, chunk):
+        p = rz._soft_face_prob(take(a, a + chunk), px, py, sigma)[0]
+        total += ((1.0 - p) != 1.0).sum()
+    return int(total.item())
+
+
+def _soft_candidate_pairs(rz, rows, pix, sigma: float, width: int,
+                          ids=None) -> int:
+    """The (face, pixel) pairs that kernels #7 and #8 evaluate: the
+    (face, warp tile) pairs their cull keeps (`_soft_kept`, the kernels'
+    twin), times the 32 lanes of a tile; for #8 only the slots before a
+    bin's first filler."""
+    import torch
+    P = pix.shape[0]
+    boxes = rz._soft_cull_boxes(rows, sigma)
+    tiles = rz._soft_tile_pixels(P, width, ids is not None, pix.device)
+    tb = rz._soft_tile_boxes(pix, tiles)
+    if ids is None:
+        return 32 * int(rz._soft_kept(boxes, tb).sum().item())
+    B, nb, _ = ids.shape
+    bidx = torch.arange(B, device=rows.device)[:, None, None]
+    real = ids < rows.shape[1] - 1                           # (B, nb, K)
+    kept = rz._soft_kept(boxes[bidx, ids.long()], tb.reshape(nb, 32, 4))
+    return 32 * int((kept & real[:, :, None, :]).sum().item())
+
+
+def _soft_fwd_case(rz, label: str, new, sweep, plain, rows, pix,
+                   sigma: float, width: int, iters: int, ids=None,
+                   tol: float = 5e-6):
+    """One input of kernel #7 or #8: the kernel against its plain version
+    (`tol`, absolute) and bit for bit against the all-pairs design (`sweep`);
+    eager and CUDA-graph times of both, in the order new, old, old, new;
+    the live-pair bound (what the inputs need), the all-pairs bound (what
+    the all-pairs design evaluates), the candidate pairs of the cull."""
+    import torch
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    out, before, ref = new(), sweep(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    same = torch.equal(out, before)
+    B, n = rows.shape[:2]
+    if ids is None:
+        all_pairs = B * n * pix.shape[0]
+    else:
+        all_pairs = int((ids < n - 1).sum().item()) * 1024
+    live = _soft_live_pairs(rz, rows, pix, sigma, ids)
+    cand = _soft_candidate_pairs(rz, rows, pix, sigma, width, ids)
+    nbytes = 4 * (rows.numel() + pix.numel() + out.numel()
+                  + (0 if ids is None else ids.numel()))
+    b_ms, b_by = bound(nbytes, live * SOFT_FWD_FLOPS, "f32")
+    all_ms, _ = bound(nbytes, all_pairs * SOFT_FWD_FLOPS, "f32")
+    ms, old_ms = cuda_ms(new, iters), cuda_ms(sweep, iters)
+    old_graph, _ = ex.graph_ms(sweep, iters)
+    graph, _ = ex.graph_ms(new, iters)
+    ms2 = cuda_ms(new, iters)
+    case = dict(max_abs_err=err, equals_sweep=same, ms=ms, graph_ms=graph,
+                eager_ms_again=ms2, sweep_ms=old_ms,
+                sweep_graph_ms=old_graph, live_pairs=live,
+                candidate_pairs=cand, all_pairs=all_pairs,
+                live_per_candidate=live / max(cand, 1), bound_ms=b_ms,
+                bound_by=b_by, all_pairs_bound_ms=all_ms,
+                share_of_bound=b_ms / graph,
+                sweep_share_of_bound=b_ms / old_graph,
+                sweep_share_of_all_pairs_bound=all_ms / old_graph)
+    print(f"  {label}: max_abs_err {err:.3e} (tol {tol:.0e}), equals the "
+          f"all-pairs design bit for bit: {same}; eager {ms:.4f} / {ms2:.4f} ms, "
+          f"graph {graph:.4f} ms; all-pairs design eager {old_ms:.4f}, graph "
+          f"{old_graph:.4f}; pairs live {live}, candidate {cand} "
+          f"(live/candidate {live / max(cand, 1):.4f}), all {all_pairs}; "
+          f"bound {b_ms:.5f} ms ({b_by}; all pairs {all_ms:.4f}); share "
+          f"{b_ms / graph:.4f} (graph), the all-pairs design's {b_ms / old_graph:.5f} of "
+          f"the live bound, {all_ms / old_graph:.4f} of the all-pairs bound")
+    if not (err <= tol and same):
+        fail(f"{label}: the culled soft forward disagrees with its plain "
+             f"version or with the all-pairs design")
+    return case
+
+
 def check_soft_kernels(seed: int):
     """The four soft-silhouette kernels vs their plain versions on the
     projected sphere under the body and the head camera at the
@@ -612,7 +716,7 @@ def check_soft_kernels(seed: int):
                                 views.phi, views.radius, spec)[1].contiguous()
 
     def pair_dense(face_rows, pix, g):
-        prod_k = rz.soft_prod_dense_cuda(face_rows, pix, sigma)
+        prod_k = rz.soft_prod_dense_cuda(face_rows, pix, sigma, 64)
         prod_p = rz.soft_prod_dense_plain(face_rows, pix, sigma)
         grad_k = rz.soft_grad_dense_cuda(face_rows, pix, g, prod_k, sigma)
         grad_p = rz.soft_grad_dense_plain(face_rows, pix, g, prod_p, sigma)
@@ -676,22 +780,80 @@ def check_soft_kernels(seed: int):
     fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
     bwd_abs = max(bwd_abs, (grad_k - grad_p).abs().max().item())
 
-    # times at the training shape: the wide camera's first pose, which has
-    # a rim for the backward to work on
+    # faces with a NaN or an infinite vertex coordinate in the first of two
+    # views: the plain version's product is NaN at every pixel of that view
+    # (the face's distances are NaN); the kernels' must be too, and the
+    # clean second view equal to the all-pairs design's bit for bit
+    bad = rz._soft_rows(torch.tensor(
+        [[[[0.3, 0.3], [0.35, 0.3], [float("nan"), 0.32]],
+          [[-0.5, 0.5], [float("inf"), 0.5], [-0.45, 0.55]],
+          [[0.9, -0.9], [0.92, -0.9], [0.9, -float("inf")]]]], device=dev))
+    base = rz._soft_rows(project(poses, cameras["wide"])[:2])
+    mid = torch.cat([bad, base[1:, 200:203]], dim=0)
+    nf_rows = torch.cat([base[:, :200], mid, base[:, 200:]], 1).contiguous()
+    nf = rz.soft_prod_dense_cuda(nf_rows, pix, sigma, 64)
+    nf_old = rz.soft_prod_dense_sweep_cuda(nf_rows, pix, sigma)
+    nf_ref = rz.soft_prod_dense_plain(nf_rows, pix, sigma)
+    ids_all = torch.arange(nf_rows.shape[1], dtype=torch.int32,
+                           device=dev).expand(2, 4, -1).contiguous()
+    nf_rows_f = rz._with_filler(nf_rows).contiguous()
+    nf_b = rz.soft_prod_binned_cuda(nf_rows_f, ids_all, pix, sigma,
+                                    64).reshape(2, P)
+    nf_b_old = rz.soft_prod_binned_sweep_cuda(nf_rows_f, ids_all, pix,
+                                              sigma).reshape(2, P)
+    torch.cuda.synchronize()
+    nan_ref = torch.isnan(nf_ref)
+    e_nf = (nf[1] - nf_ref[1]).abs().max().item()
+    e_nfb = (nf_b[1] - nf_ref[1]).abs().max().item()
+    nan_same = (torch.equal(torch.isnan(nf), nan_ref)
+                and torch.equal(torch.isnan(nf_b), nan_ref))
+    clean_same = (torch.equal(nf[1], nf_old[1])
+                  and torch.equal(nf_b[1], nf_b_old[1]))
+    print(f"soft forward, NaN/inf vertex set F={nf_rows.shape[1]}, B=2: NaN "
+          f"pixels plain {int(nan_ref.sum())} (view 0 all, view 1 "
+          f"{int(nan_ref[1].sum())}), kernel #7 {int(torch.isnan(nf).sum())},"
+          f" #8 {int(torch.isnan(nf_b).sum())}, all-pairs designs "
+          f"{int(torch.isnan(nf_old).sum())} / "
+          f"{int(torch.isnan(nf_b_old).sum())} (their fminf drops the NaN "
+          f"distances); kernels' NaN pixels equal plain's: {nan_same}; clean"
+          f" view 1 equal to the all-pairs designs bit for bit: {clean_same}, "
+          f"max_abs_err #7 {e_nf:.3e}, #8 {e_nfb:.3e} (tol {FWD_TOL:.0e})")
+    if not (nan_ref[0].all() and not nan_ref[1].any() and nan_same
+            and clean_same and e_nf <= FWD_TOL and e_nfb <= FWD_TOL):
+        fail("the culled soft forward mishandles faces with a non-finite "
+             "vertex")
+    fwd_err = max(fwd_err, e_nf, e_nfb)
+
+    # inputs (a) the wide camera's first pose, which has a rim for the
+    # backward to work on; (b) a head-camera pose, which the sphere fills,
+    # as in most mode-0 steps; (c) 512² dense, the binned path's overflow
+    # fallback (below)
     face_rows = rz._soft_rows(project(poses, cameras["wide"])[:1]).contiguous()
+    head_rows = rz._soft_rows(project(poses, cameras["head"])[:1]).contiguous()
+    dense_cases = {}
+    print("soft_fwd_dense (#7) against the all-pairs design, 64² (8 x 4 tiles):")
+    for key, fr in (("a", face_rows), ("b", head_rows)):
+        dense_cases[key] = _soft_fwd_case(
+            rz, f"#7 ({key}) {'wide' if key == 'a' else 'head'} camera 64²",
+            lambda fr=fr: rz.soft_prod_dense_cuda(fr, pix, sigma, 64),
+            lambda fr=fr: rz.soft_prod_dense_sweep_cuda(fr, pix, sigma),
+            lambda fr=fr: rz.soft_prod_dense_plain(fr, pix, sigma),
+            fr, pix, sigma, 64, 50)
+        fwd_err = max(fwd_err, dense_cases[key]["max_abs_err"])
     g = torch.randn((1, P), generator=gen, device=dev)
-    prod = rz.soft_prod_dense_cuda(face_rows, pix, sigma)
+    prod = rz.soft_prod_dense_cuda(face_rows, pix, sigma, 64)
     live = int((g * prod != 0).sum().item())
     io = face_rows.numel() * 4 + pix.numel() * 4
-    b_ms, b_by = bound(io + P * 4, F * P * SOFT_FWD_FLOPS, "f32")
     rows_out[rz.SOFT_FWD_DENSE] = dict(
         name=rz.SOFT_FWD_DENSE, route="cuda",
         source="tpunerf_torch/csrc/rasterize.cu",
         replaces="tpunerf/kernels/rasterize.py:675", max_abs_err=fwd_err,
-        ms=cuda_ms(lambda: rz.soft_prod_dense_cuda(face_rows, pix, sigma), 50),
+        ms=dense_cases["a"]["ms"], graph_ms=dense_cases["a"]["graph_ms"],
         plain_ms=cuda_ms(lambda: rz.soft_prod_dense_plain(face_rows, pix,
                                                           sigma), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=dense_cases["a"]["bound_ms"],
+        bound_by=dense_cases["a"]["bound_by"], library_ms=None,
+        inputs=dense_cases)
     # the backward skips pixels with g·prod = 0 (count the live ones) and
     # forms the gradient at few of the live pairs (count those too)
     routed = _soft_grad_pairs(rz, face_rows, pix, g, prod, sigma)
@@ -735,14 +897,14 @@ def check_soft_kernels(seed: int):
             ids, maxc = rz._soft_bins(fv_img, H, W, sigma, K)
         face_rows = rz._with_filler(rz._soft_rows(fv_img)).contiguous()
         g = torch.randn((B, nb, 1024), generator=gen, device=dev)
-        prod_k = rz.soft_prod_binned_cuda(face_rows, ids, pix, sigma)
+        prod_k = rz.soft_prod_binned_cuda(face_rows, ids, pix, sigma, W)
         prod_p = rz.soft_prod_binned_plain(face_rows, ids, pix, sigma)
         slot_k = rz.soft_grad_binned_cuda(face_rows, ids, pix, g, prod_k,
                                           sigma)
         slot_p = rz.soft_grad_binned_plain(face_rows, ids, pix, g, prod_p,
                                            sigma)
         dense_rows = face_rows[:, :F].contiguous()
-        prod_d = rz.soft_prod_dense_cuda(dense_rows, pix, sigma)
+        prod_d = rz.soft_prod_dense_cuda(dense_rows, pix, sigma, W)
         grad_d = rz.soft_grad_dense_cuda(dense_rows, pix,
                                          g.reshape(B, P).contiguous(), prod_d,
                                          sigma)
@@ -775,18 +937,53 @@ def check_soft_kernels(seed: int):
     live_pairs = int(((ids < F).sum(-1) * is_live.sum(-1)).sum().item())
     routed = _soft_grad_pairs(rz, face_rows, pix, g, prod, sigma, ids)
     io = face_rows.numel() * 4 + ids.numel() * 4 + pix.numel() * 4
-    b_ms, b_by = bound(io + prod.numel() * 4,
-                       filled * 1024 * SOFT_FWD_FLOPS, "f32")
+    # #8 (a) the eval chunk above (body camera, B = 5, 512²); (b) the mode-1
+    # step's shape, one body-camera pose at 512²; #7 (c) 512² dense, the
+    # fallback where a bin overflows, on the eval chunk's first view
+    print("soft_fwd_binned (#8) against the all-pairs design, 512² (16 x 2 tiles):")
+    binned_cases = {"a": _soft_fwd_case(
+        rz, f"#8 (a) eval chunk, body camera, B=5 {H}² K={K}",
+        lambda: rz.soft_prod_binned_cuda(face_rows, ids, pix, sigma, W),
+        lambda: rz.soft_prod_binned_sweep_cuda(face_rows, ids, pix, sigma),
+        lambda: rz.soft_prod_binned_plain(face_rows, ids, pix, sigma),
+        face_rows, pix, sigma, W, 20, ids)}
+    fv1 = project(rand_poses(1, vcfg, dev, generator=gen), cameras["body"])
+    K1 = rz._SOFT_BIN_K
+    ids1, maxc1 = rz._soft_bins(fv1, H, W, sigma, K1)
+    if int(maxc1) > K1:
+        K1 = -(-int(maxc1) // 128) * 128
+        ids1, _ = rz._soft_bins(fv1, H, W, sigma, K1)
+    rows1 = rz._with_filler(rz._soft_rows(fv1)).contiguous()
+    binned_cases["b"] = _soft_fwd_case(
+        rz, f"#8 (b) mode-1 step, body camera, B=1 {H}² K={K1}",
+        lambda: rz.soft_prod_binned_cuda(rows1, ids1, pix, sigma, W),
+        lambda: rz.soft_prod_binned_sweep_cuda(rows1, ids1, pix, sigma),
+        lambda: rz.soft_prod_binned_plain(rows1, ids1, pix, sigma),
+        rows1, pix, sigma, W, 20, ids1)
+    fwd_err = max(fwd_err, *(c["max_abs_err"] for c in binned_cases.values()))
+    rows_c = dense_rows[:1].contiguous()
+    print("soft_fwd_dense (#7) at 512², the overflow fallback (8 x 4 tiles):")
+    case_c = _soft_fwd_case(
+        rz, f"#7 (c) dense {H}², body camera, eval chunk's first view",
+        lambda: rz.soft_prod_dense_cuda(rows_c, pix, sigma, W),
+        lambda: rz.soft_prod_dense_sweep_cuda(rows_c, pix, sigma),
+        lambda: rz.soft_prod_dense_plain(rows_c, pix, sigma),
+        rows_c, pix, sigma, W, 10)
+    dense_row = rows_out[rz.SOFT_FWD_DENSE]
+    dense_row["inputs"]["c"] = case_c
+    dense_row["max_abs_err"] = max(dense_row["max_abs_err"],
+                                   case_c["max_abs_err"])
     rows_out[rz.SOFT_FWD_BINNED] = dict(
         name=rz.SOFT_FWD_BINNED, route="cuda",
         source="tpunerf_torch/csrc/rasterize.cu",
         replaces="tpunerf/kernels/rasterize.py:694", max_abs_err=fwd_err,
-        ms=cuda_ms(lambda: rz.soft_prod_binned_cuda(face_rows, ids, pix,
-                                                    sigma), 20),
+        ms=binned_cases["a"]["ms"], graph_ms=binned_cases["a"]["graph_ms"],
         plain_ms=cuda_ms(lambda: rz.soft_prod_binned_plain(face_rows, ids,
                                                            pix, sigma), 2,
                          warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=binned_cases["a"]["bound_ms"],
+        bound_by=binned_cases["a"]["bound_by"], library_ms=None,
+        inputs=binned_cases)
     b_ms, b_by = bound(io + 2 * prod.numel() * 4 + ids.numel() * 6 * 4,
                        live_pairs * SOFT_FWD_FLOPS
                        + routed * SOFT_GRAD_FLOPS, "f32")
@@ -806,8 +1003,8 @@ def check_soft_kernels(seed: int):
     fv_body = project(orbit, cameras["body"])
     sum_ms = cuda_ms(lambda: rz._slots_to_faces(slot, ids, F), 10)
     bins_ms = cuda_ms(lambda: rz._soft_bins(fv_body, H, W, sigma, K), 5)
-    dense_f = cuda_ms(lambda: rz.soft_prod_dense_cuda(dense_rows, pix, sigma),
-                      3)
+    dense_f = cuda_ms(lambda: rz.soft_prod_dense_cuda(dense_rows, pix, sigma,
+                                                      W), 3)
     dense_b = cuda_ms(lambda: rz.soft_grad_dense_cuda(dense_rows, pix, gd, pd,
                                                       sigma), 3)
     print(f"  binned backward: {live} of {prod.numel()} pixels live; "

@@ -75,9 +75,13 @@ def test_kernels_are_cuda_sources_of_the_package():
     raster = (PKG / "csrc" / "rasterize.cu").read_text()
     for symbol in ("select_faces_dense", "select_faces_binned",
                    "soft_fwd_dense", "soft_fwd_binned", "soft_bwd_dense",
-                   "soft_bwd_binned", "expf(", "__fmul_rn", "__fadd_rn"):
+                   "soft_bwd_binned", "expf(", "__fmul_rn", "__fadd_rn",
+                   "soft_fwd_dense_sweep", "soft_fwd_binned_sweep",
+                   "soft_fwd_dense_tile_kernel"):
         assert symbol in raster, symbol
-    assert raster.count("__global__") == 6 and "__expf" not in raster
+    # 2 selection, 3 culled soft forward, 2 all-pairs soft forward (timed
+    # only), 2 soft backward
+    assert raster.count("__global__") == 9 and "__expf" not in raster
     assert "use_fast_math" not in " ".join(
         __import__("tpunerf_torch.kernels._build",
                    fromlist=["NVCC_FLAGS"]).NVCC_FLAGS)

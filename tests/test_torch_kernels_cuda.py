@@ -35,6 +35,10 @@ def _close_to_max(actual, expected, rel, what):
     assert err <= tol, f"{what}: max error {err:.3e} > {tol:.3e}"
 
 
+def _max_abs(d) -> float:
+    return d.abs().max().item() if d.numel() else 0.0
+
+
 def _launched(name, fn):
     before = _build.LAUNCHES.get(name, 0)
     out = fn()
@@ -483,6 +487,99 @@ def test_binned_soft_kernels_match_plain_and_dense():
                   rz.soft_grad_dense(dense_rows, pix,
                                      g.reshape(B, -1).contiguous(), dense,
                                      1e-4), 1e-4, "binned vs dense backward")
+
+
+def _head_camera_rows(dev, size, seed):
+    """Soft rows of the sphere under the head camera, which it fills."""
+    from tpunerf_torch.core.views import ViewSamplerConfig, rand_poses
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.meshrep import shapes
+    mesh = shapes.uv_sphere().normalize(target_scale=0.6, dy=0.25).to(dev)
+    views = rand_poses(1, ViewSamplerConfig(), dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    fv_img = mrender._project(mesh.vertices, mesh.faces, views.theta,
+                              views.phi, views.radius,
+                              mrender.HEAD_CAMERA)[1]
+    return rz._soft_rows(fv_img).contiguous()
+
+
+@pytest.mark.parametrize("case", ["64 wide", "64 head", "50 wide",
+                                  "512 wide"])
+def test_culled_dense_soft_forward_matches_plain_and_the_sweep(case):
+    dev = _card()
+    size, camera = int(case.split()[0]), case.split()[1]
+    if camera == "head":
+        rows = _head_camera_rows(dev, size, 8)
+        pix = rz.pixel_grid_ndc(size, size, dev)
+    else:
+        _, rows, pix, _ = _soft_inputs(dev, size, 2 if size < 512 else 1, 9)
+    prod = _launched(rz.SOFT_FWD_DENSE,
+                     lambda: rz.soft_prod_dense(rows, pix, 1e-4, size))
+    ref = rz.soft_prod_dense_plain(rows, pix, 1e-4)
+    assert (prod - ref).abs().max().item() <= 5e-6
+    # the wide camera sees the rim; the head camera's view is all sphere
+    assert ((ref > 0.01) & (ref < 0.99)).any() == (camera == "wide")
+    # the same 8 slices, skipped factors exactly 1: bit for bit
+    assert torch.equal(prod, rz.soft_prod_dense_sweep_cuda(rows, pix, 1e-4))
+    # the other tiling (32 in a row) too
+    assert torch.equal(prod, rz.soft_prod_dense_cuda(rows, pix, 1e-4, 0))
+
+
+@pytest.mark.parametrize("width", [512, 0])
+def test_culled_binned_soft_forward_matches_plain_and_the_sweep(width):
+    dev = _card()
+    H = W = 512
+    fv_img, _, pix, _ = _soft_inputs(dev, H, 2, 10)
+    K = rz._SOFT_BIN_K
+    ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    if int(maxc) > K:
+        K = -(-int(maxc) // 128) * 128
+        ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    rows = rz._with_filler(rz._soft_rows(fv_img)).contiguous()
+    prod = _launched(rz.SOFT_FWD_BINNED,
+                     lambda: rz.soft_prod_binned(rows, ids, pix, 1e-4, width))
+    ref = rz.soft_prod_binned_plain(rows, ids, pix, 1e-4)
+    assert (prod - ref).abs().max().item() <= 5e-6
+    assert torch.equal(prod, rz.soft_prod_binned_sweep_cuda(rows, ids, pix,
+                                                            1e-4))
+
+
+BAD_FACES = [[[0.3, 0.3], [0.35, 0.3], [float("nan"), 0.32]],
+             [[-0.5, 0.5], [float("inf"), 0.5], [-0.45, 0.55]],
+             [[0.9, -0.9], [0.92, -0.9], [0.9, -float("inf")]]]
+
+
+def _non_finite_rows(dev, k, seed):
+    """Soft rows of two views of the sphere at 64²; the first view also
+    holds BAD_FACES[k] (a NaN, an inf or a -inf vertex coordinate) as face
+    200, the second a copy of its face 200 there."""
+    _, rows, pix, _ = _soft_inputs(dev, 64, 2, seed)
+    bad = rz._soft_rows(torch.tensor([[BAD_FACES[k]]], device=dev))
+    mid = torch.cat([bad, rows[1:, 200:201]], dim=0)
+    return torch.cat([rows[:, :200], mid, rows[:, 200:]],
+                     dim=1).contiguous(), pix
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_culled_soft_forward_gives_nan_where_plain_does(k):
+    dev = _card()
+    rows, pix = _non_finite_rows(dev, k, 11)
+    ref = rz.soft_prod_dense_plain(rows, pix, 1e-4)
+    # the plain version: NaN at every pixel of the first view, none in the
+    # second
+    assert torch.isnan(ref[0]).all() and not torch.isnan(ref[1]).any()
+    prod = rz.soft_prod_dense(rows, pix, 1e-4, 64)
+    assert torch.equal(torch.isnan(prod), torch.isnan(ref))
+    assert _max_abs(prod[1] - ref[1]) <= 5e-6
+    sweep = rz.soft_prod_dense_sweep_cuda(rows, pix, 1e-4)
+    assert torch.equal(prod[1], sweep[1])
+    # banded: bins that hold every face in every band
+    ids = torch.arange(rows.shape[1], dtype=torch.int32, device=dev).expand(
+        2, 4, -1).contiguous()
+    got = rz.soft_prod_binned(rz._with_filler(rows).contiguous(), ids, pix,
+                              1e-4, 64).reshape(2, -1)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert _max_abs(got[1] - ref[1]) <= 5e-6
 
 
 def test_soft_silhouette_autograd_runs_the_kernels():

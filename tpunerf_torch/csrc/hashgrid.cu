@@ -79,6 +79,8 @@
 
 #include <algorithm>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kMaxLevels = 32;
@@ -230,36 +232,6 @@ __device__ __forceinline__ void store_row(float* __restrict__ o,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Waits for the completion of the barrier's phase 0. Traps after 4 s, so
-// that a lost copy ends the kernel with an error instead of hanging the
-// card.
-__device__ __forceinline__ void mbar_wait0(uint32_t bar) {
-  uint64_t t0 = 0;
-  for (uint32_t k = 1;; ++k) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar)
-        : "memory");
-    if (done) return;
-    if (k % 1024 == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 4000000000ull)
-        __trap();
-    }
-  }
-}
-
 // Stages `bytes` of global memory at src into shared memory at dst: by
 // cp.async.bulk copies completed on the mbarrier at `bar` where src and
 // the size are 16-byte aligned (dst always is), else by plain loads. Ends
@@ -267,27 +239,18 @@ __device__ __forceinline__ void mbar_wait0(uint32_t bar) {
 __device__ void stage(float* dst, const float* __restrict__ src,
                       uint32_t bytes, uint64_t* bar) {
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
-    const uint32_t b = smem_addr(bar);
+    const uint32_t b = tpn::smem_addr(bar);
     if (threadIdx.x == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
-                   : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
-          "r"(bytes)
-          : "memory");
-      const uint32_t d = smem_addr(dst);
+      tpn::mbar_init(b, 1);
+      tpn::mbar_expect_tx(b, bytes);
+      const uint32_t d = tpn::smem_addr(dst);
       for (uint32_t off = 0; off < bytes; off += kBulkBytes) {
-        const uint32_t size = min(kBulkBytes, bytes - off);
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];\n" ::"r"(d + off),
-            "l"(reinterpret_cast<const char*>(src) + off), "r"(size), "r"(b)
-            : "memory");
+        tpn::bulk_g2s(d + off, reinterpret_cast<const char*>(src) + off,
+                      min(kBulkBytes, bytes - off), b);
       }
     }
     __syncthreads();   // the barrier is initialised before anyone waits
-    mbar_wait0(b);
+    tpn::mbar_wait(b, 0);
   } else {
     for (uint32_t i = threadIdx.x; i < bytes / 4; i += blockDim.x)
       dst[i] = src[i];

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kRow = 12;        // floats per face row
@@ -222,22 +224,66 @@ int select_faces_binned(const float* rows, const int* ids, const float* pix,
 // What bounds them on this card: operations. A (face, pixel) pair costs three
 // affine forms, three point-segment distances, a quotient and an expf, about
 // 80 f32 operations forward and about 110 backward, against 64 bytes a face
-// and 8 to 16 bytes a pixel: dense at F = 3968, P = 4096 is 1.3 GFLOP for
-// 0.3 MB; binned at 5 views x 256 bands of 1024 pixels is about 80 operations
-// for each filled bin slot and pixel. All on the CUDA cores' f32 rate.
+// and 8 to 16 bytes a pixel. Only the pairs with 1 - p != 1.0f need that
+// work: farther than m = sqrt(27.7 sigma) from a face, p < 1e-12 and its
+// factor rounds to exactly 1.0f (kernels/rasterize.py:_SOFT_TAIL). At
+// sigma = 1e-4 that is 1.7 pixels at 64^2 and 13.5 at 512^2, so the live
+// pairs are a few per cent of all pairs. All on the CUDA cores' f32 rate.
 //
 // Design.
 // * A row is staged into shared memory once per block with the three
 //   1/max(|edge|^2, 1e-10) appended (they depend on the face alone), and read
 //   from there as broadcasts.
-// * Forward, dense: a thread owns a pixel. 4096 pixels are too few threads for
-//   132 SMs, so a block is 32 pixels x 8 slices of the face list (one warp a
-//   slice) and the eight partial products are multiplied in slice order: the
-//   order of the product differs from a single sweep's, by rounding only.
-// * Forward, binned: a block owns one (view, band) of 1024 pixels and gathers
-//   the band's rows through its id list in tiles of 128 slots; the (B, nb, K,
-//   16) table is never materialised. Bins hold their faces first and fillers
-//   after them, so the sweep ends at the first filler.
+// * Forward, the cull (both kernels). A warp owns a tile of 32 pixels: an
+//   8 x 4 block of the image (dense) or a 16 x 2 block of a 512-wide band
+//   (binned), where the image's width allows, else 32 pixels in a row. A
+//   face's box is the min and max of its vertices widened by m; a tile's
+//   box is the min and max over its live pixels. A (face, tile) pair is
+//   skipped only when the tile's box lies wholly outside the face's: then
+//   every pixel of the tile is farther than m from the face, and each of
+//   its factors is exactly 1.0f. A face with a non-finite vertex gets the
+//   whole plane as its box and is never skipped; it makes the product NaN,
+//   as its NaN distances make it in the plain version (face_prob's fminf
+//   would drop them; the all-pairs designs give a finite value there). A tile
+//   with a NaN pixel skips nothing. The warp tests 32 staged rows at
+//   a time (`__ballot_sync`), stages the hits, in face order, into its own
+//   compacted list in shared memory and sweeps only those. Multiplying by
+//   1.0f is exact, so for faces with finite vertices the culled sweep
+//   equals the unculled one in the same order bit for bit, wherever the
+//   inside test is itself right at a distance m from the face. It is not
+//   for slivers thinner than about 1e-5 radians at one vertex, where the
+//   rounding of the edge forms can call a far pixel inside (p = 1): the
+//   cull then skips that spurious 0.
+// * Forward, dense (`soft_fwd_dense`). The product keeps the order of the
+//   all-pairs sweep: the face list cut into 8 slices, each slice's factors
+//   multiplied in face order, the 8 partial products in slice order. So
+//   the result equals `soft_fwd_dense_sweep`'s bit for bit (finite faces).
+//   Face ids are contiguous latitude rings of the mesh, so one slice holds
+//   most of a tile's hits (64^2, wide camera: 250 of 262), and a warp a
+//   (tile, slice) waits on that one warp. Two modes:
+//   - few tiles (<= 4 a SM: 64^2), a tile a block
+//     (`soft_fwd_dense_tile_kernel`): 16 warps test a chunk of 512 rows,
+//     compact the hits in face order across warps, evaluate every 16th
+//     hit's factor each into shared memory, and warp 0 multiplies them in
+//     the sweep's order. Rows stream by cp.async.bulk into 2 chunks on
+//     mbarriers: the next chunk lands while this one is swept.
+//   - many tiles (512^2), NT tiles a block (`soft_fwd_dense_kernel`), a
+//     warp a tile sweeping all 8 slices in order. The block streams the
+//     rows, (B, F, 16) contiguous, 64 bytes a face, in chunks of 64 by
+//     cp.async.bulk into a ring of 2 on mbarriers, shared by its NT tiles.
+// * Forward, binned (`soft_fwd_binned`). A block owns one (view, band) of
+//   1024 pixels, 32 warps, one tile each, and gathers the band's rows
+//   through its id list in rounds of 128 slots with 16-byte cp.async into
+//   a double buffer: round r + 1's gather is in flight while round r is
+//   swept. The (B, nb, K, 16) table is never materialised. Bins hold their
+//   faces first and fillers after them, so the sweep ends at the first
+//   filler. The result equals `soft_fwd_binned_sweep`'s bit for bit
+//   (finite faces). (Spreading a band's (tile, slot) pairs over its warps
+//   to even out the tiles' loads measured slower: the barriers cost more.)
+// * The all-pairs designs, `soft_fwd_dense_sweep` (a block of 32 pixels x 8
+//   slices, every pair evaluated, rows staged synchronously) and
+//   `soft_fwd_binned_sweep` (1024 threads sweep every filled slot), are kept
+//   only to be timed beside the new kernels; no path calls them.
 // * Backward: a block owns 8 faces (dense) or 8 slots of one band (binned);
 //   its 256 threads stride the pixels with 48 sums in registers, then reduce
 //   by warp shuffles and through shared memory in a fixed order. No atomics:
@@ -256,9 +302,14 @@ namespace {
 
 constexpr int kSRow = 16;     // floats per soft row
 constexpr int kSQuads = 5;    // float4 per staged row: 16 + 3 inverses + pad
-constexpr int kSPix = 32;     // dense forward: pixels per block, one warp
+constexpr int kSPix = 32;     // dense sweep: pixels per block, one warp
 constexpr int kSSlices = 8;   // dense forward: slices of the face list
 constexpr int kBTile = 128;   // binned forward: slots staged per round
+constexpr int kChunk = 64;    // dense forward: rows a bulk copy
+constexpr int kStages = 2;    // dense forward: chunks in flight a block
+constexpr int kDWarps = 16;   // dense forward: most warps a block
+constexpr int kTWarps = 16;   // dense forward, a tile a block: warps
+constexpr int kTChunk = kTWarps * 32;  // ... and rows a bulk copy
 constexpr int kGFaces = 8;    // backward: faces (slots) per block
 constexpr int kGThreads = 256;
 
@@ -339,7 +390,7 @@ __device__ __forceinline__ float sweep_soft(const float4* __restrict__ rows,
 }
 
 __global__ void __launch_bounds__(kSPix * kSSlices)
-soft_fwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
+soft_fwd_dense_sweep_kernel(const float* __restrict__ rows,  // (B, F, 16)
                       const float* __restrict__ pix,   // (P, 2)
                       float* __restrict__ out,         // (B, P) prod
                       int F, int P, float sigma) {
@@ -382,7 +433,7 @@ soft_fwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
 }
 
 __global__ void __launch_bounds__(kBand)
-soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
+soft_fwd_binned_sweep_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
                        const int* __restrict__ ids,     // (B, nb, K)
                        const float* __restrict__ pix,   // (P, 2)
                        float* __restrict__ out,         // (B, nb, 1024) prod
@@ -413,6 +464,393 @@ soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
     if (n < kBTile) break;  // uniform over the block
   }
   out[((size_t)b * nb + band) * kBand + tid] = prod;
+}
+
+// ---- the cull (soft_fwd_dense, soft_fwd_binned) -------------------------
+
+struct Box {
+  float x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Box whole_plane() {
+  return Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
+}
+
+__device__ __forceinline__ bool finite_vertices(
+    const float* __restrict__ row) {
+  const float4 c = reinterpret_cast<const float4*>(row)[2];  // e2c v0 v1x
+  const float4 d = reinterpret_cast<const float4*>(row)[3];  // v1y v2 valid
+  return isfinite(c.y) && isfinite(c.z) && isfinite(c.w) && isfinite(d.x) &&
+         isfinite(d.y) && isfinite(d.z);
+}
+
+// The box of a raw 16-float row's three vertices, widened by m; the whole
+// plane for a face with a non-finite vertex coordinate.
+// kernels/rasterize.py:_soft_cull_boxes is its twin.
+__device__ __forceinline__ Box face_box(const float* __restrict__ row,
+                                        float m) {
+  if (!finite_vertices(row)) return whole_plane();
+  const float4 c = reinterpret_cast<const float4*>(row)[2];
+  const float4 d = reinterpret_cast<const float4*>(row)[3];
+  Box b;
+  b.x0 = __fsub_rn(fminf(fminf(c.y, c.w), d.y), m);
+  b.x1 = __fadd_rn(fmaxf(fmaxf(c.y, c.w), d.y), m);
+  b.y0 = __fsub_rn(fminf(fminf(c.z, d.x), d.z), m);
+  b.y1 = __fadd_rn(fmaxf(fmaxf(c.z, d.x), d.z), m);
+  return b;
+}
+
+// The box of the warp's live pixels (empty where none is live; the whole
+// plane where one is NaN). kernels/rasterize.py:_soft_tile_boxes is its
+// twin.
+__device__ __forceinline__ Box tile_box(float px, float py, bool live) {
+  Box t{live ? px : INFINITY, live ? px : -INFINITY, live ? py : INFINITY,
+        live ? py : -INFINITY};
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    t.x0 = fminf(t.x0, __shfl_xor_sync(0xffffffffu, t.x0, off));
+    t.x1 = fmaxf(t.x1, __shfl_xor_sync(0xffffffffu, t.x1, off));
+    t.y0 = fminf(t.y0, __shfl_xor_sync(0xffffffffu, t.y0, off));
+    t.y1 = fmaxf(t.y1, __shfl_xor_sync(0xffffffffu, t.y1, off));
+  }
+  if (__any_sync(0xffffffffu, live && !(px == px && py == py))) {
+    return whole_plane();
+  }
+  return t;
+}
+
+// Written so that a NaN compare never skips.
+__device__ __forceinline__ bool outside(const Box& f, const Box& t) {
+  return t.x1 < f.x0 || t.x0 > f.x1 || t.y1 < f.y0 || t.y0 > f.y1;
+}
+
+// Multiply into `prod` the factors of raw rows [0, n) (16 floats each, in
+// shared memory) at the lane's pixel, in row order, skipping the rows whose
+// box the tile lies outside: 32 rows a ballot, the hits staged, compacted
+// in order, into the warp's own list `hits` (32 x kSQuads float4). A face
+// with a non-finite vertex makes the product NaN: its distances are NaN in
+// the plain version, so its p is NaN at every pixel there, where
+// face_prob's fminf would drop the NaN and give a finite p.
+__device__ __forceinline__ float cull_sweep(const float* __restrict__ raw,
+                                            int n, const Box& tb, float m,
+                                            float4* __restrict__ hits,
+                                            float px, float py, float sigma,
+                                            float prod) {
+  const int lane = threadIdx.x & 31;
+  for (int h = 0; h < n; h += 32) {
+    const int i = h + lane;
+    const bool bad = i < n && !finite_vertices(raw + i * kSRow);
+    const bool hit = i < n && !outside(face_box(raw + i * kSRow, m), tb);
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    if (hit) {
+      stage_row(raw + i * kSRow,
+                hits + __popc(mask & ((1u << lane) - 1u)) * kSQuads);
+    }
+    __syncwarp();
+    prod = sweep_soft(hits, __popc(mask), px, py, sigma, prod);
+    if (__any_sync(0xffffffffu, bad)) prod = __int_as_float(0x7fc00000);
+    __syncwarp();  // the sweep is done before the next hits are staged
+  }
+  return prod;
+}
+
+// Pixel of lane `lane` of dense tile `tile`, -1 past the image: 8 x 4
+// blocks of an image `width` wide where width > 0, else 32 in a row.
+// kernels/rasterize.py:_soft_tile_pixels is its twin.
+__device__ __forceinline__ int dense_tile_pixel(int tile, int lane, int P,
+                                                int width) {
+  int p;
+  if (width > 0) {
+    const int per_row = width / 8;
+    p = ((tile / per_row) * 4 + (lane >> 3)) * width +
+        (tile % per_row) * 8 + (lane & 7);
+  } else {
+    p = tile * 32 + lane;
+  }
+  return p < P ? p : -1;
+}
+
+// Index within its band of lane `lane` of band tile `t`: (32 / R) x R
+// blocks of the band's R = 1024 / width rows where width > 0, else 32 in a
+// row.
+__device__ __forceinline__ int band_tile_pixel(int t, int lane, int width) {
+  if (width > 0) {
+    const int tw = 32 / (kBand / width);
+    return (lane / tw) * width + t * tw + lane % tw;
+  }
+  return t * 32 + lane;
+}
+
+// Dense forward where the image has many tiles, NT tiles a block: each
+// warp sweeps all 8 slices for its tile, the block sharing each chunk of
+// rows. Dynamic shared memory: kStages barriers (128 bytes reserved),
+// kStages chunks of kChunk raw rows, a 32-row hit list a warp.
+__global__ void __launch_bounds__(kDWarps * 32)
+soft_fwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
+                      const float* __restrict__ pix,   // (P, 2)
+                      float* __restrict__ out,         // (B, P) prod
+                      int F, int P, int width, float sigma, float m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* raw = reinterpret_cast<float*>(smem + 128);
+  float4* hits_all =
+      reinterpret_cast<float4*>(raw + kStages * kChunk * kSRow);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int NT = blockDim.x >> 5;
+  const int b = blockIdx.y;
+  const int p = dense_tile_pixel(blockIdx.x * NT + warp, lane, P, width);
+  const bool live = p >= 0;
+  // pixels past the image sit far outside NDC: expf underflows to 0
+  const float px = live ? pix[2 * p + 0] : 5.0f;
+  const float py = live ? pix[2 * p + 1] : 5.0f;
+  const Box tb = tile_box(px, py, live);
+  const float* src = rows + (size_t)b * F * kSRow;
+  float4* hits = hits_all + warp * 32 * kSQuads;
+
+  const int per_slice = (F + kSSlices - 1) / kSSlices;
+  const int cps = max(1, (per_slice + kChunk - 1) / kChunk);  // chunks a slice
+  const int nchunks = kSSlices * cps;
+  const bool producer = threadIdx.x == 0;
+
+  // chunk j: n rows of slice j / cps from row `first`
+  auto chunk_rows = [&](int j, int& first) {
+    const int lo = (j / cps) * per_slice;
+    const int hi = min(F, lo + per_slice);
+    first = lo + (j % cps) * kChunk;
+    return max(0, min(kChunk, hi - first));
+  };
+  auto issue = [&](int j) {
+    int first;
+    const int n = chunk_rows(j, first);
+    const int slot = j % kStages;
+    const uint32_t bar = tpn::smem_addr(bars + slot);
+    tpn::mbar_expect_tx(bar, (uint32_t)n * kSRow * 4);
+    if (n > 0) {
+      tpn::bulk_g2s(tpn::smem_addr(raw + slot * kChunk * kSRow),
+                    src + (size_t)first * kSRow, (uint32_t)n * kSRow * 4,
+                    bar);
+    }
+  };
+
+  if (producer) {
+    for (int st = 0; st < kStages; ++st) {
+      tpn::mbar_init(tpn::smem_addr(bars + st), 1);
+    }
+  }
+  __syncthreads();
+  if (producer) {
+    for (int j = 0; j < min(kStages, nchunks); ++j) issue(j);
+  }
+
+  // the all-pairs sweep's order: each slice from 1.0f, the slices in order
+  float total = 1.0f, prod = 1.0f;
+  for (int j = 0; j < nchunks; ++j) {
+    int first;
+    const int n = chunk_rows(j, first);
+    const int slot = j % kStages;
+    tpn::mbar_wait(tpn::smem_addr(bars + slot), (uint32_t)(j / kStages) & 1u);
+    prod = cull_sweep(raw + slot * kChunk * kSRow, n, tb, m, hits, px, py,
+                      sigma, prod);
+    if ((j + 1) % cps == 0) {  // the end of a slice
+      total = __fmul_rn(total, prod);
+      prod = 1.0f;
+    }
+    __syncthreads();  // the block is done with the slot
+    if (producer && j + kStages < nchunks) {
+      tpn::fence_proxy_async_smem();
+      issue(j + kStages);
+    }
+  }
+  if (live) out[(size_t)b * P + p] = total;
+}
+
+// Dense forward where the image has few tiles (64^2: 128), one tile a
+// block: the 16 warps test 32 rows each of a chunk of 512, the hits are
+// compacted in face order across the warps, every warp stages and
+// evaluates every 16th hit's factor 1 - p into shared memory, and warp 0
+// multiplies the factors in face order into the 8 slices' partial
+// products and those in slice order: the all-pairs sweep's arithmetic, bit for
+// bit, with the hits of a tile spread evenly over its 16 warps. Dynamic
+// shared memory: 2 barriers (128 bytes reserved), 2 chunks of raw rows,
+// the staged hits, their factors, their rows and the warps' hit counts.
+constexpr size_t kTileSmem =
+    128 + 2 * (size_t)kTChunk * kSRow * 4 + (size_t)kTChunk * kSQuads * 16 +
+    (size_t)kTChunk * 32 * 4 + (size_t)kTChunk * 4 + 2 * kTWarps * 4;
+
+__global__ void __launch_bounds__(kTWarps * 32)
+soft_fwd_dense_tile_kernel(const float* __restrict__ rows,  // (B, F, 16)
+                           const float* __restrict__ pix,   // (P, 2)
+                           float* __restrict__ out,         // (B, P) prod
+                           int F, int P, int width, float sigma, float m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* raw = reinterpret_cast<float*>(smem + 128);
+  float4* conv = reinterpret_cast<float4*>(raw + 2 * kTChunk * kSRow);
+  float* fac = reinterpret_cast<float*>(conv + kTChunk * kSQuads);
+  int* hit_row = reinterpret_cast<int*>(fac + kTChunk * 32);
+  int* cnt = hit_row + kTChunk;   // hits of each warp
+  int* bad_w = cnt + kTWarps;     // non-finite faces of each warp
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int p = dense_tile_pixel(blockIdx.x, lane, P, width);
+  const bool live = p >= 0;
+  const float px = live ? pix[2 * p + 0] : 5.0f;
+  const float py = live ? pix[2 * p + 1] : 5.0f;
+  const Box tb = tile_box(px, py, live);
+  const float* src = rows + (size_t)b * F * kSRow;
+  const int per_slice = (F + kSSlices - 1) / kSSlices;
+  const int nchunks = (F + kTChunk - 1) / kTChunk;
+  const bool producer = threadIdx.x == 0;
+
+  auto issue = [&](int j) {
+    const int n = min(kTChunk, F - j * kTChunk);
+    const uint32_t bar = tpn::smem_addr(bars + (j & 1));
+    tpn::mbar_expect_tx(bar, (uint32_t)n * kSRow * 4);
+    tpn::bulk_g2s(tpn::smem_addr(raw + (j & 1) * kTChunk * kSRow),
+                  src + (size_t)j * kTChunk * kSRow, (uint32_t)n * kSRow * 4,
+                  bar);
+  };
+  if (producer) {
+    tpn::mbar_init(tpn::smem_addr(bars + 0), 1);
+    tpn::mbar_init(tpn::smem_addr(bars + 1), 1);
+  }
+  __syncthreads();
+  if (producer) {
+    for (int j = 0; j < min(2, nchunks); ++j) issue(j);
+  }
+
+  float total = 1.0f, part = 1.0f;  // warp 0: finished slices, this slice
+  int slice = 0;
+  bool nan = false;
+  for (int j = 0; j < nchunks; ++j) {
+    const int first = j * kTChunk;
+    const int n = min(kTChunk, F - first);
+    const float* rc = raw + (j & 1) * kTChunk * kSRow;
+    tpn::mbar_wait(tpn::smem_addr(bars + (j & 1)), (uint32_t)(j >> 1) & 1u);
+    const int i = warp * 32 + lane;
+    const bool bad = i < n && !finite_vertices(rc + i * kSRow);
+    const bool hit = i < n && !outside(face_box(rc + i * kSRow, m), tb);
+    const unsigned mask = __ballot_sync(0xffffffffu, hit);
+    const unsigned bmask = __ballot_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      cnt[warp] = __popc(mask);
+      bad_w[warp] = bmask != 0u;
+    }
+    __syncthreads();
+    int base = 0, nh = 0;
+    for (int w = 0; w < kTWarps; ++w) {
+      base += w < warp ? cnt[w] : 0;
+      nh += cnt[w];
+      nan |= bad_w[w] != 0;
+    }
+    if (hit) {
+      const int k = base + __popc(mask & ((1u << lane) - 1u));
+      hit_row[k] = first + i;
+      stage_row(rc + i * kSRow, conv + k * kSQuads);
+    }
+    __syncthreads();  // hits staged; the raw chunk is free
+    if (producer && j + 2 < nchunks) {
+      tpn::fence_proxy_async_smem();
+      issue(j + 2);
+    }
+#pragma unroll 2
+    for (int k = warp; k < nh; k += kTWarps) {
+      bool inside;
+      float d;
+      Seg seg[3];
+      const float q = face_prob(conv + k * kSQuads, px, py, sigma, inside, d,
+                                seg);
+      fac[k * 32 + lane] = __fsub_rn(1.0f, q);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int k = 0; k < nh; ++k) {
+        const int s = hit_row[k] / per_slice;
+        if (s != slice) {  // the slices between have no hit: factors 1
+          total = __fmul_rn(total, part);
+          part = 1.0f;
+          slice = s;
+        }
+        part = __fmul_rn(part, fac[k * 32 + lane]);
+      }
+    }
+    // the next chunk's first barrier orders this read before its writes
+  }
+  if (warp == 0 && live) {
+    out[(size_t)b * P + p] =
+        nan ? __int_as_float(0x7fc00000) : __fmul_rn(total, part);
+  }
+}
+
+constexpr size_t kBRaw = (size_t)kBTile * kSRow * sizeof(float);
+constexpr size_t kBinnedSmem =
+    2 * kBRaw + (size_t)(kBand / 32) * 32 * kSQuads * sizeof(float4);
+
+// Binned forward. Dynamic shared memory: two rounds of kBTile raw rows, a
+// 32-row hit list a warp.
+__global__ void __launch_bounds__(kBand, 1)
+soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
+                       const int* __restrict__ ids,     // (B, nb, K)
+                       const float* __restrict__ pix,   // (P, 2)
+                       float* __restrict__ out,         // (B, nb, 1024) prod
+                       int Fr, int nb, int K, int P, int width, float sigma,
+                       float m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* raw = reinterpret_cast<float*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float4* hits = reinterpret_cast<float4*>(smem + 2 * kBRaw) +
+                 warp * 32 * kSQuads;
+  const int band = blockIdx.x;
+  const int b = blockIdx.y;
+  const int* band_ids = ids + ((size_t)b * nb + band) * K;
+  const float* src = rows + (size_t)b * Fr * kSRow;
+
+  const int local = band_tile_pixel(warp, lane, width);
+  const int p = band * kBand + local;
+  const bool live = p < P;
+  const float px = live ? pix[2 * p + 0] : 5.0f;
+  const float py = live ? pix[2 * p + 1] : 5.0f;
+  const Box tb = tile_box(px, py, live);
+
+  // Round r's slots into buffer r & 1, thread t copying quarter t % 4 of
+  // slot t / 4; returns the round's real slots (faces, not fillers). Its
+  // barrier also waits for every warp to finish round r - 2 in that buffer.
+  auto gather = [&](int r) {
+    const int k = r * kBTile + (tid >> 2);
+    int id = -1;
+    if (tid < kBTile * 4 && k < K) id = band_ids[k];
+    const bool real = id >= 0 && id < Fr - 1;  // the last row is the filler
+    const int n = __syncthreads_count(real && (tid & 3) == 0);
+    if (real) {
+      tpn::cp_async16(
+          tpn::smem_addr(raw + ((r & 1) * kBTile + (tid >> 2)) * kSRow +
+                         (tid & 3) * 4),
+          src + (size_t)id * kSRow + (tid & 3) * 4);
+    }
+    tpn::cp_async_commit();
+    return n;
+  };
+
+  float prod = 1.0f;
+  int n_next = gather(0);
+  for (int r = 0;; ++r) {
+    // faces come first in a bin, fillers after them: the first n slots
+    const int n = n_next;
+    const bool more = n == kBTile && (r + 1) * kBTile < K;  // uniform
+    if (more) {
+      n_next = gather(r + 1);
+      tpn::cp_async_wait<1>();
+    } else {
+      tpn::cp_async_wait<0>();
+    }
+    __syncthreads();  // round r's rows, copied by every thread, are visible
+    prod = cull_sweep(raw + (r & 1) * kBTile * kSRow, n, tb, m, hits, px, py,
+                      sigma, prod);
+    if (!more) break;
+  }
+  out[((size_t)b * nb + band) * kBand + local] = prod;
 }
 
 // Add one pixel's share of one staged face's vertex gradient to acc[6].
@@ -578,26 +1016,110 @@ soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
 
 extern "C" {
 
-// rows (B, F, 16) f32 soft rows; pix (P, 2) f32; out (B, P) f32 prod.
+// Raises the dynamic shared memory `kernel` may take to `bytes`, once per
+// size (`opened` keeps the largest so far).
+static cudaError_t open_smem(const void* kernel, size_t bytes, int* opened) {
+  if (bytes <= 48 * 1024 || (int)bytes <= *opened) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *opened = (int)bytes;
+  return err;
+}
+
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess) {
+      sms = 132;
+    }
+  }
+  return sms;
+}
+
+// rows (B, F, 16) f32 soft rows, 16-byte aligned; pix (P, 2) f32; out (B, P)
+// f32 prod. width: the image's width where it is a multiple of 8 that
+// divides P (8 x 4 tiles), else 0 (32 pixels in a row). margin: the cull's
+// sqrt(27.7 sigma).
 int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
-                   int F, int P, float sigma, void* stream) {
+                   int F, int P, int width, float sigma, float margin,
+                   void* stream) {
+  static int opened = 0;
+  if (B > 0 && P > 0) {
+    if (B > 65535) return (int)cudaErrorInvalidValue;
+    const long tiles = width > 0 ? (long)((P / width + 3) / 4) * (width / 8)
+                                 : (long)(P + 31) / 32;
+    const long sms = sm_count();
+    if (B * tiles <= 4 * sms) {  // few tiles: a tile a block
+      static int opened_tile = 0;
+      const cudaError_t err = open_smem(
+          (const void*)soft_fwd_dense_tile_kernel, kTileSmem, &opened_tile);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((unsigned)tiles, (unsigned)B);
+      soft_fwd_dense_tile_kernel<<<grid, kTWarps * 32, kTileSmem,
+                                   (cudaStream_t)stream>>>(
+          rows, pix, out, F, P, width, sigma, margin);
+      return (int)cudaGetLastError();
+    }
+    // more tiles a block while the blocks still cover the SMs
+    int NT = 1;
+    while (2 * NT <= kDWarps && B * ((tiles + 2 * NT - 1) / (2 * NT)) >= sms) {
+      NT *= 2;
+    }
+    const size_t smem = 128 + (size_t)kStages * kChunk * kSRow * 4 +
+                        (size_t)NT * 32 * kSQuads * 16;
+    const cudaError_t err =
+        open_smem((const void*)soft_fwd_dense_kernel, smem, &opened);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((tiles + NT - 1) / NT), (unsigned)B);
+    soft_fwd_dense_kernel<<<grid, NT * 32, smem, (cudaStream_t)stream>>>(
+        rows, pix, out, F, P, width, sigma, margin);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows (B, Fr, 16) with the filler row last, 16-byte aligned; ids (B, nb, K)
+// int32, faces first, then the filler id Fr-1; out (B, nb, 1024) f32 prod.
+// width: the image's width where 1024 / width rows make tiles of 32 (width
+// 32 ... 1024, dividing P), else 0.
+int soft_fwd_binned(const float* rows, const int* ids, const float* pix,
+                    float* out, int B, int Fr, int nb, int K, int P,
+                    int width, float sigma, float margin, void* stream) {
+  static int opened = 0;
+  if (B > 0 && nb > 0) {
+    if (B > 65535) return (int)cudaErrorInvalidValue;
+    const cudaError_t err =
+        open_smem((const void*)soft_fwd_binned_kernel, kBinnedSmem, &opened);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)nb, (unsigned)B);
+    soft_fwd_binned_kernel<<<grid, kBand, kBinnedSmem,
+                             (cudaStream_t)stream>>>(
+        rows, ids, pix, out, Fr, nb, K, P, width, sigma, margin);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The all-pairs designs of the two above, with their contracts (no width, no
+// margin); kept only to be timed beside them.
+int soft_fwd_dense_sweep(const float* rows, const float* pix, float* out,
+                         int B, int F, int P, float sigma, void* stream) {
   if (B > 0 && P > 0) {
     const dim3 grid((unsigned)((P + kSPix - 1) / kSPix), (unsigned)B);
     const dim3 block(kSPix, kSSlices);
-    soft_fwd_dense_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    soft_fwd_dense_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         rows, pix, out, F, P, sigma);
   }
   return (int)cudaGetLastError();
 }
 
-// rows (B, Fr, 16) with the filler row last; ids (B, nb, K) int32, faces
-// first, then the filler id Fr-1; out (B, nb, 1024) f32 prod.
-int soft_fwd_binned(const float* rows, const int* ids, const float* pix,
-                    float* out, int B, int Fr, int nb, int K, int P,
-                    float sigma, void* stream) {
+int soft_fwd_binned_sweep(const float* rows, const int* ids, const float* pix,
+                          float* out, int B, int Fr, int nb, int K, int P,
+                          float sigma, void* stream) {
   if (B > 0 && nb > 0) {
     const dim3 grid((unsigned)nb, (unsigned)B);
-    soft_fwd_binned_kernel<<<grid, kBand, 0, (cudaStream_t)stream>>>(
+    soft_fwd_binned_sweep_kernel<<<grid, kBand, 0, (cudaStream_t)stream>>>(
         rows, ids, pix, out, Fr, nb, K, P, sigma);
   }
   return (int)cudaGetLastError();

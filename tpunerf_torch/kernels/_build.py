@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of `tpunerf_torch/csrc/`.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled by its own
+Each `csrc/<name>.cu` (with the shared headers `csrc/*.cuh`) has a plain
+C interface and is compiled by its own
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared` call into
 `build/tpunerf_torch/<name>-<hash>.so` (git-ignored), at first use; all
 sources are compiled in parallel. The library is loaded with `ctypes`.
@@ -62,7 +63,10 @@ def sources() -> List[Path]:
 
 
 def _library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of `src`, named by a hash of the source, the shared
+    headers (`csrc/*.cuh`) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

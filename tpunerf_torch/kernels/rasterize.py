@@ -24,11 +24,17 @@ The soft silhouette (`soft_silhouette`, `dibr_rasterization`) is
 the squared distance to its nearest edge outside. Faces are pre-reduced to
 rows of 16 floats (`_soft_rows`); forward and backward are kernels (dense
 and band-binned, as the selection) behind one `autograd.Function`, whose
-backward is the closed-form vertex gradient.
+backward is the closed-form vertex gradient. The forward kernels skip,
+per warp tile of 32 pixels, the faces whose vertex box widened by
+√(27.7·σ) the tile lies outside, where every factor is exactly 1.0f;
+`_soft_cull_boxes`, `_soft_tile_pixels`, `_soft_tile_boxes` and
+`_soft_kept` are that rule in PyTorch, for the tests and the pair counts
+of `chip_smoke.py`.
 """
 from __future__ import annotations
 
 import functools
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -42,6 +48,9 @@ SOFT_FWD_DENSE = "soft_fwd_dense"
 SOFT_FWD_BINNED = "soft_fwd_binned"
 SOFT_BWD_DENSE = "soft_bwd_dense"
 SOFT_BWD_BINNED = "soft_bwd_binned"
+# the all-pairs designs of the soft forward kernels, timed only
+SOFT_FWD_DENSE_SWEEP = "soft_fwd_dense_sweep"
+SOFT_FWD_BINNED_SWEEP = "soft_fwd_binned_sweep"
 
 _EPS = 1e-10
 _BAND = 1024                 # pixels per band (row-major)
@@ -581,6 +590,99 @@ def _slots_to_faces(slot_rows: torch.Tensor, ids: torch.Tensor, F: int
 
 
 # --------------------------------------------------------------------------
+# the soft silhouette: the forward kernels' cull, in PyTorch
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _soft_margin(sigma: float) -> float:
+    """The cull's margin √(27.7·σ), rounded to f32 as the kernels get it:
+    beyond it exp(−d²/σ) < 1e-12 and a factor 1 − p is exactly 1.0f."""
+    m = (_SOFT_TAIL * sigma) ** 0.5
+    return struct.unpack("f", struct.pack("f", m))[0]
+
+
+def _soft_cull_boxes(rows: torch.Tensor, sigma: float) -> torch.Tensor:
+    """(..., F, 16) → (..., F, 4) [xmin, xmax, ymin, ymax] of each face's
+    three vertices, widened by the margin in f32; (−inf, inf, −inf, inf)
+    for a face with a non-finite vertex coordinate, which the cull never
+    skips. The twin of csrc/rasterize.cu:face_box."""
+    vx, vy = rows[..., 9:15:2], rows[..., 10:15:2]           # (..., F, 3)
+    m = torch.tensor(_soft_margin(sigma), dtype=torch.float32,
+                     device=rows.device)
+    box = torch.stack([vx.amin(-1) - m, vx.amax(-1) + m,
+                       vy.amin(-1) - m, vy.amax(-1) + m], dim=-1)
+    finite = torch.isfinite(rows[..., 9:15]).all(-1, keepdim=True)
+    inf = float("inf")
+    return torch.where(finite, box, box.new_tensor([-inf, inf, -inf, inf]))
+
+
+def _soft_tile_width(P: int, width: int, banded: bool) -> int:
+    """The width the forward kernels tile by, 0 for 32 pixels in a row:
+    dense, 8 × 4 tiles where the width is a multiple of 8 that divides P;
+    banded, (32/R) × R tiles of a band's R = 1024/width rows where width
+    divides 1024 and P and is at least 32."""
+    if width <= 0 or P % width:
+        return 0
+    if banded:
+        return width if _BAND % width == 0 and width >= 32 else 0
+    return width if width % 8 == 0 else 0
+
+
+def _soft_tile_pixels(P: int, width: int, banded: bool = False,
+                      device: torch.device = None) -> torch.Tensor:
+    """(T, 32) int64 pixel of each lane of each warp tile, −1 past the
+    image, tile-major as the kernels number them (banded: 32 tiles a band,
+    band by band). The twin of dense_tile_pixel / band_tile_pixel."""
+    w = _soft_tile_width(P, width, banded)
+    lane = torch.arange(32, device=device)
+    if banded:
+        nb = -(-P // _BAND)
+        t = torch.arange(nb * 32, device=device)[:, None]
+        band, t = t // 32, t % 32
+        if w:
+            tw = 32 // (_BAND // w)
+            local = (lane // tw) * w + t * tw + lane % tw
+        else:
+            local = t * 32 + lane
+        p = band * _BAND + local
+    elif w:
+        per_row = w // 8
+        rows = -(-(P // w) // 4)
+        t = torch.arange(rows * per_row, device=device)[:, None]
+        p = ((t // per_row) * 4 + lane // 8) * w + (t % per_row) * 8 + lane % 8
+    else:
+        t = torch.arange(-(-P // 32), device=device)[:, None]
+        p = t * 32 + lane
+    return torch.where(p < P, p, torch.full_like(p, -1))
+
+
+def _soft_tile_boxes(pix: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """(T, 4) box of each tile's live pixels: empty (inf, −inf, inf, −inf)
+    where none is live, the whole plane where one is NaN. The twin of
+    csrc/rasterize.cu:tile_box."""
+    live = tiles >= 0
+    xy = pix[tiles.clamp(min=0)]                              # (T, 32, 2)
+    inf = float("inf")
+    lo = torch.where(live[..., None], xy, torch.full_like(xy, inf))
+    hi = torch.where(live[..., None], xy, torch.full_like(xy, -inf))
+    box = torch.stack([lo[..., 0].amin(-1), hi[..., 0].amax(-1),
+                       lo[..., 1].amin(-1), hi[..., 1].amax(-1)], dim=-1)
+    nan = (live & torch.isnan(xy).any(-1)).any(-1, keepdim=True)
+    return torch.where(nan, box.new_tensor([-inf, inf, -inf, inf]), box)
+
+
+def _soft_kept(face_boxes: torch.Tensor, tile_boxes: torch.Tensor
+               ) -> torch.Tensor:
+    """(..., F, 4) face boxes against (..., T, 4) tile boxes → (..., T, F)
+    True where the kernels evaluate the pair: the tile does not lie wholly
+    outside the face's box (a NaN compare never skips)."""
+    f, t = face_boxes[..., None, :, :], tile_boxes[..., :, None, :]
+    skip = ((t[..., 1] < f[..., 0]) | (t[..., 0] > f[..., 1])
+            | (t[..., 3] < f[..., 2]) | (t[..., 2] > f[..., 3]))
+    return ~skip
+
+
+# --------------------------------------------------------------------------
 # the soft silhouette: kernels
 # --------------------------------------------------------------------------
 
@@ -617,41 +719,87 @@ def _check_soft(rows: torch.Tensor, pix: torch.Tensor, *maps: torch.Tensor,
     _build.check_cuda(rows, pix, *maps, *(() if ids is None else (ids,)))
 
 
-def soft_prod_dense_cuda(rows: torch.Tensor, pix: torch.Tensor, sigma: float
-                         ) -> torch.Tensor:
+def _soft_fwd_call(name: str, ptrs: int, ints: int):
+    """The C entry `name` of csrc/rasterize.cu taking `ptrs` pointers,
+    `ints` ints, then sigma (and, for the culling kernels, the margin), and
+    the stream."""
+    fn = getattr(_build.load("rasterize"), name)
+    floats = 1 if name.endswith("_sweep") else 2
+    fn.argtypes = ([_build.VOIDP] * ptrs + [_build.INT] * ints
+                   + [_build.FLOAT] * floats + [_build.VOIDP])
+    fn.restype = _build.INT
+    return fn
+
+
+def soft_prod_dense_cuda(rows: torch.Tensor, pix: torch.Tensor, sigma: float,
+                         width: int = 0) -> torch.Tensor:
+    """Kernel #7: ∏ (1 − p_f) per pixel, culled by warp tiles of 8 × 4
+    pixels where `width` (the image's) allows, else 32 in a row."""
     _check_soft(rows, pix)
     B, F, _ = rows.shape
     P = pix.shape[0]
-    fn = _build.load("rasterize").soft_fwd_dense
-    fn.argtypes = ([_build.VOIDP] * 3 + [_build.INT] * 3 + [_build.FLOAT]
-                   + [_build.VOIDP])
-    fn.restype = _build.INT
     out = torch.empty((B, P), dtype=torch.float32, device=rows.device)
-    err = fn(rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
-             float(sigma), _build.stream_ptr(rows.device))
+    err = _soft_fwd_call(SOFT_FWD_DENSE, 3, 4)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
+        _soft_tile_width(P, width, False), float(sigma), _soft_margin(sigma),
+        _build.stream_ptr(rows.device))
     _build.check(err, SOFT_FWD_DENSE)
     _build.count_launch(SOFT_FWD_DENSE)
     return out
 
 
 def soft_prod_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
-                          pix: torch.Tensor, sigma: float) -> torch.Tensor:
-    """`ids` holds each band's face ids first and the filler id (the last row) from
-    there to the end, as `_bin_faces` makes them: the kernel stops a band's
-    sweep at its first filler."""
+                          pix: torch.Tensor, sigma: float, width: int = 0
+                          ) -> torch.Tensor:
+    """Kernel #8. `ids` holds each band's face ids first and the filler id
+    (the last row) from there to the end, as `_bin_faces` makes them: the
+    kernel stops a band's sweep at its first filler. Warp tiles of 16 × 2
+    pixels at a width of 512 (see `_soft_tile_width`)."""
     _check_soft(rows, pix, ids=ids)
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
-    fn = _build.load("rasterize").soft_fwd_binned
-    fn.argtypes = ([_build.VOIDP] * 4 + [_build.INT] * 5 + [_build.FLOAT]
-                   + [_build.VOIDP])
-    fn.restype = _build.INT
+    P = pix.shape[0]
     out = torch.empty((B, nb, _BAND), dtype=torch.float32, device=rows.device)
-    err = fn(rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
-             B, Fr, nb, K, pix.shape[0], float(sigma),
-             _build.stream_ptr(rows.device))
+    err = _soft_fwd_call(SOFT_FWD_BINNED, 4, 6)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        B, Fr, nb, K, P, _soft_tile_width(P, width, True), float(sigma),
+        _soft_margin(sigma), _build.stream_ptr(rows.device))
     _build.check(err, SOFT_FWD_BINNED)
     _build.count_launch(SOFT_FWD_BINNED)
+    return out
+
+
+def soft_prod_dense_sweep_cuda(rows: torch.Tensor, pix: torch.Tensor,
+                               sigma: float) -> torch.Tensor:
+    """The all-pairs #7 (every pair), with #7's contract; only `chip_smoke.py`
+    and the card tests call it, to time and check it beside #7."""
+    _check_soft(rows, pix)
+    B, F, _ = rows.shape
+    P = pix.shape[0]
+    out = torch.empty((B, P), dtype=torch.float32, device=rows.device)
+    err = _soft_fwd_call(SOFT_FWD_DENSE_SWEEP, 3, 3)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
+        float(sigma), _build.stream_ptr(rows.device))
+    _build.check(err, SOFT_FWD_DENSE_SWEEP)
+    _build.count_launch(SOFT_FWD_DENSE_SWEEP)
+    return out
+
+
+def soft_prod_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
+                                pix: torch.Tensor, sigma: float
+                                ) -> torch.Tensor:
+    """The all-pairs #8 (every filled slot at every band pixel), with #8's
+    contract; timed and checked beside #8 only."""
+    _check_soft(rows, pix, ids=ids)
+    B, Fr, _ = rows.shape
+    _, nb, K = ids.shape
+    out = torch.empty((B, nb, _BAND), dtype=torch.float32, device=rows.device)
+    err = _soft_fwd_call(SOFT_FWD_BINNED_SWEEP, 4, 5)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        B, Fr, nb, K, pix.shape[0], float(sigma),
+        _build.stream_ptr(rows.device))
+    _build.check(err, SOFT_FWD_BINNED_SWEEP)
+    _build.count_launch(SOFT_FWD_BINNED_SWEEP)
     return out
 
 
@@ -693,17 +841,19 @@ def soft_grad_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def soft_prod_dense(rows, pix, sigma):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def soft_prod_dense(rows, pix, sigma, width: int = 0):
+    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
+    image's, only shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_prod_dense_cuda(rows, pix, sigma)
+        return soft_prod_dense_cuda(rows, pix, sigma, width)
     return soft_prod_dense_plain(rows, pix, sigma)
 
 
-def soft_prod_binned(rows, ids, pix, sigma):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def soft_prod_binned(rows, ids, pix, sigma, width: int = 0):
+    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
+    image's, only shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_prod_binned_cuda(rows, ids, pix, sigma)
+        return soft_prod_binned_cuda(rows, ids, pix, sigma, width)
     return soft_prod_binned_plain(rows, ids, pix, sigma)
 
 
@@ -768,9 +918,10 @@ class _SoftSilhouette(torch.autograd.Function):
             if int(maxc) > K:      # a bin that dropped a face: dense sweep
                 ids = None
         if ids is None:
-            prod = soft_prod_dense(rows, pix, sigma)
+            prod = soft_prod_dense(rows, pix, sigma, width)
         else:
-            prod = soft_prod_binned(_with_filler(rows), ids, pix, sigma)
+            prod = soft_prod_binned(_with_filler(rows), ids, pix, sigma,
+                                    width)
             prod = prod.reshape(B, -1)[:, :P].contiguous()
         ctx.save_for_backward(rows, prod, *(() if ids is None else (ids,)))
         ctx.dims = (height, width, sigma)
