@@ -18,6 +18,13 @@
    designs, bit for bit against them, with the bound of the live pairs
    (factor 1 - p != 1.0f), the all-pairs bound and the cull's candidate
    pairs; and on faces with NaN or inf vertices against the plain version.
+   The face-selection kernels #5 and #6, which cull per warp tile by an
+   exact edge test, the same way at their inputs (#5: mesh and dome at
+   64², the eval chunk's 5 views dense at 512²; #6: the eval chunk and one
+   mode-1 view at 512²) beside the all-pairs designs, bit for bit against
+   them and the plain versions, there and on edge/tie and NaN/inf sets.
+   The occupancy lookup #3 and the soft backwards #9, #10 also in a CUDA
+   graph.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
    `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
    at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
@@ -50,6 +57,8 @@
    launches them).
 For each path the launch counters are reset just before and read just after.
 
+The profiles of the paint, mode-0 and mode-1 steps end with the selection
+kernels' device ms a step.
 Prints the device line, one line per check, a `{"kernels": [...]}` line and,
 last, `{"ok": true, "device": {...}}`. Exits non-zero, printing no result,
 when there is no CUDA device, when the package is missing, or when any
@@ -216,6 +225,11 @@ def check_kernels(seed: int):
         plain_ms=cuda_ms(lambda: og.occupancy_lookup_plain(xs, packed, G,
                                                            ocfg.bound), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the eager time is the wrapper's: the graph's is the kernel's
+    rows[og.LOOKUP]["graph_ms"] = ex.graph_ms(
+        lambda: og.occupancy_lookup_cuda(xs, packed, G, ocfg.bound), 50)[0]
+    print(f"  {og.LOOKUP}: eager {rows[og.LOOKUP]['ms']:.4f} ms, graph "
+          f"{rows[og.LOOKUP]['graph_ms']:.4f} ms")
 
     # --- #4 attention: (2, 8, 4096, 40), the UNet's 64² self-attention ----
     rows[at.ATTN] = check_attention(gen)
@@ -397,14 +411,150 @@ def check_hash_bwd_experiment(seed: int):
 SEL_FLOPS = 25   # per face-pixel pair: 4 affine forms, 3 compares, a select
 
 
+def _sel_live_pairs(rz, rows, pix, ids=None) -> int:
+    """The (face, pixel) pairs whose pixel passes all three edges of the
+    face, under the plain sweep's arithmetic: dense rows (B, F, 12) against
+    every pixel or, with ids (B, nb, K), each band's bin slots against the
+    band's pixels (the filler passes none)."""
+    import torch
+    B = rows.shape[0]
+    if ids is None:
+        n, per = rows.shape[1], B * pix.shape[0]
+        px, py = pix[:, 0][None, None, :], pix[:, 1][None, None, :]
+        take = lambda a, b: rows[:, a:b]  # noqa: E731
+    else:
+        nb, n = ids.shape[1:]
+        per = B * nb * 1024
+        px, py = (a[None, :, None, :] for a in rz._band_pixels(pix, nb))
+        bidx = torch.arange(B, device=rows.device)[:, None, None]
+        take = lambda a, b: rows[bidx, ids[:, :, a:b].long()]  # noqa: E731
+    chunk = max(1, (1 << 26) // per)
+    total = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for a in range(0, n, chunk):
+        t = take(a, a + chunk).unsqueeze(-1)
+        hit = torch.ones((), dtype=torch.bool, device=rows.device)
+        for i in (0, 3, 6):
+            hit = hit & ((t[..., i, :] * px + t[..., i + 1, :] * py
+                          + t[..., i + 2, :]) >= 0.0)
+        total += hit.sum()
+    return int(total.item())
+
+
+def _sel_candidate_pairs(rz, rows, pix, width: int, ids=None) -> int:
+    """The (face, pixel) pairs that kernels #5 and #6 evaluate: the (tile,
+    face) pairs their tiles' corner test keeps (`_sel_kept`, the kernels'
+    twin) times the 32 lanes of a tile; #6 over every slot of a bin (the
+    filler is skipped), #5 before its block's coarser test."""
+    import torch
+    banded = ids is not None
+    boxes = rz._sel_tile_boxes(pix, width, banded)
+    total = 0
+    if not banded:
+        for a in range(0, rows.shape[1], 256):
+            total += int(rz._sel_kept(rows[:, a:a + 256], boxes).sum().item())
+        return 32 * total
+    B, nb, K = ids.shape
+    bidx = torch.arange(B, device=rows.device)[:, None, None]
+    boxes = boxes.reshape(nb, 32, 4)
+    for a in range(0, K, 64):
+        tab = rows[bidx, ids[:, :, a:a + 64].long()]
+        total += int(rz._sel_kept(tab, boxes).sum().item())
+    return 32 * total
+
+
+def _sel_case(rz, label: str, new, sweep, plain, rows, pix, width: int,
+              iters: int, ids=None):
+    """One input of kernel #5 or #6: the culled kernel bit for bit against
+    the all-pairs design (`sweep`) and the plain version; eager and
+    CUDA-graph times of both in the order new, old, old, new; the live-pair
+    bound (what the inputs need), the all-pairs bound (what the all-pairs design
+    evaluates: every face, or every filled slot, at every pixel), the
+    candidate pairs of the cull."""
+    import torch
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    out, before, ref = new(), sweep(), plain()
+    torch.cuda.synchronize()
+    mism = int((out != ref).sum().item())
+    same = torch.equal(out, before)
+    B, n = rows.shape[:2]
+    if ids is None:
+        all_pairs = B * n * pix.shape[0]
+    else:
+        all_pairs = int((ids < n - 1).sum().item()) * 1024
+    live = _sel_live_pairs(rz, rows, pix, ids)
+    cand = _sel_candidate_pairs(rz, rows, pix, width, ids)
+    nbytes = 4 * (rows.numel() + pix.numel() + out.numel()
+                  + (0 if ids is None else ids.numel()))
+    b_ms, b_by = bound(nbytes, live * SEL_FLOPS, "f32")
+    all_ms, all_by = bound(nbytes, all_pairs * SEL_FLOPS, "f32")
+    ms, old_ms = cuda_ms(new, iters), cuda_ms(sweep, iters)
+    old_graph, _ = ex.graph_ms(sweep, iters)
+    graph, _ = ex.graph_ms(new, iters)
+    ms2 = cuda_ms(new, iters)
+    case = dict(mismatches=mism, equals_sweep=same, ms=ms, graph_ms=graph,
+                eager_ms_again=ms2, sweep_ms=old_ms,
+                sweep_graph_ms=old_graph, live_pairs=live,
+                candidate_pairs=cand, all_pairs=all_pairs,
+                live_per_candidate=live / max(cand, 1), bound_ms=b_ms,
+                bound_by=b_by, all_pairs_bound_ms=all_ms,
+                all_pairs_bound_by=all_by, share_of_bound=b_ms / graph,
+                sweep_share_of_all_pairs_bound=all_ms / old_graph,
+                covered=int((ref >= 0).sum().item()))
+    print(f"  {label}: mismatches vs plain {mism} (tol 0), equals the "
+          f"all-pairs design bit for bit: {same}; eager {ms:.4f} / {ms2:.4f} ms, graph "
+          f"{graph:.4f} ms; the all-pairs design eager {old_ms:.4f}, graph "
+          f"{old_graph:.4f}; pairs live {live}, candidate {cand} "
+          f"(live/candidate {live / max(cand, 1):.4f}), all {all_pairs}; "
+          f"bound {b_ms:.5f} ms ({b_by}; all pairs {all_ms:.4f}); share "
+          f"{b_ms / graph:.4f} (graph), the all-pairs design {all_ms / old_graph:.4f}"
+          f" of the all-pairs bound; covered pixels {case['covered']}")
+    if mism or not same or not case["covered"]:
+        fail(f"{label}: the culled selection disagrees with its plain "
+             f"version or with the all-pairs design")
+    return case
+
+
+def _sel_hard_rows(dev, gen, n: int = 400):
+    """Face rows that stress the cull: vertices on pixel centres of the 64²
+    grid with coplanar copies (edges, exact z ties), zero-area faces,
+    coordinates up to 1e20 (inf and NaN coefficients), and hand-set
+    coefficients ±0, ±inf, NaN."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+    fv = (torch.rand((n, 1, 2), generator=gen, device=dev) * 2.2 - 1.1
+          + torch.rand((n, 3, 2), generator=gen, device=dev) * 0.4 - 0.2)
+    cells = torch.randint(0, 64, (40, 3, 2), generator=gen, device=dev)
+    fv[:40] = (cells.float() + 0.5) / 32 - 1.0
+    fv[40:60] = fv[:20]
+    fv[60:70, 2] = fv[60:70, 1]
+    fv[70:100] *= 10.0 ** torch.randint(0, 21, (30, 1, 1), generator=gen,
+                                        device=dev).float()
+    z = torch.rand((n, 3), generator=gen, device=dev) * 2 - 3
+    z[40:60] = z[:20]
+    rows = rz._face_rows(fv[None], z[None],
+                         torch.ones((1, n), dtype=torch.bool, device=dev))
+    vals = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                         float("nan")], device=dev)
+    pick = torch.randint(0, 5, (80, 12), generator=gen, device=dev)
+    hit = torch.rand((80, 12), generator=gen, device=dev) < 0.2
+    rows[0, 100:180] = torch.where(hit, vals[pick], rows[0, 100:180])
+    return rows.contiguous()
+
+
 def check_raster_kernels(seed: int):
-    """The two face-selection kernels vs their plain versions on the
-    projected sphere and dome at the latent-paint shapes: mismatches must
-    be 0. Returns {name: row} without launch counts."""
-    import dataclasses
+    """The two face-selection kernels, which cull per warp tile, bit for bit
+    against the all-pairs designs and their plain versions: on the
+    projected sphere and dome at the latent-paint shapes (#5 (a) mesh and
+    (b) dome at 64², (c) the eval chunk's 5 views dense at 512², the
+    overflow fallback; #6 (a) the eval chunk, B = 5 at 512², (b) one
+    mode-1 view, B = 1), each eager and in a CUDA graph beside the
+    all-pairs design with its live-pair, candidate and all-pairs counts, and on the
+    edge/tie and NaN/inf sets. Returns {name: row} without launch counts
+    (the all-pairs designs' rows carry the launches of their timing here)."""
     import torch
     from tpunerf_torch.core.views import (ViewSamplerConfig, circle_poses,
                                           rand_poses)
+    from tpunerf_torch.kernels import _build
     from tpunerf_torch.kernels import rasterize as rz
     from tpunerf_torch.meshrep import render as mrender
     from tpunerf_torch.meshrep import shapes
@@ -416,42 +566,47 @@ def check_raster_kernels(seed: int):
     mesh = shapes.uv_sphere().normalize(target_scale=0.6, dy=0.25).to(dev)
     dome = shapes.env_sphere().to(dev)
     rows = {}
+    _build.reset_launches()
 
-    def project(m, views):
+    def project(m, views, camera=spec):
         fv_cam, fv_img, _ = mrender._project(m.vertices, m.faces, views.theta,
-                                             views.phi, views.radius, spec)
+                                             views.phi, views.radius, camera)
         valid = torch.ones(fv_img.shape[:2], dtype=torch.bool, device=dev)
         return fv_img, fv_cam[..., 2], valid
+
+    def dense_calls(r, pix, width):
+        return (lambda: rz.select_faces_dense_cuda(r, pix, width),
+                lambda: rz.select_faces_dense_sweep_cuda(r, pix),
+                lambda: rz.select_faces_dense_plain(r, pix))
+
+    def binned_calls(r, ids, pix, width):
+        return (lambda: rz.select_faces_binned_cuda(r, ids, pix, width),
+                lambda: rz.select_faces_binned_sweep_cuda(r, ids, pix),
+                lambda: rz.select_faces_binned_plain(r, ids, pix))
 
     # --- #5 dense: 64² train grid, B = 1, a few sampled poses -------------
     pix = rz.pixel_grid_ndc(64, 64, dev)
     P = pix.shape[0]
     poses = rand_poses(4, vcfg, dev, generator=gen)
-    timed = {}
+    first = {}
     for label, m in (("mesh", mesh), ("dome", dome)):
-        fv_img, fv_z, valid = project(m, poses)
-        face_rows = rz._face_rows(fv_img, fv_z, valid)
-        F = face_rows.shape[1]
+        face_rows = rz._face_rows(*project(m, poses))
         mism = hits = 0
         for b in range(face_rows.shape[0]):
             r = face_rows[b:b + 1].contiguous()
-            got = rz.select_faces_dense_cuda(r, pix)
+            got = rz.select_faces_dense_cuda(r, pix, 64)
+            old = rz.select_faces_dense_sweep_cuda(r, pix)
             ref = rz.select_faces_dense_plain(r, pix)
             torch.cuda.synchronize()
-            mism += int((got != ref).sum().item())
+            mism += int((got != ref).sum().item() + (got != old).sum().item())
             hits += int((ref >= 0).sum().item())
-        print(f"select_faces_dense {label} F={F} P={P}, 4 poses: mismatches "
-              f"{mism} (tol 0, exact); covered pixels {hits}")
+        print(f"select_faces_dense {label} F={face_rows.shape[1]} P={P}, 4 "
+              f"poses: mismatches vs plain and the all-pairs design {mism} (tol 0, "
+              f"exact); covered pixels {hits}")
         if mism or not hits:
             fail(f"dense selection kernel disagrees with its plain version "
                  f"({label})")
-        r = face_rows[:1].contiguous()
-        timed[label] = dict(
-            F=F, mism=mism,
-            ms=cuda_ms(lambda: rz.select_faces_dense_cuda(r, pix), 50),
-            plain_ms=cuda_ms(lambda: rz.select_faces_dense_plain(r, pix), 5),
-            bound=bound(r.numel() * 4 + pix.numel() * 4 + P * 4,
-                        F * P * SEL_FLOPS, "f32"))
+        first[label] = face_rows[:1].contiguous()
     # pixels exactly on edges, exact z ties, coplanar overlapping copies:
     # vertices on pixel centres of the grid, depths from a set of 3 values
     n = 600
@@ -464,82 +619,137 @@ def check_raster_kernels(seed: int):
     fv_z = torch.cat([fv_z, fv_z[:200]])
     r = rz._face_rows(fv_img[None], fv_z[None],
                       torch.ones((1, n + 200), dtype=torch.bool, device=dev))
-    got = rz.select_faces_dense_cuda(r, pix)
+    got = rz.select_faces_dense_cuda(r, pix, 64)
+    old = rz.select_faces_dense_sweep_cuda(r, pix)
     ref = rz.select_faces_dense_plain(r, pix)
     torch.cuda.synchronize()
     on_edge = int(((r[0, :, None, 0:9:3] * pix[None, :, 0:1]
                     + r[0, :, None, 1:9:3] * pix[None, :, 1:2]
                     + r[0, :, None, 2:9:3]) == 0).any(-1).any(0).sum().item())
-    mism = int((got != ref).sum().item())
-    print(f"select_faces_dense edge/tie set F={n + 200}: mismatches {mism} "
-          f"(tol 0, exact); pixels on an edge of some face {on_edge}; "
-          f"copies that won {int((ref >= n).sum().item())} (must be 0)")
+    mism = int((got != ref).sum().item() + (got != old).sum().item())
+    print(f"select_faces_dense edge/tie set F={n + 200}: mismatches vs plain "
+          f"and the all-pairs design {mism} (tol 0, exact); pixels on an edge of "
+          f"some face {on_edge}; copies that won "
+          f"{int((ref >= n).sum().item())} (must be 0)")
     if mism or not on_edge or int((ref >= n).sum().item()):
         fail("dense selection kernel breaks the edge or tie rule")
-    t = timed["mesh"]
-    rows[rz.DENSE] = dict(
-        name=rz.DENSE, route="cuda", source="tpunerf_torch/csrc/rasterize.cu",
-        replaces="tpunerf/kernels/rasterize.py:234",
-        max_abs_err=float(t["mism"] + timed["dome"]["mism"] + mism),
-        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-        bound_by=t["bound"][1], library_ms=None)
-    d = timed["dome"]
-    print(f"  {rz.DENSE} dome F={d['F']}: kernel {d['ms']:.4f} ms, plain "
-          f"{d['plain_ms']:.4f} ms, bound {d['bound'][0]:.4f} ms "
-          f"({d['bound'][1]})")
+    # NaN, inf, ±0 coefficients and huge coordinates, dense and banded (every
+    # face in each of the 4 bands' bins, the filler after them)
+    hard = _sel_hard_rows(dev, gen)
+    F = hard.shape[1]
+    hard_f = torch.cat([hard, rz._filler_row(dev).expand(1, 1, 12)],
+                       dim=1).contiguous()
+    ids_all = torch.arange(512, dtype=torch.int32, device=dev).clamp(
+        max=F).expand(1, 4, -1).contiguous()
+    outs = [rz.select_faces_dense_cuda(hard, pix, 64),
+            rz.select_faces_dense_cuda(hard, pix, 0),
+            rz.select_faces_dense_sweep_cuda(hard, pix)]
+    bouts = [rz.select_faces_binned_cuda(hard_f, ids_all, pix, 64),
+             rz.select_faces_binned_cuda(hard_f, ids_all, pix, 0),
+             rz.select_faces_binned_sweep_cuda(hard_f, ids_all, pix)]
+    ref = rz.select_faces_dense_plain(hard, pix)
+    bref = rz.select_faces_binned_plain(hard_f, ids_all, pix)
+    torch.cuda.synchronize()
+    mism = (sum(int((o != ref).sum().item()) for o in outs)
+            + sum(int((o != bref).sum().item()) for o in bouts))
+    print(f"selection NaN/inf/degenerate set F={F}: non-finite coefficients "
+          f"{int((~torch.isfinite(hard)).sum().item())}; mismatches of both "
+          f"kernels (both tilings) and the all-pairs designs vs plain {mism} (tol "
+          f"0, exact); covered pixels {int((ref >= 0).sum().item())}")
+    if mism:
+        fail("the culled selection mishandles NaN, inf or degenerate rows")
 
-    # --- #6 binned: the eval chunk, B = 5 views of the orbit at 512² ------
+    # --- the §5 inputs ----------------------------------------------------
+    print("select_faces_dense (#5) and select_faces_binned (#6) against PR "
+          "2's designs (8 x 4 tiles dense, 16 x 2 in a 512-wide band):")
+    cases5 = {}
+    for key, label in (("a", "mesh, 64² wide camera"), ("b", "dome, 64²")):
+        r = first["mesh" if key == "a" else "dome"]
+        cases5[key] = _sel_case(rz, f"#5 ({key}) {label} F={r.shape[1]}",
+                                *dense_calls(r, pix, 64), r, pix, 64, 50)
     H = W = 512
+    pix512 = rz.pixel_grid_ndc(H, W, dev)
     K = rz._BIN_K
-    pix = rz.pixel_grid_ndc(H, W, dev)
+    nb = H * W // 1024
+    ylo, yhi = rz._band_ranges(H, W, nb, dev)
     fv_img, fv_z, valid = project(mesh, circle_poses(5, vcfg, dev))
     B, F = valid.shape
     if not rz.uses_bins(H, W, F, K):
         fail("the eval render does not engage the band bins")
-    nb = H * W // 1024
-    ylo, yhi = rz._band_ranges(H, W, nb, dev)
     ids, maxc = rz._bin_faces(fv_img, valid, ylo, yhi, K)
     if int(maxc) > K:
         fail(f"a band bin overflows on the eval orbit ({int(maxc)} > {K})")
-    face_rows = torch.cat(
-        [rz._face_rows(fv_img, fv_z, valid),
-         rz._filler_row(dev).expand(B, 1, 12)], dim=1).contiguous()
-    got = rz.select_faces_binned_cuda(face_rows, ids, pix)
-    ref = rz.select_faces_binned_plain(face_rows, ids, pix)
-    dense = rz.select_faces_dense_cuda(face_rows[:, :F].contiguous(), pix)
-    torch.cuda.synchronize()
-    mism = int((got != ref).sum().item())
+    dense5 = rz._face_rows(fv_img, fv_z, valid).contiguous()
+    face_rows = torch.cat([dense5, rz._filler_row(dev).expand(B, 1, 12)],
+                          dim=1).contiguous()
+    cases5["c"] = _sel_case(rz, "#5 (c) eval chunk's 5 views dense at 512², "
+                            "the overflow fallback", *dense_calls(
+                                dense5, pix512, W), dense5, pix512, W, 10)
+    cases6 = {"a": _sel_case(
+        rz, f"#6 (a) eval chunk, B={B} 512² K={K} (largest bin {int(maxc)})",
+        *binned_calls(face_rows, ids, pix512, W), face_rows, pix512, W, 20,
+        ids)}
+    # the binned result mapped to face ids equals the dense kernel's
+    got = rz.select_faces_binned_cuda(face_rows, ids, pix512, W)
     fid = torch.gather(ids, 2, got.clamp(min=0).long())
     fid = torch.where(got >= 0, fid, -1).reshape(B, -1)
-    vs_dense = int((fid != dense).sum().item())
-    swept = int((ids < F).sum().item())       # slots that hold a face
-    print(f"select_faces_binned B={B} {H}x{W} K={K} (largest bin "
-          f"{int(maxc)}): mismatches {mism} (tol 0, exact); vs the dense "
-          f"kernel {vs_dense}; covered pixels {int((got >= 0).sum().item())}")
-    if mism or vs_dense or not int((got >= 0).sum().item()):
-        fail("binned selection kernel disagrees with its plain version")
-    b_ms, b_by = bound(face_rows.numel() * 4 + ids.numel() * 4
-                       + pix.numel() * 4 + got.numel() * 4,
-                       swept * 1024 * SEL_FLOPS, "f32")
-    rows[rz.BINNED] = dict(
-        name=rz.BINNED, route="cuda",
-        source="tpunerf_torch/csrc/rasterize.cu",
-        replaces="tpunerf/kernels/rasterize.py:326", max_abs_err=float(mism),
-        ms=cuda_ms(lambda: rz.select_faces_binned_cuda(face_rows, ids, pix),
-                   20),
-        plain_ms=cuda_ms(lambda: rz.select_faces_binned_plain(face_rows, ids,
-                                                              pix), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    fr = face_rows[:, :F].contiguous()
-    print(f"  dense kernel on the same 5 views at 512²: "
-          f"{cuda_ms(lambda: rz.select_faces_dense_cuda(fr, pix), 5):.4f} ms;"
-          f" binning (ranges, mask, rank, scatter): "
+    vs_dense = int((fid != rz.select_faces_dense_cuda(dense5, pix512,
+                                                      W)).sum().item())
+    print(f"  #6 (a) slots as face ids vs the dense kernel: mismatches "
+          f"{vs_dense}; binning (ranges, mask, rank, scatter) "
           f"{cuda_ms(lambda: rz._bin_faces(fv_img, valid, ylo, yhi, K), 10):.4f}"
           f" ms")
+    if vs_dense:
+        fail("binned selection disagrees with the dense kernel")
+    fv1, fz1, v1 = project(mesh, rand_poses(1, vcfg, dev, generator=gen),
+                           mrender.BODY_CAMERA)
+    ids1, maxc1 = rz._bin_faces(fv1, v1, ylo, yhi, K)
+    if int(maxc1) > K:
+        fail(f"a band bin overflows on the mode-1 view ({int(maxc1)} > {K})")
+    rows1 = torch.cat([rz._face_rows(fv1, fz1, v1),
+                       rz._filler_row(dev).expand(1, 1, 12)],
+                      dim=1).contiguous()
+    cases6["b"] = _sel_case(rz, f"#6 (b) one mode-1 view, body camera, B=1 "
+                            f"512² (largest bin {int(maxc1)})",
+                            *binned_calls(rows1, ids1, pix512, W), rows1,
+                            pix512, W, 20, ids1)
+
+    src = "tpunerf_torch/csrc/rasterize.cu"
+    r5 = first["mesh"]
+    rows[rz.DENSE] = dict(
+        name=rz.DENSE, route="cuda", source=src,
+        replaces="tpunerf/kernels/rasterize.py:234", max_abs_err=0.0,
+        ms=cases5["a"]["ms"], graph_ms=cases5["a"]["graph_ms"],
+        plain_ms=cuda_ms(lambda: rz.select_faces_dense_plain(r5, pix), 5),
+        bound_ms=cases5["a"]["bound_ms"], bound_by=cases5["a"]["bound_by"],
+        library_ms=None, inputs=cases5)
+    rows[rz.BINNED] = dict(
+        name=rz.BINNED, route="cuda", source=src,
+        replaces="tpunerf/kernels/rasterize.py:326", max_abs_err=0.0,
+        ms=cases6["a"]["ms"], graph_ms=cases6["a"]["graph_ms"],
+        plain_ms=cuda_ms(lambda: rz.select_faces_binned_plain(
+            face_rows, ids, pix512), 3),
+        bound_ms=cases6["a"]["bound_ms"], bound_by=cases6["a"]["bound_by"],
+        library_ms=None, inputs=cases6)
+    # the all-pairs designs, launched here only (no path calls them): their rows
+    # carry the launches of this check
+    for name, new, case in ((rz.DENSE_SWEEP, rz.DENSE, cases5["a"]),
+                            (rz.BINNED_SWEEP, rz.BINNED, cases6["a"])):
+        rows[name] = dict(
+            rows[new], name=name, ms=case["sweep_ms"],
+            graph_ms=case["sweep_graph_ms"],
+            bound_ms=case["all_pairs_bound_ms"],
+            bound_by=case["all_pairs_bound_by"],
+            main_path=False, launches=_build.LAUNCHES.get(name, 0),
+            inputs={k: {"ms": c["sweep_ms"], "graph_ms": c["sweep_graph_ms"],
+                        "all_pairs_bound_ms": c["all_pairs_bound_ms"]}
+                    for k, c in (cases5 if name == rz.DENSE_SWEEP
+                                 else cases6).items()})
     for r in rows.values():
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {r['library_ms']}")
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms eager, "
+              f"{r['graph_ms']:.4f} graph, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), library "
+              f"{r['library_ms']}")
     return rows
 
 
@@ -695,6 +905,7 @@ def check_soft_kernels(seed: int):
     from tpunerf_torch.kernels import rasterize as rz
     from tpunerf_torch.meshrep import render as mrender
     from tpunerf_torch.meshrep import shapes
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -867,6 +1078,8 @@ def check_soft_kernels(seed: int):
         max_rel_err=bwd_err,
         ms=cuda_ms(lambda: rz.soft_grad_dense_cuda(face_rows, pix, g, prod,
                                                    sigma), 50),
+        graph_ms=ex.graph_ms(lambda: rz.soft_grad_dense_cuda(
+            face_rows, pix, g, prod, sigma), 50)[0],
         plain_ms=cuda_ms(lambda: rz.soft_grad_dense_plain(face_rows, pix, g,
                                                           prod, sigma), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -994,6 +1207,8 @@ def check_soft_kernels(seed: int):
         max_rel_err=bwd_err,
         ms=cuda_ms(lambda: rz.soft_grad_binned_cuda(face_rows, ids, pix, g,
                                                     prod, sigma), 20),
+        graph_ms=ex.graph_ms(lambda: rz.soft_grad_binned_cuda(
+            face_rows, ids, pix, g, prod, sigma), 20)[0],
         plain_ms=cuda_ms(lambda: rz.soft_grad_binned_plain(
             face_rows, ids, pix, g, prod, sigma), 2, warmup=1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -1014,7 +1229,8 @@ def check_soft_kernels(seed: int):
           f"mask, rank, scatter) {bins_ms:.4f} ms; dense kernels on the same "
           f"5 views: fwd {dense_f:.4f} ms, bwd {dense_b:.4f} ms")
     for r in rows_out.values():
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms eager, "
+              f"{r.get('graph_ms', float('nan')):.4f} graph, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), library {r['library_ms']}")
     return rows_out
@@ -1862,6 +2078,14 @@ def profile_steps(trainer, label: str, steps: int = 5) -> None:
                             if any(tag in e.key for tag in own)]:
         print(f"  kernel {dev_us(e) / 1e3 / steps:8.4f} ms/step "
               f"x{e.count / steps:6.1f}  {e.key[:90]}")
+    # keys read "(anonymous namespace)::select_..._kernel(float const*, ..."
+    sel = {e.key.split("::")[-1].split("(")[0]: e for e in events
+           if "::select_" in e.key}
+    print(f"  selection kernels (#5, #6) of {label}: "
+          f"{sum(dev_us(e) for e in sel.values()) / 1e3 / steps:.4f} ms/step,"
+          f" launches/step {sum(e.count for e in sel.values()) / steps:.1f}: "
+          + ", ".join(f"{name} {dev_us(e) / 1e3 / steps:.4f}"
+                      for name, e in sel.items()))
 
 
 def main() -> int:
@@ -1923,7 +2147,8 @@ def main() -> int:
     # each kernel's count comes from the run of the path that was checked
     # for it: the latent-NeRF run for the first four (the attention kernel
     # is on both paths; train_paint_full_width holds its count there too),
-    # the latent-paint run for the two selection kernels, the
+    # the latent-paint run for the two selection kernels (the all-pairs designs of
+    # them, on no path, with the launches of their check), the
     # latent-paint-mesh run for the soft forwards (the binned one from its
     # eval chunk or, where those bins overflow, from mode 1's 512² steps),
     # the silhouette phase for the soft backwards, the experiment's run for
@@ -1931,7 +2156,8 @@ def main() -> int:
     from tpunerf_torch.kernels import rasterize as rz
     kernels = [dict(row, launches=launches.get(name, 0))
                for name, row in rows.items()]
-    kernels += [dict(row, launches=paint_launches.get(name, 0))
+    kernels += [row if row.get("main_path") is False
+                else dict(row, launches=paint_launches.get(name, 0))
                 for name, row in paint_rows.items()]
     soft_counts = {
         rz.SOFT_FWD_DENSE: mesh_launches.get(rz.SOFT_FWD_DENSE, 0),

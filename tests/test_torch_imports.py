@@ -77,11 +77,12 @@ def test_kernels_are_cuda_sources_of_the_package():
                    "soft_fwd_dense", "soft_fwd_binned", "soft_bwd_dense",
                    "soft_bwd_binned", "expf(", "__fmul_rn", "__fadd_rn",
                    "soft_fwd_dense_sweep", "soft_fwd_binned_sweep",
-                   "soft_fwd_dense_tile_kernel"):
+                   "soft_fwd_dense_tile_kernel", "select_faces_dense_sweep",
+                   "select_faces_binned_sweep", "face_out"):
         assert symbol in raster, symbol
-    # 2 selection, 3 culled soft forward, 2 all-pairs soft forward (timed
-    # only), 2 soft backward
-    assert raster.count("__global__") == 9 and "__expf" not in raster
+    # 3 culled selection, 2 all-pairs selection (timed only), 3 culled soft
+    # forward, 2 all-pairs soft forward (timed only), 2 soft backward
+    assert raster.count("__global__") == 12 and "__expf" not in raster
     assert "use_fast_math" not in " ".join(
         __import__("tpunerf_torch.kernels._build",
                    fromlist=["NVCC_FLAGS"]).NVCC_FLAGS)

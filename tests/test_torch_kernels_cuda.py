@@ -419,6 +419,152 @@ def test_binned_selection_kernel_matches_plain_and_dense_exactly():
     assert torch.equal(fid, rz.select_faces_dense(rows, pix))
 
 
+def _eval_orbit(dev, n_views):
+    """The sphere under `n_views` views of the eval orbit (wide camera)."""
+    from tpunerf_torch.core.views import ViewSamplerConfig, circle_poses
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.meshrep import shapes
+    mesh = shapes.uv_sphere().normalize(target_scale=0.6, dy=0.25).to(dev)
+    views = circle_poses(n_views, ViewSamplerConfig(), dev)
+    fv_cam, fv_img, _ = mrender._project(
+        mesh.vertices, mesh.faces, views.theta, views.phi, views.radius,
+        mrender.CameraSpec(look_at_height=0.25))
+    valid = torch.ones(fv_img.shape[:2], dtype=torch.bool, device=dev)
+    return fv_img, fv_cam[..., 2], valid
+
+
+def _binned_rows(fv_img, fv_z, valid, H, W):
+    B, F = valid.shape
+    ylo, yhi = rz._band_ranges(H, W, -(-H * W // 1024), fv_img.device)
+    ids, maxc = rz._bin_faces(fv_img, valid, ylo, yhi, rz._BIN_K)
+    assert int(maxc) <= rz._BIN_K
+    rows = torch.cat([rz._face_rows(fv_img, fv_z, valid),
+                      rz._filler_row(fv_img.device).expand(B, 1, 12)],
+                     dim=1).contiguous()
+    return rows, ids
+
+
+@pytest.mark.parametrize("case", ["64", "100", "512 fallback"])
+def test_culled_dense_selection_equals_the_sweep_and_plain(case):
+    dev = _card()
+    size = int(case.split()[0])
+    if size == 512:            # the eval chunk's 5 views, as on overflow
+        fv_img, fv_z, valid = _eval_orbit(dev, 5)
+    else:
+        fv_img, fv_z, valid = _projected_sphere(dev, 3, 12)
+        # exact z ties: a copy of the first 500 faces
+        fv_img = torch.cat([fv_img, fv_img[:, :500]], dim=1)
+        fv_z = torch.cat([fv_z, fv_z[:, :500]], dim=1)
+        valid = torch.cat([valid, valid[:, :500]], dim=1)
+    rows = rz._face_rows(fv_img, fv_z, valid).contiguous()
+    pix = rz.pixel_grid_ndc(size, size, dev)   # 100 is no multiple of 8
+    out = _launched(rz.DENSE, lambda: rz.select_faces_dense(rows, pix, size))
+    old = _launched(rz.DENSE_SWEEP,
+                    lambda: rz.select_faces_dense_sweep_cuda(rows, pix))
+    assert torch.equal(out, old)
+    assert torch.equal(out, rz.select_faces_dense_cuda(rows, pix, 0))
+    assert torch.equal(out, rz.select_faces_dense_plain(rows, pix))
+    assert (out >= 0).any() and (out < 0).any()
+
+
+@pytest.mark.parametrize("views", [5, 1])
+def test_culled_binned_selection_equals_the_sweep_and_plain(views):
+    dev = _card()
+    H = W = 512
+    fv_img, fv_z, valid = _eval_orbit(dev, views)
+    rows, ids = _binned_rows(fv_img, fv_z, valid, H, W)
+    pix = rz.pixel_grid_ndc(H, W, dev)
+    out = _launched(rz.BINNED,
+                    lambda: rz.select_faces_binned(rows, ids, pix, W))
+    old = _launched(rz.BINNED_SWEEP,
+                    lambda: rz.select_faces_binned_sweep_cuda(rows, ids, pix))
+    assert torch.equal(out, old)
+    assert torch.equal(out, rz.select_faces_binned_cuda(rows, ids, pix, 0))
+    assert torch.equal(out, rz.select_faces_binned_plain(rows, ids, pix))
+    # and through the scene's entry: the binned kernel, not the fallback
+    before = dict(_build.LAUNCHES)
+    fid = rz._select_faces_batched(pix, fv_img, fv_z, valid, H, W)
+    assert _build.LAUNCHES[rz.BINNED] == before[rz.BINNED] + 1
+    assert _build.LAUNCHES.get(rz.DENSE, 0) == before.get(rz.DENSE, 0)
+    assert torch.equal(fid, rz.select_faces_dense(rows[:, :-1].contiguous(),
+                                                  pix, W))
+
+
+def _hard_rows(dev, seed, n=400):
+    """Face rows with NaN, ±inf, ±0 coefficients, the filler, degenerate
+    faces, coordinates up to 1e20, and vertices on pixel centres of the
+    64² grid with coplanar copies (edges and exact ties)."""
+    rng = np.random.default_rng(seed)
+    fv = (rng.uniform(-1.1, 1.1, (n, 1, 2))
+          + rng.uniform(-0.2, 0.2, (n, 3, 2))).astype(np.float32)
+    fv[:40] = ((rng.integers(0, 64, (40, 3, 2)) + 0.5) / 32 - 1.0)
+    fv[40:60] = fv[:20]                                   # coplanar copies
+    fv[60:70, 2] = fv[60:70, 1]                           # zero area
+    fv[70:100] *= 10.0 ** rng.integers(0, 21, (30, 1, 1))
+    z = rng.uniform(-3.0, -1.0, (n, 3)).astype(np.float32)
+    z[40:60] = z[:20]
+    rows = rz._face_rows(torch.from_numpy(fv)[None],
+                         torch.from_numpy(z)[None],
+                         torch.ones((1, n), dtype=torch.bool))[0].numpy()
+    vals = np.array([0.0, -0.0, np.inf, -np.inf, np.nan], np.float32)
+    for k in range(100, 180):
+        idx = rng.choice(12, rng.integers(1, 4), replace=False)
+        rows[k, idx] = rng.choice(vals, len(idx))
+    return torch.from_numpy(rows)[None].to(dev).contiguous()
+
+
+def test_culled_selection_on_nan_inf_and_degenerate_rows():
+    dev = _card()
+    rows = _hard_rows(dev, 13)
+    pix = rz.pixel_grid_ndc(64, 64, dev)
+    ref = rz.select_faces_dense_plain(rows, pix)
+    for width in (64, 0):
+        assert torch.equal(rz.select_faces_dense(rows, pix, width), ref)
+    assert torch.equal(rz.select_faces_dense_sweep_cuda(rows, pix), ref)
+    assert (ref >= 0).any()
+    # banded: every face in every band's bin, the filler after them
+    F = rows.shape[1]
+    frows = torch.cat([rows, rz._filler_row(dev).expand(1, 1, 12)],
+                      dim=1).contiguous()
+    ids = torch.arange(512, dtype=torch.int32, device=dev).clamp(max=F)
+    ids = ids.expand(1, 4, -1).contiguous()
+    bref = rz.select_faces_binned_plain(frows, ids, pix)
+    for width in (64, 0):
+        assert torch.equal(rz.select_faces_binned(frows, ids, pix, width),
+                           bref)
+    assert torch.equal(rz.select_faces_binned_sweep_cuda(frows, ids, pix),
+                       bref)
+
+
+def test_culled_selection_graph_replay_equals_eager():
+    dev = _card()
+    fv_img, fv_z, valid = _eval_orbit(dev, 5)
+    rows, ids = _binned_rows(fv_img, fv_z, valid, 512, 512)
+    pix512 = rz.pixel_grid_ndc(512, 512, dev)
+    drows = rz._face_rows(*_projected_sphere(dev, 1, 14)).contiguous()
+    pix64 = rz.pixel_grid_ndc(64, 64, dev)
+    calls = {rz.DENSE: lambda: rz.select_faces_dense(drows, pix64, 64),
+             rz.BINNED: lambda: rz.select_faces_binned(rows, ids, pix512,
+                                                       512)}
+    for name, fn in calls.items():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        before = _build.LAUNCHES[name]
+        _build.CAPTURED.clear()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        # the capture ran nothing: it counts as captured, not launched
+        assert _build.LAUNCHES[name] == before and _build.CAPTURED[name] == 1
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), name
+
+
 def _soft_inputs(dev, size, n_views, seed, wide=True):
     """Soft rows of the projected sphere (the wide camera sees its rim),
     with a degenerate face, a face outside the view and a padded row."""

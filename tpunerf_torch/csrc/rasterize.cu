@@ -12,32 +12,74 @@
 // background. A face is a row of 12 affine coefficients
 // [e0x e0y e0c  e1x e1y e1c  e2x e2y e2c  zx zy zc] made by
 // kernels/rasterize.py:_face_rows; invalid and degenerate faces come with
-// e0 = (0, 0, -1) and can never win.
+// e0 = (0, 0, -1) and can never win. The result is the largest (z, -id) in
+// lexicographic order over the hits whose z is neither NaN nor -inf: a
+// sweep in ascending id with a strict `>` gives it, and so does any split
+// of the pairs whose partial results are merged by that same order.
 //
-// What bounds it on this card: operations. A face-pixel pair costs four
-// affine evaluations, three compares and a select, about 25 f32 operations
-// and no memory traffic beyond the staged row: dense at F = 3968, P = 4096
-// is 0.4 GFLOP against 0.2 MB moved; binned at 5 x 256 bands x 1024 px x
-// K = 256 is 8.4 GFLOP against ~10 MB. Both sit on the CUDA cores' f32 rate.
+// What bounds it on this card: operations, about 25 f32 operations a
+// face-pixel pair (four affine forms, three compares, a select), and only
+// the pairs whose pixel lies inside the face need them. A face covers a
+// pixel or two at 64^2 and a few dozen at 512^2, so the live pairs are
+// well under 1 % of all pairs.
 //
-// Design: a thread owns a pixel and keeps (best z, best id) in registers.
-// Rows go through shared memory in tiles and are read as broadcasts, three
-// 16-byte loads per face. A thread sweeps its rows in ascending face id with
-// a strict `>`, which is the lowest-id tie rule.
-// * Dense: the training render has only 4096 pixels, too few threads to fill
-//   132 SMs, so a block takes 64 pixels x 4 slices of the face list; slice s
-//   sweeps the s-th quarter of the faces and the four partial results merge
-//   in ascending slice order with the same strict `>`, so lower ids still
-//   win ties.
-// * Binned: a block owns one (batch, band), gathers the band's K rows through
-//   its id list into shared memory once, and each of its 1024 threads sweeps
-//   them; the result is the winning slot, which the caller maps back to a
-//   face id.
+// Design: a warp owns a tile of 32 pixels (8 x 4 of the image dense, 16 x 2
+// of a 512-wide band binned, where the width allows, else 32 in a row) and
+// evaluates only the faces that survive an exact edge test against the
+// tile's box of pixels, with no margin:
+// * The cull. A (tile, face) pair is skipped when one of the face's three
+//   edge forms (a, b, c) is < 0 at the box's worst corner,
+//   x = (a >= 0 ? xmax : xmin), y = (b >= 0 ? ymax : ymin), evaluated by
+//   `affine`, the order of the sweep. Correctly rounded multiply and add are
+//   monotone in each argument, so fl(fl(fl(a*px) + fl(b*py)) + c) at any
+//   pixel of the box is at most its value at that corner, or NaN; either
+//   way that pixel fails the edge and the pair cannot hit. Where the corner
+//   gives NaN (inf * 0, inf + -inf, a NaN coefficient) the compare is false
+//   and the pair is kept; a corner value of -0.0 equals 0 and is kept; a
+//   tile with a NaN pixel gets the whole plane as its box, where every
+//   corner is +inf or NaN, and skips nothing. The filler row (0, 0, -1) is
+//   -1 at every finite corner: skipped. The box covers the pixels the
+//   sweep evaluates: the live ones dense, all 32 binned (the band's padded
+//   pixels at (2, 2) included, so that its padded slots equal the sweep's
+//   too). A box that holds more pixels (a block's tiles, below) skips fewer
+//   pairs and is exact for the same reason. So a skipped pair is never a
+//   hit and the culled result equals the all-pairs sweep's bit for bit, on
+//   every input.
+// * Binned (`select_faces_binned`): a block owns one (batch, band) and
+//   gathers the band's K rows through its id list into shared memory by
+//   16-byte cp.async (12 KB at K = 256). A slot that holds the last row's
+//   id (the filler, which pads every bin's tail) reads one shared copy of
+//   that row: copying it once per slot sent most of the card's copies to
+//   the same 48 bytes of L2, 9/10 of the kernel's time on an H100. After
+//   that one barrier each of the block's 32 warps tests 32 slots at a time
+//   against its tile (`__ballot_sync`) and sweeps the surviving slots in
+//   slot order with a strict `>`. The result is the winning slot, which
+//   the caller maps back to a face id.
+// * Dense (`select_faces_dense`), two modes:
+//   - few tiles (<= 4 a SM: 64^2), a tile a block
+//     (`select_dense_tile_kernel`): warp w of 16 tests the groups of 32
+//     faces w, w + 16, ... (a face a lane, read from L2 by `__ldg`, the
+//     next group's loads in flight), stages its survivors in id order into
+//     its own list and sweeps them with a strict `>`; the 16 partial
+//     results merge by (z, -id). One barrier.
+//   - many tiles (512^2), NT tiles a block of 16 warps
+//     (`select_dense_kernel`), faces in chunks of 1024: each warp tests its
+//     2 x 32 rows against the box of all NT tiles, the survivors are
+//     compacted across the warps in id order into one list in shared
+//     memory, and the G = 16 / NT warps of each tile test the list against
+//     their tile, split its survivors by rank (survivor r to warp r mod G)
+//     and sweep them in ascending id; the G partial results merge by
+//     (z, -id). Three barriers a chunk.
 // Exactness: each affine form is a*px + b*py + c evaluated as
 // (a*px + b*py) + c with round-to-nearest intrinsics, the order of the plain
 // version, so that no FMA contraction moves a pixel that lies exactly on an
 // edge (shared edges of a mesh are also exact z ties). This file must not be
 // built with --use_fast_math.
+//
+// The all-pairs designs are kept, only to be timed beside these:
+// `select_faces_dense_sweep` (a block of 64 pixels x 4 slices of the face
+// list, every pair evaluated, the slices merged in order) and
+// `select_faces_binned_sweep` (1024 threads, each sweeping all K slots).
 //
 // Every launch is on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -49,14 +91,35 @@
 namespace {
 
 constexpr int kRow = 12;        // floats per face row
-constexpr int kPix = 64;        // dense: pixels per block
-constexpr int kSlices = 4;      // dense: face-list slices per block
-constexpr int kTile = 64;       // dense: rows staged per slice per round
+constexpr int kPix = 64;        // dense sweep: pixels per block
+constexpr int kSlices = 4;      // dense sweep: face-list slices per block
+constexpr int kTile = 64;       // dense sweep: rows staged per slice a round
 constexpr int kBand = 1024;     // binned: pixels per band = threads per block
+constexpr int kSelWarps = 16;   // dense: warps a block
+constexpr int kSelRows = 2;     // dense: rows a lane tests a chunk
+constexpr int kSelChunk = kSelWarps * 32 * kSelRows;  // dense: rows a chunk
 
 __device__ __forceinline__ float affine(float a, float b, float c, float px,
                                         float py) {
   return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
+}
+
+// One face row (3 float4) with id `id` against one pixel.
+__device__ __forceinline__ void hit_test(const float4* __restrict__ row,
+                                         int id, float px, float py,
+                                         float& bz, int& bi) {
+  const float4 a = row[0];  // e0x e0y e0c e1x
+  const float4 b = row[1];  // e1y e1c e2x e2y
+  const float4 c = row[2];  // e2c zx  zy  zc
+  const float w0 = affine(a.x, a.y, a.z, px, py);
+  const float w1 = affine(a.w, b.x, b.y, px, py);
+  const float w2 = affine(b.z, b.w, c.x, px, py);
+  const float z = affine(c.y, c.z, c.w, px, py);
+  // a NaN fails every compare: such a face neither hits nor wins
+  if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && z > bz) {
+    bz = z;
+    bi = id;
+  }
 }
 
 // Sweep n staged rows (ids id0, id0+1, ...) against one pixel.
@@ -64,27 +127,95 @@ __device__ __forceinline__ void sweep(const float4* __restrict__ rows, int n,
                                       int id0, float px, float py, float& bz,
                                       int& bi) {
 #pragma unroll 4
-  for (int f = 0; f < n; ++f) {
-    const float4 a = rows[3 * f + 0];  // e0x e0y e0c e1x
-    const float4 b = rows[3 * f + 1];  // e1y e1c e2x e2y
-    const float4 c = rows[3 * f + 2];  // e2c zx  zy  zc
-    const float w0 = affine(a.x, a.y, a.z, px, py);
-    const float w1 = affine(a.w, b.x, b.y, px, py);
-    const float w2 = affine(b.z, b.w, c.x, px, py);
-    const float z = affine(c.y, c.z, c.w, px, py);
-    // a NaN fails every compare: such a face neither hits nor wins
-    if (w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && z > bz) {
-      bz = z;
-      bi = id0 + f;
-    }
-  }
+  for (int f = 0; f < n; ++f) hit_test(rows + 3 * f, id0 + f, px, py, bz, bi);
 }
 
+// ---- warp tiles and their boxes (the selection's and the soft forwards'
+// cull) -------------------------------------------------------------------
+
+struct Box {
+  float x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Box whole_plane() {
+  return Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
+}
+
+// The box of the warp's live pixels (empty where none is live; the whole
+// plane where one is NaN). kernels/rasterize.py:_soft_tile_boxes is its
+// twin.
+__device__ __forceinline__ Box tile_box(float px, float py, bool live) {
+  Box t{live ? px : INFINITY, live ? px : -INFINITY, live ? py : INFINITY,
+        live ? py : -INFINITY};
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    t.x0 = fminf(t.x0, __shfl_xor_sync(0xffffffffu, t.x0, off));
+    t.x1 = fmaxf(t.x1, __shfl_xor_sync(0xffffffffu, t.x1, off));
+    t.y0 = fminf(t.y0, __shfl_xor_sync(0xffffffffu, t.y0, off));
+    t.y1 = fmaxf(t.y1, __shfl_xor_sync(0xffffffffu, t.y1, off));
+  }
+  if (__any_sync(0xffffffffu, live && !(px == px && py == py))) {
+    return whole_plane();
+  }
+  return t;
+}
+
+// Pixel of lane `lane` of dense tile `tile`, -1 past the image: 8 x 4
+// blocks of an image `width` wide where width > 0, else 32 in a row.
+// kernels/rasterize.py:_soft_tile_pixels is its twin.
+__device__ __forceinline__ int dense_tile_pixel(int tile, int lane, int P,
+                                                int width) {
+  int p;
+  if (width > 0) {
+    const int per_row = width / 8;
+    p = ((tile / per_row) * 4 + (lane >> 3)) * width +
+        (tile % per_row) * 8 + (lane & 7);
+  } else {
+    p = tile * 32 + lane;
+  }
+  return p < P ? p : -1;
+}
+
+// Index within its band of lane `lane` of band tile `t`: (32 / R) x R
+// blocks of the band's R = 1024 / width rows where width > 0, else 32 in a
+// row.
+__device__ __forceinline__ int band_tile_pixel(int t, int lane, int width) {
+  if (width > 0) {
+    const int tw = 32 / (kBand / width);
+    return (lane / tw) * width + t * tw + lane % tw;
+  }
+  return t * 32 + lane;
+}
+
+// The dense tiles of P pixels at `width` (see dense_tile_pixel).
+__host__ __device__ __forceinline__ long dense_tiles(int P, int width) {
+  return width > 0 ? (long)((P / width + 3) / 4) * (width / 8)
+                   : (long)(P + 31) / 32;
+}
+
+// True where the edge form (a, b, c) is < 0 at the box's worst corner: then
+// it is < 0 or NaN at every pixel of the box (see the header).
+// kernels/rasterize.py:_sel_kept is its twin.
+__device__ __forceinline__ bool edge_out(float a, float b, float c,
+                                         const Box& t) {
+  return affine(a, b, c, a >= 0.0f ? t.x1 : t.x0, b >= 0.0f ? t.y1 : t.y0) <
+         0.0f;
+}
+
+// True where one of the row's three edges rules out every pixel of the box.
+__device__ __forceinline__ bool face_out(const float4& q0, const float4& q1,
+                                         float e2c, const Box& t) {
+  return edge_out(q0.x, q0.y, q0.z, t) || edge_out(q0.w, q1.x, q1.y, t) ||
+         edge_out(q1.z, q1.w, e2c, t);
+}
+
+// ---- the all-pairs designs, timed only ----------------------------------
+
 __global__ void __launch_bounds__(kPix * kSlices)
-select_dense_kernel(const float* __restrict__ rows,  // (B, F, 12)
-                    const float* __restrict__ pix,   // (P, 2)
-                    int* __restrict__ out,           // (B, P)
-                    int F, int P) {
+select_dense_sweep_kernel(const float* __restrict__ rows,  // (B, F, 12)
+                          const float* __restrict__ pix,   // (P, 2)
+                          int* __restrict__ out,           // (B, P)
+                          int F, int P) {
   __shared__ float4 tile[kSlices][kTile * 3];
   __shared__ float merge_z[kSlices][kPix];
   __shared__ int merge_i[kSlices][kPix];
@@ -133,11 +264,11 @@ select_dense_kernel(const float* __restrict__ rows,  // (B, F, 12)
 }
 
 __global__ void __launch_bounds__(kBand)
-select_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 12)
-                     const int* __restrict__ ids,     // (B, nb, K)
-                     const float* __restrict__ pix,   // (P, 2)
-                     int* __restrict__ out,           // (B, nb, 1024) slots
-                     int Fr, int nb, int K, int P) {
+select_binned_sweep_kernel(const float* __restrict__ rows,  // (B, Fr, 12)
+                           const int* __restrict__ ids,     // (B, nb, K)
+                           const float* __restrict__ pix,   // (P, 2)
+                           int* __restrict__ out,           // (B, nb, 1024)
+                           int Fr, int nb, int K, int P) {
   extern __shared__ float4 bin[];  // K rows x 3 float4
   const int band = blockIdx.x;
   const int b = blockIdx.y;
@@ -160,39 +291,392 @@ select_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 12)
   out[((size_t)b * nb + band) * kBand + threadIdx.x] = bi;
 }
 
+// ---- the culled kernels --------------------------------------------------
+
+// Binned: a block a (batch, band), a warp a tile. Dynamic shared memory
+// (binned_smem): the band's K rows, the last row of `rows` (the filler's
+// id), 3 float4 each, and the K slot ids. Slots holding the last row's id
+// point at its one copy: a bin's tail of filler slots would otherwise send
+// every band's copies to the same 48 bytes of L2.
+__host__ __device__ __forceinline__ size_t binned_smem(int K) {
+  return (size_t)(K + 1) * kRow * sizeof(float) + (size_t)K * sizeof(int);
+}
+
+__global__ void __launch_bounds__(kBand)
+select_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 12)
+                     const int* __restrict__ ids,     // (B, nb, K)
+                     const float* __restrict__ pix,   // (P, 2)
+                     int* __restrict__ out,           // (B, nb, 1024) slots
+                     int Fr, int nb, int K, int P, int width) {
+  extern __shared__ __align__(16) float4 bin[];
+  float4* last_row = bin + 3 * K;
+  int* sid = reinterpret_cast<int*>(last_row + 3);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int band = blockIdx.x;
+  const int b = blockIdx.y;
+  const int* band_ids = ids + ((size_t)b * nb + band) * K;
+  const float* src = rows + (size_t)b * Fr * kRow;
+  const int last = Fr - 1;
+  for (int i = tid; i < K * 3; i += kBand) {
+    const int k = i / 3, q = i - 3 * k;
+    const int id = band_ids[k];
+    if (q == 0) sid[k] = id;
+    if (id != last) {
+      tpn::cp_async16(tpn::smem_addr(bin + i),
+                      src + (size_t)id * kRow + q * 4);
+    }
+  }
+  if (tid < 3 && last >= 0) {
+    tpn::cp_async16(tpn::smem_addr(last_row + tid),
+                    src + (size_t)last * kRow + tid * 4);
+  }
+  tpn::cp_async_commit();
+
+  // while the rows land: the lane's pixel and the tile's box, padded
+  // pixels at (2, 2) included
+  const int local = band_tile_pixel(warp, lane, width);
+  const int p = band * kBand + local;
+  const float px = p < P ? pix[2 * p + 0] : 2.0f;
+  const float py = p < P ? pix[2 * p + 1] : 2.0f;
+  const Box tb = tile_box(px, py, true);
+  tpn::cp_async_wait<0>();
+  __syncthreads();  // every thread's copies and ids are visible
+
+  float bz = -INFINITY;
+  int bi = -1;
+  for (int h = 0; h < K; h += 32) {
+    const int k = h + lane;
+    bool keep = false;
+    if (k < K) {
+      const float4* r = sid[k] == last ? last_row : bin + 3 * k;
+      keep = !face_out(r[0], r[1], r[2].x, tb);
+    }
+    // the survivors in slot order: ascending ids, strict >
+    for (unsigned m = __ballot_sync(0xffffffffu, keep); m; m &= m - 1u) {
+      const int s = h + __ffs(m) - 1;
+      hit_test(sid[s] == last ? last_row : bin + 3 * s, s, px, py, bz, bi);
+    }
+  }
+  out[((size_t)b * nb + band) * kBand + local] = bi;
+}
+
+// Dense where the image has few tiles (64^2: 128), a tile a block: warp w
+// tests the groups of 32 faces g = w, w + 16, ... against the tile (each
+// lane a face, read from L2 with the next group's loads in flight), stages
+// the survivors, in id order, into its own 32-row list and sweeps them with
+// a strict `>`; the 16 partial results merge by (z, -id).
+constexpr int kSelTileWarps = 16;
+
+__global__ void __launch_bounds__(kSelTileWarps * 32)
+select_dense_tile_kernel(const float* __restrict__ rows,  // (B, F, 12)
+                         const float* __restrict__ pix,   // (P, 2)
+                         int* __restrict__ out,           // (B, P)
+                         int F, int P, int width) {
+  __shared__ float4 list[kSelTileWarps][32 * 3];
+  __shared__ float part_z[kSelTileWarps][32];
+  __shared__ int part_i[kSelTileWarps][32];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int p = dense_tile_pixel(blockIdx.x, lane, P, width);
+  const bool live = p >= 0;
+  const float px = live ? pix[2 * p + 0] : 2.0f;
+  const float py = live ? pix[2 * p + 1] : 2.0f;
+  const Box tb = tile_box(px, py, live);
+  const float4* src =
+      reinterpret_cast<const float4*>(rows + (size_t)b * F * kRow);
+  float4* mine = list[warp];
+
+  float4 nxt[3];
+  auto load = [&](int g) {
+    const int f = g * 32 + lane;
+    if (f < F) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) nxt[q] = __ldg(src + (size_t)f * 3 + q);
+    }
+  };
+  const int ngroups = (F + 31) / 32;
+  if (warp < ngroups) load(warp);
+  float bz = -INFINITY;
+  int bi = -1;
+  for (int g = warp; g < ngroups; g += kSelTileWarps) {
+    const float4 c0 = nxt[0], c1 = nxt[1], c2 = nxt[2];
+    if (g + kSelTileWarps < ngroups) load(g + kSelTileWarps);
+    const int f = g * 32 + lane;
+    const bool keep = f < F && !face_out(c0, c1, c2.x, tb);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      const int k = __popc(m & ((1u << lane) - 1u));
+      mine[3 * k + 0] = c0;
+      mine[3 * k + 1] = c1;
+      mine[3 * k + 2] = c2;
+    }
+    __syncwarp();
+    for (unsigned r = m, k = 0; r; r &= r - 1u, ++k) {
+      hit_test(mine + 3 * k, g * 32 + __ffs(r) - 1, px, py, bz, bi);
+    }
+    __syncwarp();  // the sweep is done before the next survivors land
+  }
+
+  part_z[warp][lane] = bz;
+  part_i[warp][lane] = bi;
+  __syncthreads();
+  if (warp == 0 && live) {
+    for (int w = 1; w < kSelTileWarps; ++w) {
+      const float z = part_z[w][lane];
+      const int i = part_i[w][lane];
+      if (z > bz || (z == bz && i < bi)) {
+        bz = z;
+        bi = i;
+      }
+    }
+    out[(size_t)b * P + p] = bi;
+  }
+}
+
+// Dense where the image has many tiles (512^2), NT tiles a block of
+// kSelWarps warps (NT divides kSelWarps; G = kSelWarps / NT warps a tile).
+// Per chunk of kSelChunk faces: each warp tests its 2 x 32 rows against the
+// box of all NT tiles; the survivors are compacted across the warps, in id
+// order, into one list; then the warps of each tile test the list against
+// their tile and split its survivors by rank, each sweeping its share in
+// ascending id; the G partial results merge by (z, -id). Dynamic shared
+// memory (kSelSmem): the list's rows and ids, the tile boxes, the partial
+// results, the warps' counts.
+constexpr size_t kSelSmem = (size_t)kSelChunk * 3 * 16 + (size_t)kSelChunk * 4 +
+                            (size_t)kSelWarps * 16 +
+                            (size_t)kSelWarps * 32 * 8 + (size_t)kSelWarps * 4;
+
+__global__ void __launch_bounds__(kSelWarps * 32)
+select_dense_kernel(const float* __restrict__ rows,  // (B, F, 12)
+                    const float* __restrict__ pix,   // (P, 2)
+                    int* __restrict__ out,           // (B, P)
+                    int F, int P, int width, int NT, int ntiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float4* list = reinterpret_cast<float4*>(smem);       // kSelChunk rows
+  int* list_id = reinterpret_cast<int*>(list + kSelChunk * 3);
+  float4* boxes = reinterpret_cast<float4*>(list_id + kSelChunk);
+  float* part_z = reinterpret_cast<float*>(boxes + kSelWarps);
+  int* part_i = reinterpret_cast<int*>(part_z + kSelWarps * 32);
+  int* cnt = part_i + kSelWarps * 32;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int G = kSelWarps / NT;  // warps a tile
+  const int t = warp % NT, g = warp / NT;
+  const int b = blockIdx.y;
+  const int tile = blockIdx.x * NT + t;
+  const int p = tile < ntiles ? dense_tile_pixel(tile, lane, P, width) : -1;
+  const bool live = p >= 0;
+  const float px = live ? pix[2 * p + 0] : 2.0f;
+  const float py = live ? pix[2 * p + 1] : 2.0f;
+  const Box tb = tile_box(px, py, live);
+  if (g == 0 && lane == 0) boxes[t] = make_float4(tb.x0, tb.x1, tb.y0, tb.y1);
+
+  const float4* src =
+      reinterpret_cast<const float4*>(rows + (size_t)b * F * kRow);
+  const int nchunks = (F + kSelChunk - 1) / kSelChunk;
+  // the lane's rows of chunk j: faces j*kSelChunk + warp*64 + r*32 + lane
+  float4 cur[kSelRows][3];
+  auto load = [&](int j) {
+#pragma unroll
+    for (int r = 0; r < kSelRows; ++r) {
+      const int f = j * kSelChunk + (warp * kSelRows + r) * 32 + lane;
+      if (f < F) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) cur[r][q] = __ldg(src + (size_t)f * 3 + q);
+      }
+    }
+  };
+  if (nchunks > 0) load(0);
+  __syncthreads();  // the tile boxes
+  Box rb{INFINITY, -INFINITY, INFINITY, -INFINITY};  // the block's box
+  for (int s = 0; s < NT; ++s) {
+    const float4 q = boxes[s];
+    rb.x0 = fminf(rb.x0, q.x);
+    rb.x1 = fmaxf(rb.x1, q.y);
+    rb.y0 = fminf(rb.y0, q.z);
+    rb.y1 = fmaxf(rb.y1, q.w);
+  }
+
+  float bz = -INFINITY;
+  int bi = -1;
+  int rank = 0;  // survivors of the tile so far
+  for (int j = 0; j < nchunks; ++j) {
+    // 1. the warp's rows against the block's box
+    unsigned m[kSelRows];
+    int n = 0;
+#pragma unroll
+    for (int r = 0; r < kSelRows; ++r) {
+      const int f = j * kSelChunk + (warp * kSelRows + r) * 32 + lane;
+      m[r] = __ballot_sync(0xffffffffu, f < F && !face_out(cur[r][0],
+                                                           cur[r][1],
+                                                           cur[r][2].x, rb));
+      n += __popc(m[r]);
+    }
+    if (lane == 0) cnt[warp] = n;
+    __syncthreads();  // the counts
+    // 2. the survivors into the block's list, in id order
+    int base = 0, total = 0;
+    for (int w = 0; w < kSelWarps; ++w) {
+      const int c = cnt[w];
+      base += w < warp ? c : 0;
+      total += c;
+    }
+#pragma unroll
+    for (int r = 0; r < kSelRows; ++r) {
+      if ((m[r] >> lane) & 1u) {
+        const int k = base + __popc(m[r] & ((1u << lane) - 1u));
+        list[3 * k + 0] = cur[r][0];
+        list[3 * k + 1] = cur[r][1];
+        list[3 * k + 2] = cur[r][2];
+        list_id[k] = j * kSelChunk + (warp * kSelRows + r) * 32 + lane;
+      }
+      base += __popc(m[r]);
+    }
+    __syncthreads();  // the list is complete
+    if (j + 1 < nchunks) load(j + 1);  // in flight while the list is swept
+    // 3. the list against the tile; survivor r of the tile to warp r mod G
+    // of its group, each sweeping ascending ids
+    for (int s = 0; s < total; s += 32) {
+      const int k = s + lane;
+      const bool keep =
+          k < total && !face_out(list[3 * k], list[3 * k + 1],
+                                 list[3 * k + 2].x, tb);
+      for (unsigned mm = __ballot_sync(0xffffffffu, keep); mm;
+           mm &= mm - 1u, ++rank) {
+        if ((rank & (G - 1)) == g) {
+          const int e = s + __ffs(mm) - 1;
+          hit_test(list + 3 * e, list_id[e], px, py, bz, bi);
+        }
+      }
+    }
+    __syncthreads();  // the list is free for the next chunk
+  }
+
+  // the tile's G partial results, merged by (z, -id)
+  part_z[warp * 32 + lane] = bz;
+  part_i[warp * 32 + lane] = bi;
+  __syncthreads();
+  if (g == 0 && live) {
+    for (int h = 1; h < G; ++h) {
+      const float z = part_z[(h * NT + t) * 32 + lane];
+      const int i = part_i[(h * NT + t) * 32 + lane];
+      if (z > bz || (z == bz && i < bi)) {
+        bz = z;
+        bi = i;
+      }
+    }
+    out[(size_t)b * P + p] = bi;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// rows (B, F, 12) f32 face rows; pix (P, 2) f32 NDC pixel centres;
-// out (B, P) int32 winning face id or -1.
+// Raises the dynamic shared memory `kernel` may take to `bytes`, once per
+// size (`opened` keeps the largest so far).
+static cudaError_t open_smem(const void* kernel, size_t bytes, int* opened) {
+  if (bytes <= 48 * 1024 || (int)bytes <= *opened) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *opened = (int)bytes;
+  return err;
+}
+
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess) {
+      sms = 132;
+    }
+  }
+  return sms;
+}
+
+// rows (B, F, 12) f32 face rows, 16-byte aligned; pix (P, 2) f32 NDC pixel
+// centres; out (B, P) int32 winning face id or -1. width: the image's width
+// where it is a multiple of 8 that divides P (8 x 4 tiles), else 0 (32
+// pixels in a row).
 int select_faces_dense(const float* rows, const float* pix, int* out, int B,
-                       int F, int P, void* stream) {
+                       int F, int P, int width, void* stream) {
+  static int opened = 0;
   if (B > 0 && P > 0) {
-    const dim3 grid((unsigned)((P + kPix - 1) / kPix), (unsigned)B);
-    const dim3 block(kPix, kSlices);
-    select_dense_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(rows, pix,
-                                                                  out, F, P);
+    if (B > 65535) return (int)cudaErrorInvalidValue;
+    const long tiles = dense_tiles(P, width);
+    const long sms = sm_count();
+    if (B * tiles <= 4 * sms) {  // few tiles: a tile a block
+      const dim3 grid((unsigned)tiles, (unsigned)B);
+      select_dense_tile_kernel<<<grid, kSelTileWarps * 32, 0,
+                                 (cudaStream_t)stream>>>(rows, pix, out, F,
+                                                         P, width);
+      return (int)cudaGetLastError();
+    }
+    // more tiles a block while the blocks still cover the SMs
+    int NT = 1;
+    while (2 * NT <= kSelWarps && B * ((tiles + 2 * NT - 1) / (2 * NT)) >= sms) {
+      NT *= 2;
+    }
+    const cudaError_t err =
+        open_smem((const void*)select_dense_kernel, kSelSmem, &opened);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)((tiles + NT - 1) / NT), (unsigned)B);
+    select_dense_kernel<<<grid, kSelWarps * 32, kSelSmem,
+                          (cudaStream_t)stream>>>(rows, pix, out, F, P, width,
+                                                  NT, (int)tiles);
   }
   return (int)cudaGetLastError();
 }
 
-// rows (B, Fr, 12) f32 face rows (the last one the never-wins filler);
-// ids (B, nb, K) int32 row index per bin slot; pix (P, 2) f32;
-// out (B, nb, 1024) int32 winning slot or -1.
+// rows (B, Fr, 12) f32 face rows (the last one the never-wins filler),
+// 16-byte aligned; ids (B, nb, K) int32 row index per bin slot; pix (P, 2)
+// f32; out (B, nb, 1024) int32 winning slot or -1. width: the image's width
+// where 1024 / width rows make tiles of 32 (width 32 ... 1024, dividing P),
+// else 0.
 int select_faces_binned(const float* rows, const int* ids, const float* pix,
                         int* out, int B, int Fr, int nb, int K, int P,
-                        void* stream) {
-  const size_t smem = (size_t)K * kRow * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        select_binned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+                        int width, void* stream) {
+  static int opened = 0;
+  const size_t smem = binned_smem(K);
+  const cudaError_t err =
+      open_smem((const void*)select_binned_kernel, smem, &opened);
+  if (err != cudaSuccess) return (int)err;
   if (B > 0 && nb > 0) {
+    if (B > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)nb, (unsigned)B);
     select_binned_kernel<<<grid, kBand, smem, (cudaStream_t)stream>>>(
+        rows, ids, pix, out, Fr, nb, K, P, width);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The all-pairs designs of the two above, with their contracts (no
+// width); kept only to be timed beside them.
+int select_faces_dense_sweep(const float* rows, const float* pix, int* out,
+                             int B, int F, int P, void* stream) {
+  if (B > 0 && P > 0) {
+    const dim3 grid((unsigned)((P + kPix - 1) / kPix), (unsigned)B);
+    const dim3 block(kPix, kSlices);
+    select_dense_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        rows, pix, out, F, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+int select_faces_binned_sweep(const float* rows, const int* ids,
+                              const float* pix, int* out, int B, int Fr,
+                              int nb, int K, int P, void* stream) {
+  static int opened = 0;
+  const size_t smem = (size_t)K * kRow * sizeof(float);
+  const cudaError_t err =
+      open_smem((const void*)select_binned_sweep_kernel, smem, &opened);
+  if (err != cudaSuccess) return (int)err;
+  if (B > 0 && nb > 0) {
+    const dim3 grid((unsigned)nb, (unsigned)B);
+    select_binned_sweep_kernel<<<grid, kBand, smem, (cudaStream_t)stream>>>(
         rows, ids, pix, out, Fr, nb, K, P);
   }
   return (int)cudaGetLastError();
@@ -468,14 +952,6 @@ soft_fwd_binned_sweep_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
 
 // ---- the cull (soft_fwd_dense, soft_fwd_binned) -------------------------
 
-struct Box {
-  float x0, x1, y0, y1;
-};
-
-__device__ __forceinline__ Box whole_plane() {
-  return Box{-INFINITY, INFINITY, -INFINITY, INFINITY};
-}
-
 __device__ __forceinline__ bool finite_vertices(
     const float* __restrict__ row) {
   const float4 c = reinterpret_cast<const float4*>(row)[2];  // e2c v0 v1x
@@ -498,25 +974,6 @@ __device__ __forceinline__ Box face_box(const float* __restrict__ row,
   b.y0 = __fsub_rn(fminf(fminf(c.z, d.x), d.z), m);
   b.y1 = __fadd_rn(fmaxf(fmaxf(c.z, d.x), d.z), m);
   return b;
-}
-
-// The box of the warp's live pixels (empty where none is live; the whole
-// plane where one is NaN). kernels/rasterize.py:_soft_tile_boxes is its
-// twin.
-__device__ __forceinline__ Box tile_box(float px, float py, bool live) {
-  Box t{live ? px : INFINITY, live ? px : -INFINITY, live ? py : INFINITY,
-        live ? py : -INFINITY};
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    t.x0 = fminf(t.x0, __shfl_xor_sync(0xffffffffu, t.x0, off));
-    t.x1 = fmaxf(t.x1, __shfl_xor_sync(0xffffffffu, t.x1, off));
-    t.y0 = fminf(t.y0, __shfl_xor_sync(0xffffffffu, t.y0, off));
-    t.y1 = fmaxf(t.y1, __shfl_xor_sync(0xffffffffu, t.y1, off));
-  }
-  if (__any_sync(0xffffffffu, live && !(px == px && py == py))) {
-    return whole_plane();
-  }
-  return t;
 }
 
 // Written so that a NaN compare never skips.
@@ -552,33 +1009,6 @@ __device__ __forceinline__ float cull_sweep(const float* __restrict__ raw,
     __syncwarp();  // the sweep is done before the next hits are staged
   }
   return prod;
-}
-
-// Pixel of lane `lane` of dense tile `tile`, -1 past the image: 8 x 4
-// blocks of an image `width` wide where width > 0, else 32 in a row.
-// kernels/rasterize.py:_soft_tile_pixels is its twin.
-__device__ __forceinline__ int dense_tile_pixel(int tile, int lane, int P,
-                                                int width) {
-  int p;
-  if (width > 0) {
-    const int per_row = width / 8;
-    p = ((tile / per_row) * 4 + (lane >> 3)) * width +
-        (tile % per_row) * 8 + (lane & 7);
-  } else {
-    p = tile * 32 + lane;
-  }
-  return p < P ? p : -1;
-}
-
-// Index within its band of lane `lane` of band tile `t`: (32 / R) x R
-// blocks of the band's R = 1024 / width rows where width > 0, else 32 in a
-// row.
-__device__ __forceinline__ int band_tile_pixel(int t, int lane, int width) {
-  if (width > 0) {
-    const int tw = 32 / (kBand / width);
-    return (lane / tw) * width + t * tw + lane % tw;
-  }
-  return t * 32 + lane;
 }
 
 // Dense forward where the image has many tiles, NT tiles a block: each
@@ -1016,29 +1446,6 @@ soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
 
 extern "C" {
 
-// Raises the dynamic shared memory `kernel` may take to `bytes`, once per
-// size (`opened` keeps the largest so far).
-static cudaError_t open_smem(const void* kernel, size_t bytes, int* opened) {
-  if (bytes <= 48 * 1024 || (int)bytes <= *opened) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *opened = (int)bytes;
-  return err;
-}
-
-static int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-        cudaSuccess) {
-      sms = 132;
-    }
-  }
-  return sms;
-}
-
 // rows (B, F, 16) f32 soft rows, 16-byte aligned; pix (P, 2) f32; out (B, P)
 // f32 prod. width: the image's width where it is a multiple of 8 that
 // divides P (8 x 4 tiles), else 0 (32 pixels in a row). margin: the cull's
@@ -1049,8 +1456,7 @@ int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
   static int opened = 0;
   if (B > 0 && P > 0) {
     if (B > 65535) return (int)cudaErrorInvalidValue;
-    const long tiles = width > 0 ? (long)((P / width + 3) / 4) * (width / 8)
-                                 : (long)(P + 31) / 32;
+    const long tiles = dense_tiles(P, width);
     const long sms = sm_count();
     if (B * tiles <= 4 * sms) {  // few tiles: a tile a block
       static int opened_tile = 0;

@@ -10,7 +10,10 @@ The rasterizer is split into
    pre-reduced to rows of 12 affine coefficients (`_face_rows`); at renders
    of ≥ 128² pixels with many faces the sweep runs per 1024-pixel band over
    that band's own bin of K faces (`_bin_faces`), and falls back to the
-   dense sweep when a bin overflows;
+   dense sweep when a bin overflows. Both kernels skip, per warp tile of 32
+   pixels, the faces with an edge form < 0 at the tile box's worst corner,
+   which can hit none of its pixels; `_sel_tile_boxes` and `_sel_kept` are
+   that rule in PyTorch;
 2. a differentiable pass (`_interp_selected`): gather the winning face and
    recompute barycentrics with autograd.
 
@@ -44,6 +47,9 @@ from tpunerf_torch.kernels import _build
 
 DENSE = "select_faces_dense"
 BINNED = "select_faces_binned"
+# the all-pairs designs of the selection kernels, timed only
+DENSE_SWEEP = "select_faces_dense_sweep"
+BINNED_SWEEP = "select_faces_binned_sweep"
 SOFT_FWD_DENSE = "soft_fwd_dense"
 SOFT_FWD_BINNED = "soft_fwd_binned"
 SOFT_BWD_DENSE = "soft_bwd_dense"
@@ -212,60 +218,153 @@ def _check_rows(rows: torch.Tensor, pix: torch.Tensor) -> None:
                          "rows 16-byte aligned")
 
 
-def select_faces_dense_cuda(rows: torch.Tensor, pix: torch.Tensor
-                            ) -> torch.Tensor:
+def _check_ids(rows: torch.Tensor, ids: torch.Tensor, pix: torch.Tensor
+               ) -> None:
+    if ids.dtype != torch.int32 or ids.dim() != 3 \
+            or ids.shape[0] != rows.shape[0] or not ids.is_contiguous():
+        raise ValueError("bin ids must be contiguous int32 (B, nb, K), got "
+                         f"{ids.dtype} {tuple(ids.shape)}")
+    if ids.shape[1] * _BAND < pix.shape[0]:
+        raise ValueError(f"{ids.shape[1]} bands do not cover {pix.shape[0]} "
+                         "pixels")
+
+
+def _entry(name: str, ptrs: int, ints: int, floats: int = 0):
+    """The C entry `name` of csrc/rasterize.cu taking `ptrs` pointers,
+    `ints` ints, `floats` floats and the stream."""
+    fn = getattr(_build.load("rasterize"), name)
+    fn.argtypes = ([_build.VOIDP] * ptrs + [_build.INT] * ints
+                   + [_build.FLOAT] * floats + [_build.VOIDP])
+    fn.restype = _build.INT
+    return fn
+
+
+def select_faces_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
+                            width: int = 0) -> torch.Tensor:
+    """Kernel #5, culled by warp tiles of 8 × 4 pixels where `width` (the
+    image's) allows, else 32 in a row."""
     _check_rows(rows, pix)
     _build.check_cuda(rows, pix)
     B, F, _ = rows.shape
     P = pix.shape[0]
-    fn = _build.load("rasterize").select_faces_dense
-    fn.argtypes = [_build.VOIDP] * 3 + [_build.INT] * 3 + [_build.VOIDP]
-    fn.restype = _build.INT
     out = torch.empty((B, P), dtype=torch.int32, device=rows.device)
-    err = fn(rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
-             _build.stream_ptr(rows.device))
+    err = _entry(DENSE, 3, 4)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
+        _soft_tile_width(P, width, False), _build.stream_ptr(rows.device))
     _build.check(err, DENSE)
     _build.count_launch(DENSE)
     return out
 
 
 def select_faces_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
-                             pix: torch.Tensor) -> torch.Tensor:
+                             pix: torch.Tensor, width: int = 0
+                             ) -> torch.Tensor:
+    """Kernel #6, culled by warp tiles of 16 × 2 pixels at a width of 512
+    (see `_soft_tile_width`)."""
     _check_rows(rows, pix)
-    if ids.dtype != torch.int32 or ids.dim() != 3 \
-            or ids.shape[0] != rows.shape[0] or not ids.is_contiguous():
-        raise ValueError("bin ids must be contiguous int32 (B, nb, K), got "
-                         f"{ids.dtype} {tuple(ids.shape)}")
+    _check_ids(rows, ids, pix)
     _build.check_cuda(rows, ids, pix)
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
     P = pix.shape[0]
-    if nb * _BAND < P:
-        raise ValueError(f"{nb} bands do not cover {P} pixels")
-    fn = _build.load("rasterize").select_faces_binned
-    fn.argtypes = [_build.VOIDP] * 4 + [_build.INT] * 5 + [_build.VOIDP]
-    fn.restype = _build.INT
     out = torch.empty((B, nb, _BAND), dtype=torch.int32, device=rows.device)
-    err = fn(rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
-             B, Fr, nb, K, P, _build.stream_ptr(rows.device))
+    err = _entry(BINNED, 4, 6)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        B, Fr, nb, K, P, _soft_tile_width(P, width, True),
+        _build.stream_ptr(rows.device))
     _build.check(err, BINNED)
     _build.count_launch(BINNED)
     return out
 
 
-def select_faces_dense(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def select_faces_dense_sweep_cuda(rows: torch.Tensor, pix: torch.Tensor
+                                  ) -> torch.Tensor:
+    """The all-pairs #5 (every pair evaluated), with #5's contract; only
+    `chip_smoke.py` and the card tests call it, to time and check it beside
+    #5."""
+    _check_rows(rows, pix)
+    _build.check_cuda(rows, pix)
+    B, F, _ = rows.shape
+    P = pix.shape[0]
+    out = torch.empty((B, P), dtype=torch.int32, device=rows.device)
+    err = _entry(DENSE_SWEEP, 3, 3)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
+        _build.stream_ptr(rows.device))
+    _build.check(err, DENSE_SWEEP)
+    _build.count_launch(DENSE_SWEEP)
+    return out
+
+
+def select_faces_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
+                                   pix: torch.Tensor) -> torch.Tensor:
+    """The all-pairs #6 (every slot at every band pixel), with #6's
+    contract; timed and checked beside #6 only."""
+    _check_rows(rows, pix)
+    _check_ids(rows, ids, pix)
+    _build.check_cuda(rows, ids, pix)
+    B, Fr, _ = rows.shape
+    _, nb, K = ids.shape
+    out = torch.empty((B, nb, _BAND), dtype=torch.int32, device=rows.device)
+    err = _entry(BINNED_SWEEP, 4, 5)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        B, Fr, nb, K, pix.shape[0], _build.stream_ptr(rows.device))
+    _build.check(err, BINNED_SWEEP)
+    _build.count_launch(BINNED_SWEEP)
+    return out
+
+
+def select_faces_dense(rows: torch.Tensor, pix: torch.Tensor,
+                       width: int = 0) -> torch.Tensor:
+    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
+    image's, only shapes the kernel's tiles."""
     if rows.is_cuda:
-        return select_faces_dense_cuda(rows, pix)
+        return select_faces_dense_cuda(rows, pix, width)
     return select_faces_dense_plain(rows, pix)
 
 
 def select_faces_binned(rows: torch.Tensor, ids: torch.Tensor,
-                        pix: torch.Tensor) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+                        pix: torch.Tensor, width: int = 0) -> torch.Tensor:
+    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
+    image's, only shapes the kernel's tiles."""
     if rows.is_cuda:
-        return select_faces_binned_cuda(rows, ids, pix)
+        return select_faces_binned_cuda(rows, ids, pix, width)
     return select_faces_binned_plain(rows, ids, pix)
+
+
+# --------------------------------------------------------------------------
+# the selection kernels' cull, in PyTorch
+# --------------------------------------------------------------------------
+
+def _sel_tile_boxes(pix: torch.Tensor, width: int, banded: bool = False
+                    ) -> torch.Tensor:
+    """(T, 4) [xmin, xmax, ymin, ymax] of the selection kernels' warp
+    tiles, tile-major as they number them: dense, the box of each tile's
+    live pixels; banded, of all 32 pixels of each band tile, those past the
+    image at (2, 2) (the kernel sweeps them, as the plain version does)."""
+    P = pix.shape[0]
+    if not banded:
+        return _soft_tile_boxes(pix, _soft_tile_pixels(P, width, False,
+                                                       pix.device))
+    nb = -(-P // _BAND)
+    px, py = _band_pixels(pix, nb)
+    padded = torch.stack([px.reshape(-1), py.reshape(-1)], dim=-1)
+    tiles = _soft_tile_pixels(nb * _BAND, _soft_tile_width(P, width, True),
+                              True, pix.device)
+    return _soft_tile_boxes(padded, tiles)
+
+
+def _sel_kept(rows: torch.Tensor, tile_boxes: torch.Tensor) -> torch.Tensor:
+    """(..., F, 12) face rows against (..., T, 4) tile boxes → (..., T, F)
+    True where the kernels evaluate the pair: none of the three edge forms
+    (a, b, c) is < 0 at the box's worst corner x = (a ≥ 0 ? xmax : xmin),
+    y = (b ≥ 0 ? ymax : ymin), in the sweep's f32 order (a NaN there keeps
+    the pair). The twin of csrc/rasterize.cu:face_out."""
+    e = rows[..., None, :, :9].unflatten(-1, (3, 3))        # (..., 1, F, 3, 3)
+    t = tile_boxes[..., :, None, None, :]                    # (..., T, 1, 1, 4)
+    a, b, c = e[..., 0], e[..., 1], e[..., 2]
+    x = torch.where(a >= 0, t[..., 1], t[..., 0])
+    y = torch.where(b >= 0, t[..., 3], t[..., 2])
+    return ~((a * x + b * y + c) < 0).any(dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -331,14 +430,14 @@ def _select_faces_batched(pix: torch.Tensor, fv_img: torch.Tensor,
     P = pix.shape[0]
     rows = _face_rows(fv_img, fv_z, valid)                    # (B, F, 12)
     if not uses_bins(height, width, F, K):
-        return select_faces_dense(rows, pix)
+        return select_faces_dense(rows, pix, width)
     nb = -(-P // _BAND)
     ylo, yhi = _band_ranges(height, width, nb, pix.device)
     ids, maxc = _bin_faces(fv_img, valid, ylo, yhi, K)
     if int(maxc) > K:
-        return select_faces_dense(rows, pix)
+        return select_faces_dense(rows, pix, width)
     rows = torch.cat([rows, _filler_row(rows.device).expand(B, 1, 12)], dim=1)
-    slots = select_faces_binned(rows, ids, pix)               # (B, nb, 1024)
+    slots = select_faces_binned(rows, ids, pix, width)        # (B, nb, 1024)
     fid = torch.gather(ids, 2, slots.clamp(min=0).long())
     fid = torch.where((slots >= 0) & (fid < F), fid, fid.new_full((), -1))
     return fid.reshape(B, nb * _BAND)[:, :P]
@@ -701,13 +800,7 @@ def _check_soft(rows: torch.Tensor, pix: torch.Tensor, *maps: torch.Tensor,
         raise ValueError("soft rows, pixels and maps must be contiguous and "
                          "the rows 16-byte aligned")
     if ids is not None:
-        if ids.dtype != torch.int32 or ids.dim() != 3 \
-                or ids.shape[0] != rows.shape[0] or not ids.is_contiguous():
-            raise ValueError("bin ids must be contiguous int32 (B, nb, K), "
-                             f"got {ids.dtype} {tuple(ids.shape)}")
-        if ids.shape[1] * _BAND < pix.shape[0]:
-            raise ValueError(f"{ids.shape[1]} bands do not cover "
-                             f"{pix.shape[0]} pixels")
+        _check_ids(rows, ids, pix)
         for m in maps:
             if tuple(m.shape) != (ids.shape[0], ids.shape[1], _BAND):
                 raise ValueError("banded maps must be (B, nb, 1024), got "
@@ -720,15 +813,9 @@ def _check_soft(rows: torch.Tensor, pix: torch.Tensor, *maps: torch.Tensor,
 
 
 def _soft_fwd_call(name: str, ptrs: int, ints: int):
-    """The C entry `name` of csrc/rasterize.cu taking `ptrs` pointers,
-    `ints` ints, then sigma (and, for the culling kernels, the margin), and
-    the stream."""
-    fn = getattr(_build.load("rasterize"), name)
-    floats = 1 if name.endswith("_sweep") else 2
-    fn.argtypes = ([_build.VOIDP] * ptrs + [_build.INT] * ints
-                   + [_build.FLOAT] * floats + [_build.VOIDP])
-    fn.restype = _build.INT
-    return fn
+    """The soft forward entry `name`: its floats are sigma and, for the
+    culling kernels, the margin."""
+    return _entry(name, ptrs, ints, 1 if name.endswith("_sweep") else 2)
 
 
 def soft_prod_dense_cuda(rows: torch.Tensor, pix: torch.Tensor, sigma: float,
