@@ -23,8 +23,16 @@
    64², the eval chunk's 5 views dense at 512²; #6: the eval chunk and one
    mode-1 view at 512²) beside the all-pairs designs, bit for bit against
    them and the plain versions, there and on edge/tie and NaN/inf sets.
-   The occupancy lookup #3 and the soft backwards #9, #10 also in a CUDA
-   graph.
+   The occupancy lookup #3 (four samples a thread, products for a
+   power-of-two bound) beside its first design, at uniform x with a slice
+   on cell walls, at 4x the samples and at 4 samples (a graph node's
+   floor), checked exactly there, at a bound of 0.7 and on an offset view.
+   The binned soft backward #10 (culled per warp tile, live tiles only, a
+   fixed-order sum to faces) beside its first design with `index_add_`, at
+   the eval chunk and one mode-1 view with random g, within 2e-5 of plain
+   and that design, 1e-4 of the dense #9, bit-identical over two calls,
+   with the pairs within the margin, candidate, live and all pairs and
+   both bounds; #9 in a CUDA graph.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
    `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
    at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
@@ -37,8 +45,9 @@
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
    from the seed) through `Trainer.train()` for 17+ steps, so that the
    occupancy refreshes at steps 1 and 16 run. It copies the x, table and g
-   that reach #1 and #2 on step 10 and then times both kernels, and the
-   level-per-block designs, on those ray-ordered inputs.
+   that reach #1 and #2 and the samples that reach #3 on step 10 and then
+   times those kernels, and their first designs, on those ray-ordered
+   inputs.
 6. Trains the port's latent-paint app at full width with the same guidance
    (procedural sphere of 3968 faces, 960-face background dome, 128^2 latent
    texture, 64x64 train grid) through `Trainer.train()`, which ends with the
@@ -54,15 +63,17 @@
    gradient of sum(mask^2) to the displacement through
    `render_train(...)["soft_mask"]` at 64^2 and `render_test(...)["mask"]`
    at 512^2 (no loss of the app reads the soft mask, so no training step
-   launches them).
+   launches them), then times #10 on that phase's own g = 2 mask and prod
+   beside its first design.
 For each path the launch counters are reset just before and read just after.
 
 The profiles of the paint, mode-0 and mode-1 steps end with the selection
 kernels' device ms a step.
-Prints the device line, one line per check, a `{"kernels": [...]}` line and,
-last, `{"ok": true, "device": {...}}`. Exits non-zero, printing no result,
-when there is no CUDA device, when the package is missing, or when any
-phase fails.
+Prints the device line, one line per check, a `{"kernels": [...]}` line (the
+eleven kernels, then the kept first designs with "main_path": false and the
+launches of their checks) and, last, `{"ok": true, "device": {...}}`.
+Exits non-zero, printing no result, when there is no CUDA device, when the
+package is missing, or when any phase fails.
 
     python3 chip_smoke.py [--seed N]
 """
@@ -72,6 +83,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -160,12 +172,51 @@ def hash_grid_rows(x, table, g, cfg, label: str):
     return rows[hg.FWD], rows[hg.BWD]
 
 
+def occgrid_case(x, packed, G: int, bnd: float, label: str,
+                 iters: int = 50):
+    """Kernel #3 and its first design on x: each against the plain version
+    (0 mismatches); CUDA-graph and eager times of both in the order new,
+    old, old, new; the bound (bytes: xyz, words, flags) and its share."""
+    import torch
+    from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    new = lambda: og.occupancy_lookup_cuda(x, packed, G, bnd)  # noqa: E731
+    old = lambda: og.occupancy_lookup_scalar_cuda(  # noqa: E731
+        x, packed, G, bnd)
+    out, before = new(), old()
+    ref = og.occupancy_lookup_plain(x, packed, G, bnd)
+    torch.cuda.synchronize()
+    mism = int((out != ref).sum().item())
+    mism_old = int((before != ref).sum().item())
+    n = x.shape[:-1].numel()
+    b_ms, b_by = bound(x.numel() * 4 + packed.numel() * 4 + n, n * 12, "f32")
+    graph, _ = ex.graph_ms(new, iters)
+    old_graph, _ = ex.graph_ms(old, iters)
+    old_graph2, _ = ex.graph_ms(old, iters)
+    graph2, _ = ex.graph_ms(new, iters)
+    ms, old_ms = cuda_ms(new, iters), cuda_ms(old, iters)
+    case = dict(n=n, mismatches=mism, graph_ms=graph, graph_ms_again=graph2,
+                ms=ms, scalar_graph_ms=old_graph,
+                scalar_graph_ms_again=old_graph2, scalar_ms=old_ms,
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / graph)
+    print(f"  #3 {label}, n={n}: mismatches {mism}, first design {mism_old} "
+          f"(tol 0); graph {graph:.4f} / {graph2:.4f} ms, eager {ms:.4f}; "
+          f"first design graph {old_graph:.4f} / {old_graph2:.4f}, eager "
+          f"{old_ms:.4f}; bound {b_ms:.5f} ms ({b_by}), share "
+          f"{b_ms / graph:.3f} (graph)")
+    if mism or mism_old:
+        fail(f"occupancy lookup disagrees with its plain version ({label})")
+    return case
+
+
 def check_kernels(seed: int):
     """Each kernel vs its plain version at full-width shapes. Returns
-    {name: row} without launch counts."""
+    {name: row} without launch counts (the kept first designs' rows carry
+    the launches of their timing here)."""
     import torch
     from tpunerf_torch.fields.encoding import HashGridConfig
     from tpunerf_torch.fields.occupancy import OccupancyGridConfig
+    from tpunerf_torch.kernels import _build
     from tpunerf_torch.kernels import attention as at
     from tpunerf_torch.kernels import hashgrid as hg
     from tpunerf_torch.kernels import occgrid as og
@@ -175,6 +226,7 @@ def check_kernels(seed: int):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     rows = {}
+    _build.reset_launches()
 
     # --- #1/#2 hash grid: N = 1·64²·K points, default config -------------
     cfg = HashGridConfig()
@@ -192,6 +244,10 @@ def check_kernels(seed: int):
         "max_abs_err", "ms", "graph_ms", "level_per_block_ms",
         "level_per_block_graph_ms")}
     rows[hg.FWD], rows[hg.BWD] = fwd, bwd
+    rows[hg.FWD_LEVEL] = dict(
+        fwd, name=hg.FWD_LEVEL, ms=fwd["level_per_block_ms"],
+        graph_ms=fwd["level_per_block_graph_ms"], main_path=False,
+        launches=_build.LAUNCHES.get(hg.FWD_LEVEL, 0))
     sass = dict(ex.sass_atomics().get("hashgrid_bwd_kernel", {}))
     print(f"hashgrid_bwd SASS atomics: {sass}")
     if "ATOMS.ADD" not in sass or any("CAS" in op for op in sass):
@@ -207,29 +263,42 @@ def check_kernels(seed: int):
     walls = (torch.randint(0, G + 1, (4096, 3), generator=gen, device=dev)
              .float() * (2.0 / G) - 1.0)
     xs[0, :, 0, :] = walls
-    occ = og.occupancy_lookup_cuda(xs, packed, G, ocfg.bound)
-    oref = og.occupancy_lookup_plain(xs, packed, G, ocfg.bound)
-    torch.cuda.synchronize()
-    mism = int((occ != oref).sum().item())
-    print(f"occgrid_lookup n={xs.shape[:-1].numel()}: mismatches {mism} "
-          f"(tol 0, exact)")
-    if mism:
-        fail("occupancy lookup kernel disagrees with its plain version")
-    nbytes = xs.numel() * 4 + packed.numel() * 4 + occ.numel()
-    b_ms, b_by = bound(nbytes, xs.shape[:-1].numel() * 12, "f32")
+    print("occgrid_lookup (#3) against its first design (one sample a "
+          "thread, six quotients):")
+    cases = {"a": occgrid_case(xs, packed, G, ocfg.bound,
+                               "(a) uniform x and cell walls")}
+    # 4x the samples, and 4 samples (a graph node's floor)
+    x4 = torch.rand((4, 4096, 128, 3), generator=gen, device=dev) * 2 - 1
+    cases["4x"] = occgrid_case(x4, packed, G, ocfg.bound, "4x the samples")
+    cases["floor"] = occgrid_case(xs.reshape(-1, 3)[:4], packed, G,
+                                  ocfg.bound, "4 samples, the launch floor")
+    # where the rounding of another bound decides: quotients, and an offset
+    # view on the one-sample path (checked, not timed)
+    for label, x, bnd in (("bound 0.7", xs * 0.7, 0.7),
+                          ("offset view", xs.reshape(-1, 3)[1:], 1.0)):
+        got = og.occupancy_lookup_cuda(x, packed, G, bnd)
+        mism = int((got != og.occupancy_lookup_plain(x, packed, G,
+                                                     bnd)).sum().item())
+        print(f"  {label}: mismatches {mism} (tol 0)")
+        if mism:
+            fail(f"occupancy lookup disagrees with its plain version "
+                 f"({label})")
+    a = cases["a"]
     rows[og.LOOKUP] = dict(
         name=og.LOOKUP, route="cuda", source="tpunerf_torch/csrc/occgrid.cu",
-        replaces="tpunerf/kernels/occgrid.py:139", max_abs_err=float(mism),
-        ms=cuda_ms(lambda: og.occupancy_lookup_cuda(xs, packed, G,
-                                                    ocfg.bound), 50),
+        replaces="tpunerf/kernels/occgrid.py:139",
+        max_abs_err=float(a["mismatches"]), ms=a["ms"],
+        graph_ms=a["graph_ms"],
         plain_ms=cuda_ms(lambda: og.occupancy_lookup_plain(xs, packed, G,
                                                            ocfg.bound), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    # the eager time is the wrapper's: the graph's is the kernel's
-    rows[og.LOOKUP]["graph_ms"] = ex.graph_ms(
-        lambda: og.occupancy_lookup_cuda(xs, packed, G, ocfg.bound), 50)[0]
-    print(f"  {og.LOOKUP}: eager {rows[og.LOOKUP]['ms']:.4f} ms, graph "
-          f"{rows[og.LOOKUP]['graph_ms']:.4f} ms")
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        inputs=cases)
+    rows[og.LOOKUP_SCALAR] = dict(
+        rows[og.LOOKUP], name=og.LOOKUP_SCALAR, ms=a["scalar_ms"],
+        graph_ms=a["scalar_graph_ms"], main_path=False,
+        launches=_build.LAUNCHES.get(og.LOOKUP_SCALAR, 0),
+        inputs={k: {"ms": c["scalar_ms"], "graph_ms": c["scalar_graph_ms"]}
+                for k, c in cases.items()})
 
     # --- #4 attention: (2, 8, 4096, 40), the UNet's 64² self-attention ----
     rows[at.ATTN] = check_attention(gen)
@@ -757,6 +826,9 @@ SOFT_FWD_FLOPS = 80    # per face-pixel pair: 3 affine forms, 3 segment
 #                        distances (~15 each), a min, a quotient, an exp
 SOFT_GRAD_FLOPS = 30   # on top, only where the backward goes on to the
 #                        routed closed-form gradient (see _soft_grad_pairs)
+# the soft backwards against plain: sums over pixels in another order;
+# prod / (1 - p) near an edge
+BWD_TOL = 2e-5
 
 
 def _max_rel(got, ref) -> float:
@@ -865,7 +937,7 @@ def _soft_fwd_case(rz, label: str, new, sweep, plain, rows, pix,
     nbytes = 4 * (rows.numel() + pix.numel() + out.numel()
                   + (0 if ids is None else ids.numel()))
     b_ms, b_by = bound(nbytes, live * SOFT_FWD_FLOPS, "f32")
-    all_ms, _ = bound(nbytes, all_pairs * SOFT_FWD_FLOPS, "f32")
+    all_ms, all_by = bound(nbytes, all_pairs * SOFT_FWD_FLOPS, "f32")
     ms, old_ms = cuda_ms(new, iters), cuda_ms(sweep, iters)
     old_graph, _ = ex.graph_ms(sweep, iters)
     graph, _ = ex.graph_ms(new, iters)
@@ -876,6 +948,7 @@ def _soft_fwd_case(rz, label: str, new, sweep, plain, rows, pix,
                 candidate_pairs=cand, all_pairs=all_pairs,
                 live_per_candidate=live / max(cand, 1), bound_ms=b_ms,
                 bound_by=b_by, all_pairs_bound_ms=all_ms,
+                all_pairs_bound_by=all_by,
                 share_of_bound=b_ms / graph,
                 sweep_share_of_bound=b_ms / old_graph,
                 sweep_share_of_all_pairs_bound=all_ms / old_graph)
@@ -893,6 +966,122 @@ def _soft_fwd_case(rz, label: str, new, sweep, plain, rows, pix,
     return case
 
 
+def _soft_margin_pairs(rz, rows, ids, pix, g, prod, sigma: float) -> int:
+    """The (slot, pixel) pairs that the binned soft backward needs: the slot
+    holds a face, the pixel is live (g·prod != 0) and lies inside the
+    face's vertex box widened by the margin (`_soft_cull_boxes`, the
+    kernels' twin); beyond it every share is below |g·prod|·2e^-27.7·m/σ."""
+    import torch
+    B, nb, K = ids.shape
+    px, py = (a[None, :, None, :] for a in rz._band_pixels(pix, nb, 5.0))
+    live = ((g * prod) != 0)[:, :, None, :]                 # (B, nb, 1, 1024)
+    boxes = rz._soft_cull_boxes(rows, sigma)
+    bidx = torch.arange(B, device=rows.device)[:, None, None]
+    total = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for a in range(0, K, 64):
+        idk = ids[:, :, a:a + 64].long()
+        fb = boxes[bidx, idk][..., None, :]                 # (B, nb, k, 1, 4)
+        inside = ((px >= fb[..., 0]) & (px <= fb[..., 1])
+                  & (py >= fb[..., 2]) & (py <= fb[..., 3]))
+        real = (idk < rows.shape[1] - 1)[..., None]
+        total += (inside & live & real).sum()
+    return int(total.item())
+
+
+def soft_bwd_case(label: str, rows, ids, pix, g, prod, sigma: float,
+                  width: int, iters: int = 20, dense: bool = False):
+    """One input of kernel #10 (with its face sum): against the plain
+    version (the plain slot rows summed by `_slots_to_faces`) and the first
+    binned design to BWD_TOL of the largest gradient, with `dense` against
+    the dense kernel to 1e-4; two calls bit for bit; eager and CUDA-graph
+    times of both designs in the order new, old, old, new, the face sum
+    alone and the first design's `index_add_`; the bound of the pairs
+    within the margin (110 operations each) beside the earlier one (live
+    pairs × 80 + routed × 30), and the candidate, live and all pairs."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    B, Fr = rows.shape[:2]
+    F, P = Fr - 1, pix.shape[0]
+    new = lambda: rz.soft_grad_binned_cuda(  # noqa: E731
+        rows, ids, pix, g, prod, sigma, width)
+    old = lambda: rz.soft_grad_binned_sweep_cuda(  # noqa: E731
+        rows, ids, pix, g, prod, sigma)
+    out, again, before = new(), new(), old()
+    plain = rz._slots_to_faces(rz.soft_grad_binned_plain(
+        rows, ids, pix, g, prod, sigma), ids, F)
+    torch.cuda.synchronize()
+    err, err_old = _max_rel(out, plain), _max_rel(out, before)
+    same = torch.equal(out, again)
+    err_dense = None
+    if dense:
+        gd, pd = (a.reshape(B, -1)[:, :P].contiguous() for a in (g, prod))
+        err_dense = _max_rel(out, rz.soft_grad_dense_cuda(
+            rows[:, :F].contiguous(), pix, gd, pd, sigma))
+    is_live = g * prod != 0
+    filled = (ids < F).sum(-1)
+    live_pairs = int((filled * is_live.sum(-1)).sum().item())
+    all_pairs = int(filled.sum().item()) * 1024
+    routed = _soft_grad_pairs(rz, rows, pix, g, prod, sigma, ids)
+    margin = _soft_margin_pairs(rz, rows, ids, pix, g, prod, sigma)
+    kept = rz._soft_bwd_kept(rows, ids, pix, g, prod, sigma, width)
+    tiles = rz._soft_tile_pixels(P, width, True, pix.device)
+    gp = (g * prod).reshape(B, -1)
+    lanes = ((gp[:, tiles.clamp(min=0)] != 0) & (tiles >= 0)).sum(-1)
+    cand = int((kept.sum(-1) * lanes.reshape(kept.shape[:3])).sum().item())
+    kept_pairs = int(kept.sum().item())
+    nbytes = 4 * (rows.numel() + ids.numel() + pix.numel() + g.numel()
+                  + prod.numel() + out.numel())
+    b_ms, b_by = bound(nbytes, margin * (SOFT_FWD_FLOPS + SOFT_GRAD_FLOPS),
+                       "f32")
+    old_b_ms, old_b_by = bound(nbytes + 4 * (ids.numel() * 6 - out.numel()),
+                               live_pairs * SOFT_FWD_FLOPS
+                               + routed * SOFT_GRAD_FLOPS, "f32")
+    graph, _ = ex.graph_ms(new, iters)
+    old_graph, _ = ex.graph_ms(old, iters)
+    old_graph2, _ = ex.graph_ms(old, iters)
+    graph2, _ = ex.graph_ms(new, iters)
+    ms, old_ms = cuda_ms(new, iters), cuda_ms(old, iters)
+    parts = rz._soft_bwd_binned_rows(rows, ids, pix, g, prod, sigma, width)
+    sum_ms, _ = ex.graph_ms(lambda: rz._soft_bwd_faces(rows, ids, *parts),
+                            iters)
+    slots_old = torch.randn(tuple(ids.shape) + (6,), device=rows.device)
+    add_ms, _ = ex.graph_ms(lambda: rz._slots_to_faces(slots_old, ids, F),
+                            iters)
+    case = dict(max_rel_err=err, sweep_rel_err=err_old,
+                dense_rel_err=err_dense, bit_identical=same, ms=ms,
+                graph_ms=graph, graph_ms_again=graph2, sweep_ms=old_ms,
+                sweep_graph_ms=old_graph, sweep_graph_ms_again=old_graph2,
+                face_sum_graph_ms=sum_ms, index_add_graph_ms=add_ms,
+                live_pixels=int(is_live.sum().item()),
+                margin_pairs=margin, candidate_pairs=cand,
+                kept_tile_slot_pairs=kept_pairs,
+                live_pairs=live_pairs, routed_pairs=routed,
+                all_pairs=all_pairs, bound_ms=b_ms, bound_by=b_by,
+                old_bound_ms=old_b_ms, old_bound_by=old_b_by,
+                share_of_bound=b_ms / graph,
+                sweep_share_of_old_bound=old_b_ms / old_graph)
+    print(f"  #10 {label}: max err / max |grad| vs plain {err:.3e}, vs the "
+          f"first design {err_old:.3e} (tol {BWD_TOL:.0e}), vs dense "
+          f"{err_dense} (tol 1e-4); two calls bit-identical {same}; graph "
+          f"{graph:.4f} / {graph2:.4f} ms, eager {ms:.4f}; the first design "
+          f"graph {old_graph:.4f} / {old_graph2:.4f}, eager {old_ms:.4f}; "
+          f"face sum alone {sum_ms:.4f}, the first design's index_add_ "
+          f"{add_ms:.4f} (graph); pixels live {case['live_pixels']}; pairs "
+          f"within the margin {margin}, candidate {cand} (kept tile-slot "
+          f"pairs {kept_pairs}), live {live_pairs}, "
+          f"routed {routed}, all {all_pairs}; bound {b_ms:.5f} ms ({b_by}), "
+          f"share {b_ms / graph:.4f} (graph); the earlier bound "
+          f"{old_b_ms:.5f} ({old_b_by})")
+    if not (err <= BWD_TOL and err_old <= BWD_TOL and same
+            and (err_dense is None or err_dense <= 1e-4)
+            and torch.isfinite(out).all()):
+        fail(f"#10 {label}: the culled binned backward disagrees with its "
+             f"plain version, the first design or the dense kernel, or is "
+             f"not deterministic")
+    return case
+
+
 def check_soft_kernels(seed: int):
     """The four soft-silhouette kernels vs their plain versions on the
     projected sphere under the body and the head camera at the
@@ -902,6 +1091,7 @@ def check_soft_kernels(seed: int):
     import torch
     from tpunerf_torch.core.views import (ViewSamplerConfig, circle_poses,
                                           rand_poses)
+    from tpunerf_torch.kernels import _build
     from tpunerf_torch.kernels import rasterize as rz
     from tpunerf_torch.meshrep import render as mrender
     from tpunerf_torch.meshrep import shapes
@@ -918,8 +1108,6 @@ def check_soft_kernels(seed: int):
                "wide": mrender.CameraSpec(look_at_height=0.25)}
     sigma = 1e-4
     FWD_TOL = 5e-6    # a product of ~100s of factors in another order
-    # sums over pixels in another order; prod / (1 - p) near an edge
-    BWD_TOL = 2e-5
     rows_out = {}
 
     def project(views, spec):
@@ -1112,44 +1300,36 @@ def check_soft_kernels(seed: int):
         g = torch.randn((B, nb, 1024), generator=gen, device=dev)
         prod_k = rz.soft_prod_binned_cuda(face_rows, ids, pix, sigma, W)
         prod_p = rz.soft_prod_binned_plain(face_rows, ids, pix, sigma)
-        slot_k = rz.soft_grad_binned_cuda(face_rows, ids, pix, g, prod_k,
-                                          sigma)
-        slot_p = rz.soft_grad_binned_plain(face_rows, ids, pix, g, prod_p,
-                                           sigma)
+        grad_k = rz.soft_grad_binned_cuda(face_rows, ids, pix, g, prod_k,
+                                          sigma, W)
+        grad_p = rz._slots_to_faces(rz.soft_grad_binned_plain(
+            face_rows, ids, pix, g, prod_p, sigma), ids, F)
         dense_rows = face_rows[:, :F].contiguous()
         prod_d = rz.soft_prod_dense_cuda(dense_rows, pix, sigma, W)
         grad_d = rz.soft_grad_dense_cuda(dense_rows, pix,
                                          g.reshape(B, P).contiguous(), prod_d,
                                          sigma)
-        grad_k = rz._slots_to_faces(slot_k, ids, F)
         torch.cuda.synchronize()
         e_f = (prod_k - prod_p).abs().max().item()
-        e_b = _max_rel(slot_k, slot_p)
+        e_b = _max_rel(grad_k, grad_p)
         e_fd = (prod_k.reshape(B, P) - prod_d).abs().max().item()
         e_bd = _max_rel(grad_k, grad_d)
         filled = int((ids < F).sum().item())
         print(f"soft_fwd_binned {label} B={B} {H}x{W} K={K}: max_abs_err "
               f"{e_f:.3e} (tol {FWD_TOL:.0e}); vs the dense kernel {e_fd:.3e} "
               f"(tol 1e-5: the bins drop tails below 1e-12)")
-        print(f"soft_bwd_binned {label}: per-slot rows, kernel pair vs plain "
-              f"pair: max err / max {e_b:.3e} (tol {BWD_TOL:.0e}); summed to "
-              f"faces (index_add_, order varies) vs the dense kernel "
-              f"{e_bd:.3e} (tol 1e-4); filled slots {filled} of "
+        print(f"soft_bwd_binned {label}: face gradients, kernel pair vs plain "
+              f"pair: max err / max {e_b:.3e} (tol {BWD_TOL:.0e}); vs the "
+              f"dense kernel {e_bd:.3e} (tol 1e-4); filled slots {filled} of "
               f"{ids.numel()}")
         if not (e_f <= FWD_TOL and e_b <= BWD_TOL and e_fd <= 1e-5
-                and e_bd <= 1e-4 and torch.isfinite(slot_k).all()):
+                and e_bd <= 1e-4 and torch.isfinite(grad_k).all()):
             fail(f"binned soft-silhouette kernels disagree ({label})")
         fwd_err, bwd_err = max(fwd_err, e_f), max(bwd_err, e_b)
-        bwd_abs = max(bwd_abs, (slot_k - slot_p).abs().max().item())
+        bwd_abs = max(bwd_abs, (grad_k - grad_p).abs().max().item())
         if timed is None:
             timed = (face_rows, ids, g, prod_k, dense_rows, filled, K)
     face_rows, ids, g, prod, dense_rows, filled, K = timed
-    # each band's filled slots against its own live pixels
-    is_live = g * prod != 0
-    live = int(is_live.sum().item())
-    live_pairs = int(((ids < F).sum(-1) * is_live.sum(-1)).sum().item())
-    routed = _soft_grad_pairs(rz, face_rows, pix, g, prod, sigma, ids)
-    io = face_rows.numel() * 4 + ids.numel() * 4 + pix.numel() * 4
     # #8 (a) the eval chunk above (body camera, B = 5, 512²); (b) the mode-1
     # step's shape, one body-camera pose at 512²; #7 (c) 512² dense, the
     # fallback where a bin overflows, on the eval chunk's first view
@@ -1197,37 +1377,64 @@ def check_soft_kernels(seed: int):
         bound_ms=binned_cases["a"]["bound_ms"],
         bound_by=binned_cases["a"]["bound_by"], library_ms=None,
         inputs=binned_cases)
-    b_ms, b_by = bound(io + 2 * prod.numel() * 4 + ids.numel() * 6 * 4,
-                       live_pairs * SOFT_FWD_FLOPS
-                       + routed * SOFT_GRAD_FLOPS, "f32")
+    # #10 (a) the eval chunk above with its random g; (b) the mode-1 view;
+    # (c), the silhouette phase's own g and prod, comes from that phase
+    print("soft_bwd_binned (#10) against the first binned design (8 slots a "
+          "block, index_add_ to faces), 512²:")
+    g1 = torch.randn((1, nb, 1024), generator=gen, device=dev)
+    prod1 = rz.soft_prod_binned_cuda(rows1, ids1, pix, sigma, W)
+    bwd_cases = {
+        "a": soft_bwd_case(f"(a) eval chunk, body camera, B=5, random g, "
+                           f"K={K}", face_rows, ids, pix, g, prod, sigma, W,
+                           dense=True),
+        "b": soft_bwd_case(f"(b) mode-1 view, B=1, random g, K={K1}", rows1,
+                           ids1, pix, g1, prod1, sigma, W, dense=True)}
+    bwd_err = max(bwd_err, *(c["max_rel_err"] for c in bwd_cases.values()))
+    a = bwd_cases["a"]
     rows_out[rz.SOFT_BWD_BINNED] = dict(
         name=rz.SOFT_BWD_BINNED, route="cuda",
         source="tpunerf_torch/csrc/rasterize.cu",
         replaces="tpunerf/kernels/rasterize.py:748", max_abs_err=bwd_abs,
-        max_rel_err=bwd_err,
-        ms=cuda_ms(lambda: rz.soft_grad_binned_cuda(face_rows, ids, pix, g,
-                                                    prod, sigma), 20),
-        graph_ms=ex.graph_ms(lambda: rz.soft_grad_binned_cuda(
-            face_rows, ids, pix, g, prod, sigma), 20)[0],
-        plain_ms=cuda_ms(lambda: rz.soft_grad_binned_plain(
-            face_rows, ids, pix, g, prod, sigma), 2, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    slot = rz.soft_grad_binned_cuda(face_rows, ids, pix, g, prod, sigma)
+        max_rel_err=bwd_err, ms=a["ms"], graph_ms=a["graph_ms"],
+        plain_ms=cuda_ms(lambda: rz._slots_to_faces(rz.soft_grad_binned_plain(
+            face_rows, ids, pix, g, prod, sigma), ids, F), 2, warmup=1),
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"], library_ms=None,
+        inputs=bwd_cases)
+    rows_out[rz.SOFT_BWD_BINNED_SWEEP] = dict(
+        rows_out[rz.SOFT_BWD_BINNED], name=rz.SOFT_BWD_BINNED_SWEEP,
+        max_rel_err=a["sweep_rel_err"], ms=a["sweep_ms"],
+        graph_ms=a["sweep_graph_ms"], bound_ms=a["old_bound_ms"],
+        bound_by=a["old_bound_by"], main_path=False,
+        inputs={k: {"ms": c["sweep_ms"], "graph_ms": c["sweep_graph_ms"],
+                    "old_bound_ms": c["old_bound_ms"]}
+                for k, c in bwd_cases.items()})
+    # the all-pairs designs of the forwards, kept for timing
+    for name, new, cases in (
+            (rz.SOFT_FWD_DENSE_SWEEP, rz.SOFT_FWD_DENSE, dense_cases),
+            (rz.SOFT_FWD_BINNED_SWEEP, rz.SOFT_FWD_BINNED, binned_cases)):
+        rows_out[name] = dict(
+            rows_out[new], name=name, ms=cases["a"]["sweep_ms"],
+            graph_ms=cases["a"]["sweep_graph_ms"],
+            bound_ms=cases["a"]["all_pairs_bound_ms"],
+            bound_by=cases["a"]["all_pairs_bound_by"], main_path=False,
+            inputs={k: {"ms": c["sweep_ms"], "graph_ms": c["sweep_graph_ms"],
+                        "all_pairs_bound_ms": c["all_pairs_bound_ms"]}
+                    for k, c in cases.items()})
+    for name in (rz.SOFT_BWD_BINNED_SWEEP, rz.SOFT_FWD_DENSE_SWEEP,
+                 rz.SOFT_FWD_BINNED_SWEEP):
+        rows_out[name]["launches"] = _build.LAUNCHES.get(name, 0)
     gd = g.reshape(5, P).contiguous()
     pd = prod.reshape(5, P).contiguous()
     fv_body = project(orbit, cameras["body"])
-    sum_ms = cuda_ms(lambda: rz._slots_to_faces(slot, ids, F), 10)
     bins_ms = cuda_ms(lambda: rz._soft_bins(fv_body, H, W, sigma, K), 5)
     dense_f = cuda_ms(lambda: rz.soft_prod_dense_cuda(dense_rows, pix, sigma,
                                                       W), 3)
     dense_b = cuda_ms(lambda: rz.soft_grad_dense_cuda(dense_rows, pix, gd, pd,
                                                       sigma), 3)
-    print(f"  binned backward: {live} of {prod.numel()} pixels live; "
-          f"{routed} of {live_pairs} live (slot, pixel) pairs reach the "
-          f"routed gradient; max abs err {bwd_abs:.3e}; "
-          f"slots -> faces (index_add_) {sum_ms:.4f} ms; soft bins (ranges, "
-          f"mask, rank, scatter) {bins_ms:.4f} ms; dense kernels on the same "
-          f"5 views: fwd {dense_f:.4f} ms, bwd {dense_b:.4f} ms")
+    print(f"  max abs err of #10 at the three cameras {bwd_abs:.3e}; soft "
+          f"bins (ranges, mask, rank, scatter) {bins_ms:.4f} ms; dense "
+          f"kernels on the same 5 views: fwd {dense_f:.4f} ms, bwd "
+          f"{dense_b:.4f} ms")
     for r in rows_out.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms eager, "
               f"{r.get('graph_ms', float('nan')):.4f} graph, plain "
@@ -1532,12 +1739,22 @@ CAPTURE_STEP = 10   # a steady latent-NeRF step: past step 1, no refresh
 @contextlib.contextmanager
 def capture_hash_inputs(step: int):
     """While open, copies what reaches kernels #1 and #2 on training step
-    `step` (the step-th table gradient): {"x", "table", "g"}. It wraps the
-    module functions `HashEncode` calls and calls through to them, so every
-    launch still counts; the package is not changed."""
+    `step` (the step-th table gradient): {"x", "table", "g"}, and what
+    reaches #3 on that step (its step-th lookup, one a step): "occ". It
+    wraps the module functions `HashEncode` and `occupied` call and calls
+    through to them, so every launch still counts; the package is not
+    changed."""
     from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import occgrid as og
     fwd, bwd = hg.hash_encode_fwd, hg.hash_encode_bwd
-    last, captured, seen = {}, {}, [0]
+    lookup = og.occupancy_lookup
+    last, captured, seen = {}, {}, [0, 0]
+
+    def lookup_spy(x, packed, grid_res, bnd):
+        seen[1] += 1
+        if seen[1] == step:
+            captured["occ"] = (x.clone(), packed.clone(), grid_res, bnd)
+        return lookup(x, packed, grid_res, bnd)
 
     def fwd_spy(x, table, cfg):
         last.update(x=x, table=table)   # references only, no copy
@@ -1552,19 +1769,27 @@ def capture_hash_inputs(step: int):
         return bwd(x, g, cfg)
 
     hg.hash_encode_fwd, hg.hash_encode_bwd = fwd_spy, bwd_spy
+    og.occupancy_lookup = lookup_spy
     try:
         yield captured
     finally:
         hg.hash_encode_fwd, hg.hash_encode_bwd = fwd, bwd
+        og.occupancy_lookup = lookup
 
 
 def check_hash_step_inputs(captured, rows) -> None:
     """(c) Kernels #1 and #2 on the x, table and g of one steady
     full-width latent-NeRF step (ray-ordered: 64 compacted samples a ray),
-    beside the level-per-block designs; the times go into the rows as `step_inputs`."""
+    beside the level-per-block designs; (b) kernel #3 on that step's
+    samples beside its first design; the times go into the rows as
+    `step_inputs`."""
     from tpunerf_torch.kernels import hashgrid as hg
-    if not captured:
-        fail(f"no table gradient reached kernel #2 on step {CAPTURE_STEP}")
+    from tpunerf_torch.kernels import occgrid as og
+    if "g" not in captured or "occ" not in captured:
+        fail(f"no table gradient or no lookup reached kernels #2, #3 on "
+             f"step {CAPTURE_STEP}")
+    rows[og.LOOKUP]["step_inputs"] = occgrid_case(
+        *captured["occ"], f"(b) latent-NeRF step {CAPTURE_STEP}'s samples")
     fwd, bwd = hash_grid_rows(captured["x"], captured["table"],
                               captured["g"], captured["cfg"],
                               f"latent-NeRF step {CAPTURE_STEP}'s inputs")
@@ -1852,7 +2077,10 @@ def silhouette_phase(app, trainer, guidance):
     `render_train(...)["soft_mask"]` at 64² (dense, #9) and through
     `render_test(...)["mask"]` at 512² with autograd on (binned, #10), at
     the orbit's radius, where the body camera sees the sphere's rim.
-    Returns the launch counts."""
+    Returns the launch counts and a copy of what reached #10 (rows, ids,
+    pix, g, prod, sigma, width) in the call with the most live pixels
+    (g·prod != 0): the phase's own cotangent (the other camera's render is
+    not in the mask, and its g is 0)."""
     import torch
     from tpunerf_torch.core.views import circle_poses
     from tpunerf_torch.kernels import _build
@@ -1861,8 +2089,18 @@ def silhouette_phase(app, trainer, guidance):
     scene = app.scene
     size = trainer.cfg.render.eval_grid_size
     views = circle_poses(5, trainer.view_cfg, trainer.device)
+    grad_binned, captured = rz.soft_grad_binned, []
+
+    def spy(*args):
+        live = int((args[3] * args[4] != 0).sum().item())
+        if not captured or live > captured[0]:
+            captured[:] = [live] + [a.clone() if torch.is_tensor(a) else a
+                                    for a in args]
+        return grad_binned(*args)
+
     _build.reset_launches()
     out = {}
+    rz.soft_grad_binned = spy
     for label, render in (
             (f"render_train soft_mask {scene.render_grid_size}²",
              lambda: scene.render_train(views[:1])["soft_mask"]),
@@ -1885,12 +2123,14 @@ def silhouette_phase(app, trainer, guidance):
             fail(f"{label}: no finite non-zero gradient reached the "
                  f"displacement")
         out[label] = grad.abs().max().item()
+    rz.soft_grad_binned = grad_binned
     scene.zero_grad()
     launches = dict(_build.LAUNCHES)
     print("silhouette phase launches: " + json.dumps(launches))
-    if launches.get(rz.SOFT_BWD_DENSE, 0) <= 0:
-        fail("the silhouette phase never launched the dense backward")
-    return launches
+    if launches.get(rz.SOFT_BWD_DENSE, 0) <= 0 or not captured:
+        fail("the silhouette phase never launched the dense or the binned "
+             "backward")
+    return launches, captured[1:]
 
 
 def mesh_breakdown(app, trainer, mode1) -> None:
@@ -2113,9 +2353,14 @@ def main() -> int:
     print(f"nvcc build of {len(logs)} sources: "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{name}] {line.strip()}")
+            # '_ZN..._<src>_cu_<8 hex><length><name>...'
+            entry = re.search(r"entry function .*?_cu_[0-9a-f]{8}(\d+)", line)
+            if entry:
+                kernel = line[entry.end():entry.end() + int(entry.group(1))]
+            elif "registers" in line or "spill" in line:
+                print(f"  [{name}] {kernel}: {line.strip()}")
 
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
@@ -2125,7 +2370,8 @@ def main() -> int:
     guidance = build_guidance(args.seed)
     launches, app, trainer, captured = train_full_width(STEPS, args.seed,
                                                         guidance)
-    missing = [n for n in rows if launches.get(n, 0) <= 0]
+    missing = [n for n, r in rows.items()
+               if r.get("main_path") is not False and launches.get(n, 0) <= 0]
     if missing:
         fail(f"latent-NeRF path never launched {missing}")
     check_hash_step_inputs(captured, rows)
@@ -2139,7 +2385,17 @@ def main() -> int:
     del papp, ptrainer
     mesh_launches, mapp, mtrainer, mode1 = train_mesh_full_width(
         STEPS, args.seed, guidance)
-    sil_launches = silhouette_phase(mapp, mtrainer, guidance)
+    sil_launches, sil_inputs = silhouette_phase(mapp, mtrainer, guidance)
+    # #10 (c) on the silhouette phase's own g and prod, beside the first
+    # binned design
+    from tpunerf_torch.kernels import rasterize as rz
+    case_c = soft_bwd_case("(c) the silhouette phase's g = 2·mask and prod",
+                           *sil_inputs)
+    soft_rows[rz.SOFT_BWD_BINNED]["inputs"]["c"] = case_c
+    soft_rows[rz.SOFT_BWD_BINNED_SWEEP]["inputs"]["c"] = {
+        "ms": case_c["sweep_ms"], "graph_ms": case_c["sweep_graph_ms"],
+        "old_bound_ms": case_c["old_bound_ms"]}
+    del sil_inputs
     mesh_breakdown(mapp, mtrainer, mode1)
     profile_steps(mtrainer, "latent-paint-mesh mode 0")
     if mode1 is not None:
@@ -2153,20 +2409,21 @@ def main() -> int:
     # eval chunk or, where those bins overflow, from mode 1's 512² steps),
     # the silhouette phase for the soft backwards, the experiment's run for
     # the cost-split variants
-    from tpunerf_torch.kernels import rasterize as rz
-    kernels = [dict(row, launches=launches.get(name, 0))
-               for name, row in rows.items()]
-    kernels += [row if row.get("main_path") is False
-                else dict(row, launches=paint_launches.get(name, 0))
-                for name, row in paint_rows.items()]
+
+    def counted(rows_, counts):
+        # the kept first designs, on no path, carry their checks' launches
+        return [row if row.get("main_path") is False
+                else dict(row, launches=counts.get(name, 0))
+                for name, row in rows_.items()]
+
     soft_counts = {
         rz.SOFT_FWD_DENSE: mesh_launches.get(rz.SOFT_FWD_DENSE, 0),
         rz.SOFT_FWD_BINNED: mesh_launches.get(rz.SOFT_FWD_BINNED, 0)
         or (mode1[2].get(rz.SOFT_FWD_BINNED, 0) if mode1 else 0),
         rz.SOFT_BWD_DENSE: sil_launches.get(rz.SOFT_BWD_DENSE, 0),
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
-    kernels += [dict(row, launches=soft_counts[name])
-                for name, row in soft_rows.items()]
+    kernels = (counted(rows, launches) + counted(paint_rows, paint_launches)
+               + counted(soft_rows, soft_counts))
     kernels.append(exp_row)   # launches from the experiment's own run
     if any(k["launches"] <= 0 for k in kernels):
         fail("a kernel of the main paths was never launched")

@@ -78,11 +78,20 @@ def test_kernels_are_cuda_sources_of_the_package():
                    "soft_bwd_binned", "expf(", "__fmul_rn", "__fadd_rn",
                    "soft_fwd_dense_sweep", "soft_fwd_binned_sweep",
                    "soft_fwd_dense_tile_kernel", "select_faces_dense_sweep",
-                   "select_faces_binned_sweep", "face_out"):
+                   "select_faces_binned_sweep", "face_out",
+                   "soft_bwd_binned_sweep", "soft_bwd_faces", "warp_sum8"):
         assert symbol in raster, symbol
     # 3 culled selection, 2 all-pairs selection (timed only), 3 culled soft
-    # forward, 2 all-pairs soft forward (timed only), 2 soft backward
-    assert raster.count("__global__") == 12 and "__expf" not in raster
+    # forward, 2 all-pairs soft forward (timed only), the dense soft
+    # backward, the culled binned one and its face sum, the first binned
+    # one (timed only)
+    assert raster.count("__global__") == 14 and "__expf" not in raster
+    occ = (PKG / "csrc" / "occgrid.cu").read_text()
+    for symbol in ("occgrid_lookup", "occgrid_lookup_scalar", "float4",
+                   "__fmul_rn", "__fdiv_rn", "kPow2"):
+        assert symbol in occ, symbol
+    # the 4-wide lookup (one template), the first design (timed only)
+    assert occ.count("__global__") == 2
     assert "use_fast_math" not in " ".join(
         __import__("tpunerf_torch.kernels._build",
                    fromlist=["NVCC_FLAGS"]).NVCC_FLAGS)

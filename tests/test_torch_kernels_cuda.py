@@ -243,19 +243,68 @@ def test_hash_encode_autograd_runs_the_kernels():
     assert table.grad is not None and torch.isfinite(table.grad).all()
 
 
-def test_occupancy_lookup_matches_plain_exactly():
-    dev = _card()
+def _occ_inputs(dev, n, bound, seed):
+    """Packed words of a random 128³ grid and n samples over [−1.2, 1.2]·bound,
+    every 32nd on cell walls, where rounding decides the cell."""
     G = 128
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     grid = torch.rand((G ** 3,), generator=gen, device=dev) * 0.02
     packed = og.pack_bits(grid > 0.01)
-    x = torch.rand((1, 4096, 128, 3), generator=gen, device=dev) * 2 - 1
-    x[0, :, 0] = (torch.randint(0, G + 1, (4096, 3), generator=gen,
-                                device=dev).float() * (2.0 / G) - 1.0)
+    x = (torch.rand((n, 3), generator=gen, device=dev) * 2.4 - 1.2) * bound
+    walls = (torch.randint(0, G + 1, (n, 3), generator=gen, device=dev)
+             .float() * (2.0 / G) - 1.0) * bound
+    x[::32] = walls[::32]
+    return G, packed, x
+
+
+def test_occupancy_lookup_matches_plain_exactly():
+    dev = _card()
+    G, packed, x = _occ_inputs(dev, 4096 * 128, 1.0, 1)
+    x = x.reshape(1, 4096, 128, 3)
     out = _launched(og.LOOKUP,
                     lambda: og.occupancy_lookup_cuda(x, packed, G, 1.0))
     assert out.shape == x.shape[:-1] and out.dtype == torch.bool
     assert torch.equal(out, og.occupancy_lookup_plain(x, packed, G, 1.0))
+    assert torch.equal(out, og.occupancy_lookup_scalar_cuda(x, packed, G,
+                                                            1.0))
+
+
+@pytest.mark.parametrize("case", ["ragged", "offset view", "bound 0.7",
+                                  "bound 2.0", "tiny"])
+def test_occupancy_lookup_paths_match_plain_exactly(case):
+    """The 4-wide path with a ragged tail, the one-sample path of a view
+    that does not start on 16 bytes, the quotients of a bound that is no
+    power of two, the products of one that is, a launch of 3 samples."""
+    dev = _card()
+    bound = float(case.split()[1]) if case.startswith("bound") else 1.0
+    n = {"ragged": 4096 * 128 + 3, "tiny": 3}.get(case, 100003)
+    G, packed, x = _occ_inputs(dev, n + 1, bound, 2)
+    x = x[1:] if case == "offset view" else x[:n]
+    assert (x.data_ptr() % 16 == 0) == (case != "offset view")
+    out = _launched(og.LOOKUP,
+                    lambda: og.occupancy_lookup_cuda(x, packed, G, bound))
+    ref = og.occupancy_lookup_plain(x, packed, G, bound)
+    assert torch.equal(out, ref)
+    assert case == "tiny" or (ref.any() and not ref.all())
+    assert torch.equal(out, og.occupancy_lookup_scalar_cuda(x, packed, G,
+                                                            bound))
+
+
+def test_occupancy_lookup_graph_replay_equals_eager():
+    dev = _card()
+    G, packed, x = _occ_inputs(dev, 4096 * 128, 1.0, 3)
+    eager = og.occupancy_lookup_cuda(x, packed, G, 1.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        og.occupancy_lookup_cuda(x, packed, G, 1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = og.occupancy_lookup_cuda(x, packed, G, 1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -619,20 +668,137 @@ def test_binned_soft_kernels_match_plain_and_dense():
     ref = rz.soft_prod_binned_plain(rows, ids, pix, 1e-4)
     assert (prod - ref).abs().max().item() <= 5e-6
     g = torch.randn(prod.shape, generator=gen, device=dev)
-    slots = _launched(rz.SOFT_BWD_BINNED, lambda: rz.soft_grad_binned(
+    grad = _launched(rz.SOFT_BWD_BINNED, lambda: rz.soft_grad_binned(
         rows, ids, pix, g, prod, 1e-4))
-    _close_to_max(slots,
-                  rz.soft_grad_binned_plain(rows, ids, pix, g, ref, 1e-4),
-                  2e-5, "binned soft backward rows")
-    # against the dense kernels: the bins drop tails below 1e-12; the sum
-    # back to faces (index_add_) runs in an order that varies
+    plain = rz._slots_to_faces(
+        rz.soft_grad_binned_plain(rows, ids, pix, g, ref, 1e-4), ids, F)
+    _close_to_max(grad, plain, 2e-5, "binned soft backward")
+    # against the dense kernels: the bins drop tails below 1e-12
     dense_rows = rows[:, :F].contiguous()
     dense = rz.soft_prod_dense(dense_rows, pix, 1e-4)
     assert (prod.reshape(B, -1) - dense).abs().max().item() <= 1e-5
-    _close_to_max(rz._slots_to_faces(slots, ids, F),
+    _close_to_max(grad,
                   rz.soft_grad_dense(dense_rows, pix,
                                      g.reshape(B, -1).contiguous(), dense,
                                      1e-4), 1e-4, "binned vs dense backward")
+
+
+def _binned_bwd_inputs(dev, n_views, seed, cotangent="random"):
+    """512² bins of the projected sphere (widened where K overflows), rows
+    with the filler, the kernel's prod and a cotangent: N(0, 1), or the
+    silhouette loss's 2·mask, which with prod leaves only the rim live."""
+    H = W = 512
+    fv_img, _, pix, gen = _soft_inputs(dev, H, n_views, seed)
+    K = rz._SOFT_BIN_K
+    ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    if int(maxc) > K:
+        K = -(-int(maxc) // 128) * 128
+        ids, maxc = rz._soft_bins(fv_img, H, W, 1e-4, K)
+    rows = rz._with_filler(rz._soft_rows(fv_img)).contiguous()
+    prod = rz.soft_prod_binned_cuda(rows, ids, pix, 1e-4, W)
+    if cotangent == "random":
+        g = torch.randn(prod.shape, generator=gen, device=dev)
+    else:
+        g = 2.0 * (1.0 - prod)
+    return rows, ids, pix, g, prod
+
+
+@pytest.mark.parametrize("case", ["512 random", "0 random",
+                                  "512 silhouette"])
+def test_culled_binned_soft_backward_matches_plain_and_the_sweep(case):
+    dev = _card()
+    width, cotangent = int(case.split()[0]), case.split()[1]
+    rows, ids, pix, g, prod = _binned_bwd_inputs(dev, 2, 12, cotangent)
+    B, F = rows.shape[0], rows.shape[1] - 1
+    grad = _launched(rz.SOFT_BWD_BINNED, lambda: rz.soft_grad_binned(
+        rows, ids, pix, g, prod, 1e-4, width))
+    assert grad.shape == (B, F, 6) and torch.isfinite(grad).all()
+    plain = rz._slots_to_faces(
+        rz.soft_grad_binned_plain(rows, ids, pix, g, prod, 1e-4), ids, F)
+    assert plain.abs().max() > 0
+    _close_to_max(grad, plain, 2e-5, "culled binned backward vs plain")
+    sweep = _launched(rz.SOFT_BWD_BINNED_SWEEP,
+                      lambda: rz.soft_grad_binned_sweep_cuda(
+                          rows, ids, pix, g, prod, 1e-4))
+    _close_to_max(grad, sweep, 2e-5, "culled vs the first binned design")
+    dense_rows = rows[:, :F].contiguous()
+    gd, pd = (a.reshape(B, -1).contiguous() for a in (g, prod))
+    _close_to_max(grad, rz.soft_grad_dense(dense_rows, pix, gd, pd, 1e-4),
+                  1e-4, "culled binned vs dense backward")
+    # fixed orders: two calls give the same bits
+    assert torch.equal(grad, rz.soft_grad_binned(rows, ids, pix, g, prod,
+                                                 1e-4, width))
+
+
+def test_binned_soft_face_sum_equals_its_twin():
+    """The face sum against `_slots_to_faces_ordered` on the kernel's own
+    slot rows (those of bands with no live pixel are never written: zero
+    there), bit for bit; filler slots take no part."""
+    dev = _card()
+    rows, ids, pix, g, prod = _binned_bwd_inputs(dev, 2, 13, "silhouette")
+    F = rows.shape[1] - 1
+    slot_rows, slot_of, span, live = rz._soft_bwd_binned_rows(
+        rows, ids, pix, g, prod, 1e-4, 512)
+    faces = rz._soft_bwd_faces(rows, ids, slot_rows, slot_of, span, live)
+    # each band's row: its live halves' rows, half 0 + half 1
+    halves = [torch.where(((live[:, :, h, None] != 0) & (ids < F))[..., None],
+                          slot_rows[:, :, h], 0.0) for h in (0, 1)]
+    assert torch.equal(faces, rz._slots_to_faces_ordered(
+        halves[0] + halves[1], ids, F))
+    assert (live == 0).any() and (live != 0).any()
+    # the span is each face's first and last band
+    held = torch.zeros(ids.shape[:2] + (F + 1,), dtype=torch.bool,
+                       device=dev).scatter_(2, ids.long(), True)[..., :F]
+    band = torch.arange(ids.shape[1], device=dev)[None, :, None]
+    big = torch.full_like(band, 1 << 30)
+    first = torch.where(held, band, big).amin(1)
+    last = torch.where(held, band, -1).amax(1)
+    assert torch.equal(span[1].long(), last)
+    assert torch.equal(span[0].long()[last >= 0], first[last >= 0])
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_culled_binned_soft_backward_gives_nan_where_plain_does(k):
+    """A face with a NaN or an infinite vertex: plain gives its gradient NaN
+    wherever a band holds it, and finite gradients to the other faces where
+    prod is finite; the kernel the same, within 2e-5 elsewhere."""
+    dev = _card()
+    rows, pix = _non_finite_rows(dev, k, 14)
+    B, F = rows.shape[:2]
+    nb = 4
+    ids = torch.cat([torch.arange(F, dtype=torch.int32, device=dev),
+                     torch.full((16,), F, dtype=torch.int32, device=dev)]
+                    ).expand(B, nb, -1).contiguous()
+    clean = torch.cat([rows[:, :200], rows[:, 201:]], dim=1).contiguous()
+    prod = rz._band_maps(rz.soft_prod_dense_plain(clean, pix, 1e-4), nb)
+    g = torch.randn(prod.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(k))
+    g[:, 2] = 0.0                                # a band with no live pixel
+    rows_f = rz._with_filler(rows).contiguous()
+    grad = rz.soft_grad_binned(rows_f, ids, pix, g, prod, 1e-4, 64)
+    plain = rz._slots_to_faces(
+        rz.soft_grad_binned_plain(rows_f, ids, pix, g, prod, 1e-4), ids, F)
+    assert torch.equal(torch.isnan(grad), torch.isnan(plain))
+    assert torch.isnan(plain[0, 200]).all() and not torch.isnan(plain[1]).any()
+    fin = torch.isfinite(plain)
+    _close_to_max(grad[fin], plain[fin], 2e-5, "finite faces beside a NaN one")
+
+
+def test_culled_binned_soft_backward_graph_replay_equals_eager():
+    dev = _card()
+    rows, ids, pix, g, prod = _binned_bwd_inputs(dev, 1, 15)
+    eager = rz.soft_grad_binned(rows, ids, pix, g, prod, 1e-4, 512)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rz.soft_grad_binned(rows, ids, pix, g, prod, 1e-4, 512)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rz.soft_grad_binned(rows, ids, pix, g, prod, 1e-4, 512)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 def _head_camera_rows(dev, size, seed):

@@ -693,6 +693,7 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 //   soft_bwd_dense   <- _soft_bwd_dense_batched  (_soft_bwd_kernel,
 //                                                  _soft_grad_rows)
 //   soft_bwd_binned  <- _soft_bwd_binned          (_soft_bwd_binned_kernel)
+//   + soft_bwd_faces    and the segment_sum to faces in _soft_batched_vjp_bwd
 //
 // What they compute: forward, per pixel, prod = PROD_f (1 - p_f) with p_f = 1
 // where the face's three sign-normalised edge forms are >= 0 and
@@ -768,13 +769,35 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 //   slices, every pair evaluated, rows staged synchronously) and
 //   `soft_fwd_binned_sweep` (1024 threads sweep every filled slot), are kept
 //   only to be timed beside the new kernels; no path calls them.
-// * Backward: a block owns 8 faces (dense) or 8 slots of one band (binned);
-//   its 256 threads stride the pixels with 48 sums in registers, then reduce
-//   by warp shuffles and through shared memory in a fixed order. No atomics:
+// * Backward, dense (`soft_bwd_dense`): a block owns 8 faces; its 256
+//   threads stride the pixels with 48 sums in registers, then reduce by
+//   warp shuffles and through shared memory in a fixed order. No atomics:
 //   the result is deterministic. Pixels with g*prod == 0 (all of the
 //   silhouette's interior, where prod is exactly 0) are skipped, which also
-//   keeps 0/0 out. The binned kernel writes one row per (band, slot); the
-//   caller sums them to faces by id.
+//   keeps 0/0 out. The first binned design (`soft_bwd_binned_sweep`, kept
+//   only to be timed) is the same over 8 slots of one band, one row per
+//   (band, slot), and its caller sums the rows to faces by index_add_.
+// * Backward, binned (`soft_bwd_binned`, then `soft_bwd_faces`). A pixel is
+//   live where g*prod != 0; the cotangent of a silhouette loss is non-zero
+//   only near the rim, and prod is exactly 0 inside it. Two blocks of 16
+//   warps own one (view, band), each half its tiles of 32 pixels (as in
+//   soft_fwd_binned), two blocks an SM; a tile with no live pixel skips
+//   every slot, a half with none its rows. The cull is the forward's with
+//   the box of the tile's live
+//   pixels: a skipped pair's pixels are all farther than m from the face,
+//   where p < e^-27.7 and each share is at most
+//   |g*prod| * 2 e^-27.7 m / sigma (about 1e-9 |g*prod| at sigma = 1e-4):
+//   the tail the bins already drop between bands. A face with a non-finite
+//   vertex gets the whole plane as its box, and its sum is NaN, as in the
+//   plain version. A rim tile keeps tens of faces and a far one none, so
+//   the kept (tile, slot) pairs of a round are listed and shared out over
+//   the block's warps. A pair's lane shares are summed over the warp, the
+//   tiles' sums over each slot's tiles in tile order, the halves' rows of a
+//   slot half 0 + half 1, the slots' rows over each face's bands in band
+//   order by `soft_bwd_faces` (a warp a face, a lane a
+//   band, from each face's slot in each band and its span of bands, which
+//   the first kernel records). Every order is fixed, so two calls give the
+//   same bits; the bins' filler slots take no part in any sum.
 // * Backward divides forward's prod by 1 - p, so both must get the same bits
 //   for p: the arithmetic up to expf is spelled with round-to-nearest
 //   intrinsics in one device function, which leaves the compiler no choice of
@@ -1218,6 +1241,30 @@ constexpr size_t kBRaw = (size_t)kBTile * kSRow * sizeof(float);
 constexpr size_t kBinnedSmem =
     2 * kBRaw + (size_t)(kBand / 32) * 32 * kSQuads * sizeof(float4);
 
+// Round r of a band's bin into buffer r & 1 of `raw` (two rounds of kBTile
+// raw rows), thread t of the first kBTile * 4 copying quarter t % 4 of slot
+// t / 4 by 16-byte cp.async; returns the round's real slots (faces, not
+// fillers: the last of the Fr rows). Its barrier also orders round r - 2's
+// reads of that buffer before the copy.
+__device__ __forceinline__ int gather_round(const int* __restrict__ band_ids,
+                                            const float* __restrict__ src,
+                                            float* raw, int r, int K,
+                                            int Fr) {
+  const int tid = threadIdx.x;
+  const int k = r * kBTile + (tid >> 2);
+  int id = -1;
+  if (tid < kBTile * 4 && k < K) id = band_ids[k];
+  const bool real = id >= 0 && id < Fr - 1;
+  const int n = __syncthreads_count(real && (tid & 3) == 0);
+  if (real) {
+    tpn::cp_async16(tpn::smem_addr(raw + ((r & 1) * kBTile + (tid >> 2)) *
+                                             kSRow + (tid & 3) * 4),
+                    src + (size_t)id * kSRow + (tid & 3) * 4);
+  }
+  tpn::cp_async_commit();
+  return n;
+}
+
 // Binned forward. Dynamic shared memory: two rounds of kBTile raw rows, a
 // 32-row hit list a warp.
 __global__ void __launch_bounds__(kBand, 1)
@@ -1244,23 +1291,8 @@ soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
   const float py = live ? pix[2 * p + 1] : 5.0f;
   const Box tb = tile_box(px, py, live);
 
-  // Round r's slots into buffer r & 1, thread t copying quarter t % 4 of
-  // slot t / 4; returns the round's real slots (faces, not fillers). Its
-  // barrier also waits for every warp to finish round r - 2 in that buffer.
   auto gather = [&](int r) {
-    const int k = r * kBTile + (tid >> 2);
-    int id = -1;
-    if (tid < kBTile * 4 && k < K) id = band_ids[k];
-    const bool real = id >= 0 && id < Fr - 1;  // the last row is the filler
-    const int n = __syncthreads_count(real && (tid & 3) == 0);
-    if (real) {
-      tpn::cp_async16(
-          tpn::smem_addr(raw + ((r & 1) * kBTile + (tid >> 2)) * kSRow +
-                         (tid & 3) * 4),
-          src + (size_t)id * kSRow + (tid & 3) * 4);
-    }
-    tpn::cp_async_commit();
-    return n;
+    return gather_round(band_ids, src, raw, r, K, Fr);
   };
 
   float prod = 1.0f;
@@ -1283,24 +1315,25 @@ soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
   out[((size_t)b * nb + band) * kBand + local] = prod;
 }
 
-// Add one pixel's share of one staged face's vertex gradient to acc[6].
-// gp = g * prod at the pixel, not 0.
-__device__ __forceinline__ void grad_face(const float4* __restrict__ r,
+// Add one pixel's share of one staged face's vertex gradient to acc[6];
+// false where the share is all zero and nothing was added. gp = g * prod at
+// the pixel, not 0.
+__device__ __forceinline__ bool grad_face(const float4* __restrict__ r,
                                           float px, float py, float sigma,
                                           float gp, float* acc) {
   bool inside;
   float d;
   Seg seg[3];
   const float p = face_prob(r, px, py, sigma, inside, d, seg);
-  if (inside) return;
+  if (inside) return false;
   const float dLdp = __fdiv_rn(gp, fmaxf(__fsub_rn(1.0f, p), 1e-12f));
   const float dLdd =
       __fmul_rn(__fmul_rn(dLdp, __fdiv_rn(-p, sigma)), r[3].w);
-  if (dLdd == 0.0f) return;  // every share would be a zero
+  if (dLdd == 0.0f) return false;  // every share would be a zero
   // the whole gradient goes to the first minimal edge k: vertices k, k+1
   const int k = seg[0].d == d ? 0 : (seg[1].d == d ? 1 : (seg[2].d == d ? 2
                                                                        : -1));
-  if (k < 0) return;  // a NaN distance equals nothing
+  if (k < 0) return false;  // a NaN distance equals nothing
   const Seg m = k == 0 ? seg[0] : (k == 1 ? seg[1] : seg[2]);
   const float ca = __fmul_rn(-2.0f, __fsub_rn(1.0f, m.s));
   const float cb = __fmul_rn(-2.0f, m.s);
@@ -1316,6 +1349,7 @@ __device__ __forceinline__ void grad_face(const float4* __restrict__ r,
   } else {
     acc[4] += ax; acc[5] += ay; acc[0] += bx; acc[1] += by;
   }
+  return true;
 }
 
 // Sum acc[kGFaces][6] over the block's threads in a fixed order; threads
@@ -1386,7 +1420,7 @@ soft_bwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
 }
 
 __global__ void __launch_bounds__(kGThreads)
-soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
+soft_bwd_binned_sweep_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
                        const int* __restrict__ ids,     // (B, nb, K)
                        const float* __restrict__ pix,   // (P, 2)
                        const float* __restrict__ g,     // (B, nb, 1024)
@@ -1440,6 +1474,279 @@ soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
   }
   const float sum = block_sum_rows(acc, nf);
   if (tid < nf * 6) dst[tid] = sum;
+}
+
+// ---- the binned backward, culled (soft_bwd_binned, soft_bwd_faces) -------
+
+constexpr int kRHalves = 2;            // binned backward: blocks a band
+constexpr int kRWarps = kBand / 32 / kRHalves;  // ... tiles (warps) a block
+constexpr int kRQuads = kSQuads + 1;   // ... a staged row and its cull box
+constexpr int kRGroups = kBTile / 32;  // ... ballots of 32 slots a round
+constexpr int kRPairs = kRWarps * kBTile;  // ... (tile, slot) pairs a round
+constexpr int kSumWarps = 8;           // face sum: faces (warps) a block
+constexpr size_t kBwdSmem =
+    2 * kBRaw                                        // raw rows, 2 rounds
+    + (size_t)kBTile * kRQuads * sizeof(float4)      // staged rows, boxes
+    + (size_t)kRPairs * 6 * sizeof(float)            // the pairs' sums
+    + (size_t)kRWarps * 32 * sizeof(float4)          // the tiles' pixels
+    + (size_t)kRPairs * sizeof(unsigned short)       // the kept pairs
+    + (size_t)kRPairs / 32 * sizeof(unsigned)        // their ballots
+    + (size_t)kBTile * sizeof(unsigned)              // each slot's tiles
+    + 4 * sizeof(int);                               // the ballots' counts
+
+// Sum v[0..7] over the warp in a fixed butterfly that halves the values a
+// lane keeps at each of the first three steps (9 shuffles where a plain
+// tree over 6 values takes 30): lane 4q ends with component q in v[0].
+__device__ __forceinline__ void warp_sum8(float (&v)[8], int lane) {
+#pragma unroll
+  for (int half = 4, off = 16; half >= 1; half >>= 1, off >>= 1) {
+    const bool hi = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = hi ? v[i] : v[i + half];
+      const float keep = hi ? v[i + half] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, off));
+    }
+  }
+  v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], 2));
+  v[0] = __fadd_rn(v[0], __shfl_xor_sync(0xffffffffu, v[0], 1));
+}
+
+// Binned backward: two blocks a (view, band), each of 16 warps owning half
+// the band's 32 tiles of 32 pixels (band_tile_pixel, as soft_fwd_binned),
+// so that two blocks share an SM and one's gather, barriers and sums hide
+// behind the other's work. A pixel is live where g*prod != 0. First every
+// slot that holds a face puts the band into its face's span (first, last:
+// integer min and max, the same in any order) and its slot into
+// slot_of[face][band] (the two halves split the slots); a half with no
+// live pixel stops there. Rows are gathered through the id list in rounds of kBTile slots by
+// 16-byte cp.async into a double buffer, staged once a round with their
+// cull boxes, and the sweep stops at the first filler. A round:
+// * warp t tests the round's slots, 32 a ballot, against the box of tile
+//   t's live pixels (the forward's rule); a tile with no live pixel keeps
+//   none;
+// * the kept (tile, slot) pairs are listed, tile-major, and shared out over
+//   all 16 warps (pair i to warp i mod 16): a rim tile keeps tens of faces,
+//   a far one none, so one warp a tile would leave most of the SM waiting;
+// * a warp forms the 32 lanes' shares of a pair from the tile's pixels in
+//   shared memory and sums them over the warp (warp_sum8); a pair whose
+//   shares are all zero is left out, the others mark their tile in the
+//   slot's mask;
+// * each filled slot's six sums over its marked tiles, in tile order, go
+//   to the half's row in `slot_rows`.
+// Dynamic shared memory: kBwdSmem.
+__global__ void __launch_bounds__(kRWarps * 32, 2)
+soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
+                       const int* __restrict__ ids,     // (B, nb, K)
+                       const float* __restrict__ pix,   // (P, 2)
+                       const float* __restrict__ g,     // (B, nb, 1024)
+                       const float* __restrict__ prod,  // (B, nb, 1024)
+                       float* __restrict__ slot_rows,   // (B, nb, 2, K, 6)
+                       int* __restrict__ slot_of,       // (B, F, nb)
+                       int* __restrict__ first,         // (B, F)
+                       int* __restrict__ last,          // (B, F)
+                       int* __restrict__ band_live,     // (B, nb, 2)
+                       int Fr, int nb, int K, int P, int width, float sigma,
+                       float m) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* raw = reinterpret_cast<float*>(smem);
+  float4* conv = reinterpret_cast<float4*>(smem + 2 * kBRaw);
+  float* part = reinterpret_cast<float*>(conv + kBTile * kRQuads);
+  float4* tpix = reinterpret_cast<float4*>(part + kRPairs * 6);
+  unsigned short* list =
+      reinterpret_cast<unsigned short*>(tpix + kRWarps * 32);
+  unsigned* kept = reinterpret_cast<unsigned*>(list + kRPairs);
+  unsigned* tiles_of = kept + kRPairs / 32;
+  int* counts = reinterpret_cast<int*>(tiles_of + kBTile);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int band = blockIdx.x / kRHalves, half = blockIdx.x % kRHalves;
+  const int b = blockIdx.y, F = Fr - 1;
+  const size_t bin = (size_t)b * nb + band;
+  const int* band_ids = ids + bin * K;
+  const float* src = rows + (size_t)b * Fr * kSRow;
+
+  const int local = band_tile_pixel(half * kRWarps + warp, lane, width);
+  const int p = band * kBand + local;
+  const bool in = p < P;
+  const float gp =
+      in ? __fmul_rn(g[bin * kBand + local], prod[bin * kBand + local])
+         : 0.0f;
+  const bool live = gp != 0.0f;  // a NaN is live
+  const float px = in ? pix[2 * p + 0] : 5.0f;
+  const float py = in ? pix[2 * p + 1] : 5.0f;
+  const bool half_live = __syncthreads_or(live) != 0;
+  float* out_rows = slot_rows + (bin * kRHalves + half) * K * 6;
+
+  auto gather = [&](int r) {
+    return gather_round(band_ids, src, raw, r, K, Fr);
+  };
+
+  // round 0's rows are in flight while the spans are recorded
+  int n_next = half_live ? gather(0) : 0;
+  for (int k = half * kRWarps * 32 + tid; k < K; k += kBand) {
+    const int id = band_ids[k];
+    if (id >= 0 && id < F) {
+      const size_t face = (size_t)b * F + id;
+      atomicMin(first + face, band);
+      atomicMax(last + face, band);
+      slot_of[face * nb + band] = k;
+    }
+  }
+  if (tid == 0) band_live[bin * kRHalves + half] = half_live;
+  if (!half_live) return;  // every share is zero
+  const Box tb = tile_box(px, py, live);
+  const bool tile_live = __any_sync(0xffffffffu, live);
+  tpix[tid] = make_float4(px, py, gp, 0.0f);
+  for (int r = 0;; ++r) {
+    // faces come first in a bin, fillers after them: a round that is not
+    // full is the last (uniform over the block)
+    const int n = n_next;
+    const bool more = n == kBTile && (r + 1) * kBTile < K;
+    if (more) {
+      n_next = gather(r + 1);
+      tpn::cp_async_wait<1>();
+    } else {
+      tpn::cp_async_wait<0>();
+    }
+    __syncthreads();  // round r's rows are visible; round r - 1 is summed
+    const float* rr = raw + (r & 1) * kBTile * kSRow;
+    if (tid < n) {
+      stage_row(rr + tid * kSRow, conv + tid * kRQuads);
+      const Box fb = face_box(rr + tid * kSRow, m);
+      conv[tid * kRQuads + kSQuads] = make_float4(fb.x0, fb.x1, fb.y0, fb.y1);
+    }
+    if (tid < kBTile) tiles_of[tid] = 0u;
+    __syncthreads();  // the staged rows and boxes are visible
+    // the cull: warp = tile, ballots tile-major
+#pragma unroll
+    for (int q = 0; q < kRGroups; ++q) {
+      bool hit = false;
+      if (tile_live && q * 32 + lane < n) {
+        const float4 c = conv[(q * 32 + lane) * kRQuads + kSQuads];
+        hit = !outside(Box{c.x, c.y, c.z, c.w}, tb);
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) kept[warp * kRGroups + q] = mask;
+    }
+    __syncthreads();  // the ballots are visible
+    // the kept pairs' list: a scan of the ballots' counts by the first warps
+    int cnt = 0, incl = 0;
+    if (warp < kRPairs / 32 / 32) {
+      cnt = __popc(kept[tid]);
+      incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (lane == 31) counts[warp] = incl;
+    }
+    __syncthreads();  // the counts are visible
+    int total = 0, base = incl - cnt;
+#pragma unroll
+    for (int w = 0; w < kRPairs / 32 / 32; ++w) {
+      total += counts[w];
+      base += w < warp ? counts[w] : 0;
+    }
+    if (tid < kRPairs / 32) {
+      const unsigned short head =
+          (unsigned short)((tid / kRGroups) << 7 | (tid % kRGroups) * 32);
+      for (unsigned bits = kept[tid]; bits; bits &= bits - 1u) {
+        list[base++] = (unsigned short)(head + __ffs(bits) - 1);
+      }
+    }
+    __syncthreads();  // the list is visible
+    for (int i = warp; i < total; i += kRWarps) {
+      const int t = list[i] >> 7, slot = list[i] & 127;
+      const float4 q = tpix[t * 32 + lane];
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      const bool added = q.z != 0.0f && grad_face(conv + slot * kRQuads, q.x,
+                                                  q.y, sigma, q.z, v);
+      if (__any_sync(0xffffffffu, added)) {
+        warp_sum8(v, lane);
+        if ((lane & 3) == 0 && lane < 24) {
+          part[(t * kBTile + slot) * 6 + (lane >> 2)] = v[0];
+        }
+        if (lane == 0) atomicOr(tiles_of + slot, 1u << t);
+      }
+    }
+    __syncthreads();  // the pairs' sums and the slots' tiles are visible
+    for (int i = tid; i < 6 * n; i += kRWarps * 32) {
+      const int slot = i / 6, c = i - 6 * slot;
+      float sum = 0.0f;
+      for (unsigned bits = tiles_of[slot]; bits; bits &= bits - 1u) {
+        const int t = __ffs(bits) - 1;  // in tile order
+        sum = __fadd_rn(sum, part[(t * kBTile + slot) * 6 + c]);
+      }
+      out_rows[(size_t)r * kBTile * 6 + i] = sum;
+    }
+    if (!more) break;
+  }
+}
+
+// Face sum: a warp a face, its lanes a band each of its span. A lane reads
+// the face's slot in its band from slot_of (checked against ids: only a
+// band that holds the face wrote it) and that slot's row of each half with
+// a live pixel, half 0 + half 1 (a half with none holds nothing). The
+// bands' rows, staged in shared memory, are added in band order from 0 by
+// lanes 0 .. 5, a component each. A face with a
+// non-finite vertex that some band holds gets NaN, as the plain sums give
+// it (their 0 * NaN shares at every pixel of its bands).
+__global__ void __launch_bounds__(kSumWarps * 32)
+soft_bwd_faces_kernel(const float* __restrict__ rows,       // (B, Fr, 16)
+                      const int* __restrict__ ids,          // (B, nb, K)
+                      const float* __restrict__ slot_rows,  // (B, nb, 2, K, 6)
+                      const int* __restrict__ slot_of,      // (B, F, nb)
+                      const int* __restrict__ first,        // (B, F)
+                      const int* __restrict__ last,         // (B, F)
+                      const int* __restrict__ band_live,    // (B, nb, 2)
+                      float* __restrict__ out,              // (B, F, 6)
+                      int B, int Fr, int nb, int K) {
+  __shared__ float vals[kSumWarps][32][6];
+  const int F = Fr - 1;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long wf = (long long)blockIdx.x * kSumWarps + w;
+  if (wf >= (long long)B * F) return;  // uniform over the warp
+  const int b = (int)(wf / F), f = (int)(wf - (long long)b * F);
+  const int j0 = first[wf], j1 = last[wf];  // j0 > j1: in no band
+  float s = 0.0f;
+  for (int j = j0; j <= j1; j += 32) {
+    const int jl = j + lane;
+    bool has = false;
+    const size_t bin = (size_t)b * nb + jl;
+    const bool live0 = jl <= j1 && band_live[bin * 2] != 0;
+    const bool live1 = jl <= j1 && band_live[bin * 2 + 1] != 0;
+    if (live0 || live1) {
+      const int k = slot_of[(size_t)wf * nb + jl];
+      if (k >= 0 && k < K) {
+        has = __ldg(ids + bin * K + k) == f;
+        if (has) {
+          const float2* h0 = reinterpret_cast<const float2*>(
+              slot_rows + ((bin * 2) * K + k) * 6);
+          const float2* h1 = h0 + (size_t)K * 3;
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            const float2 a = live0 ? h0[i] : make_float2(0.f, 0.f);
+            const float2 c = live1 ? h1[i] : make_float2(0.f, 0.f);
+            vals[w][lane][2 * i] = __fadd_rn(a.x, c.x);
+            vals[w][lane][2 * i + 1] = __fadd_rn(a.y, c.y);
+          }
+        }
+      }
+    }
+    const unsigned todo = __ballot_sync(0xffffffffu, has);
+    __syncwarp();
+    if (lane < 6) {
+      for (unsigned bits = todo; bits; bits &= bits - 1u) {
+        s = __fadd_rn(s, vals[w][__ffs(bits) - 1][lane]);
+      }
+    }
+    __syncwarp();
+  }
+  if (j0 <= j1 && !finite_vertices(rows + ((size_t)b * Fr + f) * kSRow)) {
+    s = __int_as_float(0x7fc00000);
+  }
+  if (lane < 6) out[wf * 6 + lane] = s;
 }
 
 }  // namespace
@@ -1543,16 +1850,72 @@ int soft_bwd_dense(const float* rows, const float* pix, const float* g,
   return (int)cudaGetLastError();
 }
 
-// g, prod (B, nb, 1024) f32; out (B, nb, K, 6) f32 rows per (band, slot).
-int soft_bwd_binned(const float* rows, const int* ids, const float* pix,
-                    const float* g, const float* prod, float* out, int B,
-                    int Fr, int nb, int K, int P, float sigma, void* stream) {
+// The first binned design: g, prod (B, nb, 1024) f32; out (B, nb, K, 6) f32
+// rows per (band, slot), fillers' rows 0; kept only to be timed.
+int soft_bwd_binned_sweep(const float* rows, const int* ids, const float* pix,
+                          const float* g, const float* prod, float* out,
+                          int B, int Fr, int nb, int K, int P, float sigma,
+                          void* stream) {
   if (B > 0 && nb > 0 && K > 0) {
     if (nb > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((K + kGFaces - 1) / kGFaces), (unsigned)nb,
                     (unsigned)B);
-    soft_bwd_binned_kernel<<<grid, kGThreads, 0, (cudaStream_t)stream>>>(
+    soft_bwd_binned_sweep_kernel<<<grid, kGThreads, 0,
+                                   (cudaStream_t)stream>>>(
         rows, ids, pix, g, prod, out, Fr, nb, K, P, sigma);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows (B, Fr, 16) with the filler row last, 16-byte aligned; ids (B, nb, K)
+// int32, each band's face ids ascending, then the filler id Fr-1; g, prod
+// (B, nb, 1024) f32; width as soft_fwd_binned's; margin the cull's
+// sqrt(27.7 sigma). Writes slot_rows (B, nb, 2, K, 6) f32, each half
+// band's rows, at the filled slots of the halves with a live pixel
+// (nothing else); slot_of (B, Fr-1, nb) int32 at each face's bands; span
+// (2, B, Fr-1) int32: each face's first and last band (first > last: in no
+// band); band_live (B, nb, 2) int32, each half's.
+int soft_bwd_binned(const float* rows, const int* ids, const float* pix,
+                    const float* g, const float* prod, float* slot_rows,
+                    int* slot_of, int* span, int* band_live, int B, int Fr,
+                    int nb, int K, int P, int width, float sigma,
+                    float margin, void* stream) {
+  static int opened = 0;
+  if (B <= 0 || nb <= 0) return (int)cudaGetLastError();
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  const size_t faces = (size_t)B * (Fr - 1);
+  cudaError_t err = cudaMemsetAsync(span, 0x7f, faces * sizeof(int),
+                                    (cudaStream_t)stream);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(span + faces, 0xff, faces * sizeof(int),
+                          (cudaStream_t)stream);
+  }
+  if (err == cudaSuccess) {
+    err = open_smem((const void*)soft_bwd_binned_kernel, kBwdSmem, &opened);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(nb * kRHalves), (unsigned)B);
+  soft_bwd_binned_kernel<<<grid, kRWarps * 32, kBwdSmem,
+                           (cudaStream_t)stream>>>(
+      rows, ids, pix, g, prod, slot_rows, slot_of, span, span + faces,
+      band_live, Fr, nb, K, P, width, sigma, margin);
+  return (int)cudaGetLastError();
+}
+
+// The vertex gradient out (B, Fr-1, 6) f32 of each face: the slot rows,
+// slot_of, span and band_live of soft_bwd_binned (same rows and ids) summed
+// band by band in band order.
+int soft_bwd_faces(const float* rows, const int* ids, const float* slot_rows,
+                   const int* slot_of, const int* span, const int* band_live,
+                   float* out, int B, int Fr, int nb, int K, void* stream) {
+  const long long faces = (long long)B * (Fr - 1);
+  if (faces > 0) {
+    const long long blocks = (faces + kSumWarps - 1) / kSumWarps;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    soft_bwd_faces_kernel<<<(unsigned)blocks, kSumWarps * 32, 0,
+                            (cudaStream_t)stream>>>(
+        rows, ids, slot_rows, slot_of, span, span + faces, band_live, out, B,
+        Fr, nb, K);
   }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,10 @@ per warp tile of 32 pixels, the faces whose vertex box widened by
 √(27.7·σ) the tile lies outside, where every factor is exactly 1.0f;
 `_soft_cull_boxes`, `_soft_tile_pixels`, `_soft_tile_boxes` and
 `_soft_kept` are that rule in PyTorch, for the tests and the pair counts
-of `chip_smoke.py`.
+of `chip_smoke.py`. The binned backward skips by the same rule against the
+box of a tile's live pixels (g·prod ≠ 0), where each skipped share is below
+|g·prod|·2e^−27.7·m/σ, and sums to faces in a fixed order
+(`_soft_bwd_kept` and `_slots_to_faces_ordered` are its twins).
 """
 from __future__ import annotations
 
@@ -54,9 +57,10 @@ SOFT_FWD_DENSE = "soft_fwd_dense"
 SOFT_FWD_BINNED = "soft_fwd_binned"
 SOFT_BWD_DENSE = "soft_bwd_dense"
 SOFT_BWD_BINNED = "soft_bwd_binned"
-# the all-pairs designs of the soft forward kernels, timed only
+# the all-pairs designs of the soft kernels, timed only
 SOFT_FWD_DENSE_SWEEP = "soft_fwd_dense_sweep"
 SOFT_FWD_BINNED_SWEEP = "soft_fwd_binned_sweep"
+SOFT_BWD_BINNED_SWEEP = "soft_bwd_binned_sweep"
 
 _EPS = 1e-10
 _BAND = 1024                 # pixels per band (row-major)
@@ -688,6 +692,22 @@ def _slots_to_faces(slot_rows: torch.Tensor, ids: torch.Tensor, F: int
     return out.reshape(B, F + 1, 6)[:, :F]
 
 
+def _slots_to_faces_ordered(slot_rows: torch.Tensor, ids: torch.Tensor,
+                            F: int) -> torch.Tensor:
+    """`_slots_to_faces` in the order of kernel #10's face sum: each face's
+    rows added band by band in band order, from 0, the filler id F dropped
+    (a band holds a face at most once). The twin of
+    csrc/rasterize.cu:soft_bwd_faces_kernel, bit for bit where the rows of
+    the bands without a live pixel are zero."""
+    B, nb, K = ids.shape
+    out = slot_rows.new_zeros((B, F + 1, 6))
+    bidx = torch.arange(B, device=ids.device)[:, None].expand(B, K)
+    for j in range(nb):
+        out.index_put_((bidx, ids[:, j].long()), slot_rows[:, j],
+                       accumulate=True)
+    return out[:, :F]
+
+
 # --------------------------------------------------------------------------
 # the soft silhouette: the forward kernels' cull, in PyTorch
 # --------------------------------------------------------------------------
@@ -779,6 +799,28 @@ def _soft_kept(face_boxes: torch.Tensor, tile_boxes: torch.Tensor
     skip = ((t[..., 1] < f[..., 0]) | (t[..., 0] > f[..., 1])
             | (t[..., 3] < f[..., 2]) | (t[..., 2] > f[..., 3]))
     return ~skip
+
+
+def _soft_bwd_kept(rows: torch.Tensor, ids: torch.Tensor, pix: torch.Tensor,
+                   g: torch.Tensor, prod: torch.Tensor, sigma: float,
+                   width: int = 0) -> torch.Tensor:
+    """(B, nb, 32, K) True where kernel #10 evaluates the pair of a band's
+    warp tile and bin slot: the slot holds a face (the kernel stops at the
+    first filler), and the face's widened vertex box does not lie wholly
+    outside the box of the tile's live pixels (g·prod ≠ 0, in the image).
+    A tile with no live pixel has an empty box, outside every finite one; a
+    face with a non-finite vertex, whose box is the plane, is kept at every
+    tile (the kernel gives its sum NaN instead). rows (B, F+1, 16) with the
+    filler last, ids (B, nb, K), g and prod (B, nb, 1024)."""
+    B, nb, K = ids.shape
+    tiles = _soft_tile_pixels(pix.shape[0], width, True, pix.device)
+    gp = (g * prod).reshape(B, nb * _BAND)
+    live = (tiles >= 0) & (gp[:, tiles.clamp(min=0)] != 0)   # (B, T, 32)
+    boxes = _soft_tile_boxes(pix, torch.where(live, tiles, -1))
+    bidx = torch.arange(B, device=ids.device)[:, None, None]
+    face = _soft_cull_boxes(rows, sigma)[bidx, ids.long()]     # (B, nb, K, 4)
+    real = (ids >= 0) & (ids < rows.shape[1] - 1)
+    return _soft_kept(face, boxes.reshape(B, nb, 32, 4)) & real[:, :, None, :]
 
 
 # --------------------------------------------------------------------------
@@ -909,23 +951,82 @@ def soft_grad_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
     return out
 
 
-def soft_grad_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
+def _soft_bwd_binned_rows(rows: torch.Tensor, ids: torch.Tensor,
                           pix: torch.Tensor, g: torch.Tensor,
-                          prod: torch.Tensor, sigma: float) -> torch.Tensor:
+                          prod: torch.Tensor, sigma: float, width: int = 0):
+    """The first of #10's two kernels → (slot rows (B, nb, 2, K, 6) of
+    each half band, written only at the filled slots of the halves with a
+    live pixel; slot_of (B, F, nb), each face's slot in each band that
+    holds it; span (2, B, F), each face's first and last band; band_live
+    (B, nb, 2), each half's)."""
     _check_soft(rows, pix, g, prod, ids=ids)
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
-    fn = _build.load("rasterize").soft_bwd_binned
-    fn.argtypes = ([_build.VOIDP] * 6 + [_build.INT] * 5 + [_build.FLOAT]
-                   + [_build.VOIDP])
-    fn.restype = _build.INT
-    out = torch.empty((B, nb, K, 6), dtype=torch.float32, device=rows.device)
-    err = fn(rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), g.data_ptr(),
-             prod.data_ptr(), out.data_ptr(), B, Fr, nb, K, pix.shape[0],
-             float(sigma), _build.stream_ptr(rows.device))
+    P = pix.shape[0]
+    dev = rows.device
+    slot_rows = torch.empty((B, nb, 2, K, 6), dtype=torch.float32,
+                            device=dev)
+    slot_of = torch.empty((B, Fr - 1, nb), dtype=torch.int32, device=dev)
+    span = torch.empty((2, B, Fr - 1), dtype=torch.int32, device=dev)
+    live = torch.empty((B, nb, 2), dtype=torch.int32, device=dev)
+    err = _entry(SOFT_BWD_BINNED, 9, 6, 2)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), g.data_ptr(),
+        prod.data_ptr(), slot_rows.data_ptr(), slot_of.data_ptr(),
+        span.data_ptr(), live.data_ptr(), B, Fr, nb, K, P,
+        _soft_tile_width(P, width, True), float(sigma), _soft_margin(sigma),
+        _build.stream_ptr(dev))
     _build.check(err, SOFT_BWD_BINNED)
+    return slot_rows, slot_of, span, live
+
+
+def _soft_bwd_faces(rows: torch.Tensor, ids: torch.Tensor,
+                    slot_rows: torch.Tensor, slot_of: torch.Tensor,
+                    span: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """The second: each face's slot rows summed in band order → (B, F, 6)."""
+    B, Fr, _ = rows.shape
+    _, nb, K = ids.shape
+    out = torch.empty((B, Fr - 1, 6), dtype=torch.float32, device=rows.device)
+    err = _entry("soft_bwd_faces", 7, 4)(
+        rows.data_ptr(), ids.data_ptr(), slot_rows.data_ptr(),
+        slot_of.data_ptr(), span.data_ptr(), live.data_ptr(), out.data_ptr(),
+        B, Fr, nb, K, _build.stream_ptr(rows.device))
+    _build.check(err, SOFT_BWD_BINNED)
+    return out
+
+
+def soft_grad_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
+                          pix: torch.Tensor, g: torch.Tensor,
+                          prod: torch.Tensor, sigma: float, width: int = 0
+                          ) -> torch.Tensor:
+    """Kernel #10 and its face sum → the vertex gradients (B, F, 6). `ids`
+    holds each band's face ids ascending, then the filler id (the last
+    row), as `_bin_faces` makes them; tiles as `soft_prod_binned_cuda`'s.
+    Deterministic."""
+    parts = _soft_bwd_binned_rows(rows, ids, pix, g, prod, sigma, width)
+    out = _soft_bwd_faces(rows, ids, *parts)
     _build.count_launch(SOFT_BWD_BINNED)
     return out
+
+
+def soft_grad_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
+                                pix: torch.Tensor, g: torch.Tensor,
+                                prod: torch.Tensor, sigma: float
+                                ) -> torch.Tensor:
+    """The first design of #10 (8 slots a block, every live pixel) and its
+    `index_add_` to faces, with #10's contract; timed and checked beside
+    #10 only."""
+    _check_soft(rows, pix, g, prod, ids=ids)
+    B, Fr, _ = rows.shape
+    _, nb, K = ids.shape
+    slot_rows = torch.empty((B, nb, K, 6), dtype=torch.float32,
+                            device=rows.device)
+    err = _entry(SOFT_BWD_BINNED_SWEEP, 6, 5, 1)(
+        rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), g.data_ptr(),
+        prod.data_ptr(), slot_rows.data_ptr(), B, Fr, nb, K, pix.shape[0],
+        float(sigma), _build.stream_ptr(rows.device))
+    _build.check(err, SOFT_BWD_BINNED_SWEEP)
+    _build.count_launch(SOFT_BWD_BINNED_SWEEP)
+    return _slots_to_faces(slot_rows, ids, Fr - 1)
 
 
 def soft_prod_dense(rows, pix, sigma, width: int = 0):
@@ -951,11 +1052,14 @@ def soft_grad_dense(rows, pix, g, prod, sigma):
     return soft_grad_dense_plain(rows, pix, g, prod, sigma)
 
 
-def soft_grad_binned(rows, ids, pix, g, prod, sigma):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def soft_grad_binned(rows, ids, pix, g, prod, sigma, width: int = 0):
+    """The vertex gradients (B, F, 6): kernel and its face sum on CUDA
+    tensors, the plain rows and `_slots_to_faces` on CPU tensors."""
     if rows.is_cuda:
-        return soft_grad_binned_cuda(rows, ids, pix, g, prod, sigma)
-    return soft_grad_binned_plain(rows, ids, pix, g, prod, sigma)
+        return soft_grad_binned_cuda(rows, ids, pix, g, prod, sigma, width)
+    return _slots_to_faces(soft_grad_binned_plain(rows, ids, pix, g, prod,
+                                                  sigma),
+                           ids, rows.shape[1] - 1)
 
 
 # --------------------------------------------------------------------------
@@ -1026,10 +1130,9 @@ class _SoftSilhouette(torch.autograd.Function):
             grad = soft_grad_dense(rows, pix, g, prod, sigma)
         else:
             nb = ids[0].shape[1]
-            slot_rows = soft_grad_binned(
+            grad = soft_grad_binned(
                 _with_filler(rows), ids[0], pix, _band_maps(g, nb),
-                _band_maps(prod, nb), sigma)
-            grad = _slots_to_faces(slot_rows, ids[0], F)
+                _band_maps(prod, nb), sigma, width)
         return grad.reshape(B, F, 3, 2), None, None, None, None
 
 
