@@ -32,12 +32,23 @@
    the eval chunk and one mode-1 view with random g, within 2e-5 of plain
    and that design, 1e-4 of the dense #9, bit-identical over two calls,
    with the pairs within the margin, candidate, live and all pairs and
-   both bounds; #9 in a CUDA graph.
-3. Runs the hash-grid table gradient's cost-split experiment (kernel #11,
-   `hashgrid_bwd_variant`; `python -m tpunerf_torch.scripts.exp_hash_bwd`)
-   at full width (N = 262,144, L=12, T=2^11, F=2): four modes at five
-   points-per-block settings, each timed in a CUDA graph and held against
-   its plain version, `full` at 8192 against kernel #2.
+   both bounds. The dense soft backward #9 (the same cull after a first
+   pass that lists each view's live tiles, 32 faces a block, a fixed-order
+   sum to faces) beside its first design, eager and in a CUDA graph, at
+   (a) the wide camera and (b) the head camera at 64² with random g and
+   (c) the eval chunk's 5 views dense at 512² (the overflow fallback),
+   within 2e-5 of plain and that design, 1e-4 of #10, bit-identical over
+   two calls, with its live pixels and tiles, kept, within-margin,
+   candidate and live pairs and both bounds; on the degenerate, outside,
+   padded and NaN/inf sets; its -Xptxas -v free of spills.
+3. Runs the hash-grid table gradient's cost-split experiment (kernel #11;
+   `python -m tpunerf_torch.scripts.exp_hash_bwd`) at full width
+   (N = 262,144, L=12, T=2^11, F=2): the first design
+   (`hashgrid_bwd_variant`, four modes at five points-per-block settings,
+   `full` at 8192 against kernel #2) and the split of today's #2
+   (`hashgrid_bwd_split`: full, gmax, addr, accum, reduce at 0.5x ... 4x
+   the resident blocks, `full` at 1x equal to #2), each timed in a CUDA
+   graph and held against its plain version (the split's bit for bit).
 4. Checks a tiny step of each app, and the soft silhouette's gradient to
    the displacement, on the card against the same on the CPU.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
@@ -63,8 +74,8 @@
    gradient of sum(mask^2) to the displacement through
    `render_train(...)["soft_mask"]` at 64^2 and `render_test(...)["mask"]`
    at 512^2 (no loss of the app reads the soft mask, so no training step
-   launches them), then times #10 on that phase's own g = 2 mask and prod
-   beside its first design.
+   launches them), then times #10 and #9 ((d) at 64²) on that phase's own
+   g = 2 mask and prod beside their first designs.
 For each path the launch counters are reset just before and read just after.
 
 The profiles of the paint, mode-0 and mode-1 steps end with the selection
@@ -474,7 +485,41 @@ def check_hash_bwd_experiment(seed: int):
           f"plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
           f"shared atomics {row['atomics_bound_ms']} ms at {mhz} MHz, "
           f"index_add_ {row['library_ms']:.4f} ms, launches {launches}")
-    return row
+    row["main_path"] = False   # the first design of #11, beside the split
+
+    # #11 since its redesign: today's #2 taken apart on its own grid, every
+    # mode at 0.5x ... 4x the resident blocks, bit for bit against plain
+    base_ms, _ = ex.graph_ms(lambda: hg.hash_bwd_cuda(x, g, cfg), iters)
+    _build.reset_launches()
+    srows = ex.run_split("cuda", n=n, seed=seed, iters=iters)
+    split_launches = _build.LAUNCHES.get(hg.SPLIT, 0)
+    if split_launches != len(srows) * (ex.WARMUP + 2 * iters):
+        fail(f"the split counted {split_launches} launches of {hg.SPLIT}, "
+             f"not {len(srows) * (ex.WARMUP + 2 * iters)}")
+    print(f"kernel #2 (hashgrid_bwd) in a CUDA graph: {base_ms:.4f} ms")
+    for r in srows:
+        print(ex.format_split_row(r, base_ms, b_ms))
+    if not all(r["ok"] for r in srows):
+        fail("a part of the split of #2 disagrees with its plain version, "
+             "or full at 1x with #2")
+    for line in ex.split_sum_lines(srows):
+        print(line)
+    at1 = {r["mode"]: r for r in srows if r["factor"] == 1}
+    blocks = at1["full"]["blocks"]
+    split_row = dict(
+        name=hg.SPLIT, route="cuda", source="tpunerf_torch/csrc/hashgrid.cu",
+        replaces="scripts/exp_hash_bwd.py:146", launches=split_launches,
+        max_abs_err=0.0, ms=at1["full"]["ms"], graph_ms=at1["full"]["ms"],
+        plain_ms=cuda_ms(lambda: hg.hash_bwd_split_plain(
+            x, g, cfg, "full", blocks), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=row["library_ms"],
+        kernel_2_graph_ms=base_ms,
+        modes={f"{r['mode']}@{r['factor']}x": r["ms"] for r in srows})
+    print(f"  {hg.SPLIT}: full@1x {split_row['ms']:.4f} ms (CUDA graph; #2 "
+          f"{base_ms:.4f}), plain {split_row['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), share {b_ms / split_row['ms']:.3f}, "
+          f"launches {split_launches}")
+    return split_row, row
 
 
 SEL_FLOPS = 25   # per face-pixel pair: 4 affine forms, 3 compares, a select
@@ -1082,6 +1127,115 @@ def soft_bwd_case(label: str, rows, ids, pix, g, prod, sigma: float,
     return case
 
 
+def _all_faces_bins(rows, P: int):
+    """Bins that hold every face in every band, faces ascending and then
+    the filler (K a multiple of 128): #10 on them computes #9's function
+    with no band dropping a tail. rows (B, F, 16) → (rows with the filler,
+    ids (B, nb, K))."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+    B, F = rows.shape[:2]
+    K = -(-(F + 1) // 128) * 128
+    nb = -(-P // 1024)
+    ids = torch.cat([torch.arange(F, dtype=torch.int32, device=rows.device),
+                     torch.full((K - F,), F, dtype=torch.int32,
+                                device=rows.device)])
+    return (rz._with_filler(rows).contiguous(),
+            ids.expand(B, nb, K).contiguous())
+
+
+def soft_bwd_dense_case(label: str, rows, pix, g, prod, sigma: float,
+                        width: int, iters: int = 20, binned=None):
+    """One input of kernel #9: against the plain version and its first
+    design (`soft_grad_dense_sweep_cuda`) to BWD_TOL of the largest
+    gradient, and against #10 to 1e-4 (`binned`: (rows with the filler,
+    ids), else bins of every face); two calls bit for bit; CUDA-graph and
+    eager times of both designs in the order new, old, old, new; the live
+    pixels and tiles, the kept (tile, face) pairs, the pairs within the
+    margin, candidate and live pairs; the new bound (bytes once; pairs
+    within the margin × 110) beside the earlier one (live pairs × 80 +
+    routed × 30) and the shares."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    B, F = rows.shape[:2]
+    P = pix.shape[0]
+    new = lambda: rz.soft_grad_dense_cuda(  # noqa: E731
+        rows, pix, g, prod, sigma, width)
+    old = lambda: rz.soft_grad_dense_sweep_cuda(  # noqa: E731
+        rows, pix, g, prod, sigma)
+    out, again, before = new(), new(), old()
+    plain = rz.soft_grad_dense_plain(rows, pix, g, prod, sigma)
+    rows_f, ids = binned if binned is not None else _all_faces_bins(rows, P)
+    nb = ids.shape[1]
+    via10 = rz.soft_grad_binned_cuda(rows_f, ids, pix, rz._band_maps(g, nb),
+                                     rz._band_maps(prod, nb), sigma, width)
+    torch.cuda.synchronize()
+    err, err_old = _max_rel(out, plain), _max_rel(out, before)
+    err_10 = _max_rel(out, via10)
+    same = torch.equal(out, again)
+    gp = g * prod
+    is_live = gp != 0
+    tiles = rz._soft_tile_pixels(P, width, False, pix.device)
+    lanes = ((gp[:, tiles.clamp(min=0)] != 0) & (tiles >= 0)).sum(-1)
+    kept = rz._soft_bwd_dense_kept(rows, pix, g, prod, sigma, width)
+    kept = kept & (lanes > 0)[..., None]       # dead tiles are skipped whole
+    kept_pairs = int(kept.sum().item())
+    cand = int((kept.sum(-1) * lanes).sum().item())
+    live_pixels = int(is_live.sum().item())
+    live_pairs = F * live_pixels
+    routed = _soft_grad_pairs(rz, rows, pix, g, prod, sigma)
+    boxes = rz._soft_cull_boxes(rows, sigma)              # (B, F, 4)
+    px, py = pix[:, 0], pix[:, 1]
+    margin = 0
+    for f0 in range(0, F, 64):
+        fb = boxes[:, f0:f0 + 64, None, :]
+        inside = ((px >= fb[..., 0]) & (px <= fb[..., 1])
+                  & (py >= fb[..., 2]) & (py <= fb[..., 3]))
+        margin += int((inside & is_live[:, None, :]).sum().item())
+    nbytes = 4 * (rows.numel() + pix.numel() + g.numel() + prod.numel()
+                  + out.numel())
+    b_ms, b_by = bound(nbytes, margin * (SOFT_FWD_FLOPS + SOFT_GRAD_FLOPS),
+                       "f32")
+    old_b_ms, old_b_by = bound(nbytes, live_pairs * SOFT_FWD_FLOPS
+                               + routed * SOFT_GRAD_FLOPS, "f32")
+    graph, _ = ex.graph_ms(new, iters)
+    old_graph, _ = ex.graph_ms(old, iters)
+    old_graph2, _ = ex.graph_ms(old, iters)
+    graph2, _ = ex.graph_ms(new, iters)
+    ms, old_ms = cuda_ms(new, iters), cuda_ms(old, iters)
+    case = dict(max_rel_err=err, sweep_rel_err=err_old, binned_rel_err=err_10,
+                bit_identical=same, ms=ms, graph_ms=graph,
+                graph_ms_again=graph2, sweep_ms=old_ms,
+                sweep_graph_ms=old_graph, sweep_graph_ms_again=old_graph2,
+                live_pixels=live_pixels,
+                live_tiles=int((lanes > 0).sum().item()),
+                kept_tile_face_pairs=kept_pairs, margin_pairs=margin,
+                candidate_pairs=cand, live_pairs=live_pairs,
+                routed_pairs=routed, bound_ms=b_ms, bound_by=b_by,
+                old_bound_ms=old_b_ms, old_bound_by=old_b_by,
+                share_of_bound=b_ms / graph,
+                sweep_share_of_old_bound=old_b_ms / old_graph)
+    print(f"  #9 {label}: max err / max |grad| vs plain {err:.3e}, vs the "
+          f"first design {err_old:.3e} (tol {BWD_TOL:.0e}), vs #10 "
+          f"{err_10:.3e} (tol 1e-4); two calls bit-identical {same}; graph "
+          f"{graph:.4f} / {graph2:.4f} ms, eager {ms:.4f}; the first design "
+          f"graph {old_graph:.4f} / {old_graph2:.4f}, eager {old_ms:.4f}; "
+          f"pixels live {live_pixels}, live tiles {case['live_tiles']} of "
+          f"{B * tiles.shape[0]}; kept tile-face pairs {kept_pairs}; pairs "
+          f"within the margin {margin}, candidate {cand}, live {live_pairs},"
+          f" routed {routed}; bound {b_ms:.5f} ms ({b_by}), share "
+          f"{b_ms / graph:.4f} (graph); the earlier bound {old_b_ms:.5f} "
+          f"({old_b_by}), the first design's share of it "
+          f"{old_b_ms / old_graph:.4f}")
+    if not (err <= BWD_TOL and err_old <= BWD_TOL and err_10 <= 1e-4
+            and same and torch.isfinite(out).all()):
+        fail(f"#9 {label}: the culled dense backward disagrees with its "
+             f"plain version, its first design or #10, or is not "
+             f"deterministic")
+    return case
+
+
 def check_soft_kernels(seed: int):
     """The four soft-silhouette kernels vs their plain versions on the
     projected sphere under the body and the head camera at the
@@ -1117,7 +1271,7 @@ def check_soft_kernels(seed: int):
     def pair_dense(face_rows, pix, g):
         prod_k = rz.soft_prod_dense_cuda(face_rows, pix, sigma, 64)
         prod_p = rz.soft_prod_dense_plain(face_rows, pix, sigma)
-        grad_k = rz.soft_grad_dense_cuda(face_rows, pix, g, prod_k, sigma)
+        grad_k = rz.soft_grad_dense_cuda(face_rows, pix, g, prod_k, sigma, 64)
         grad_p = rz.soft_grad_dense_plain(face_rows, pix, g, prod_p, sigma)
         torch.cuda.synchronize()
         return prod_k, prod_p, grad_k, grad_p
@@ -1162,15 +1316,18 @@ def check_soft_kernels(seed: int):
     face_rows[0, 300:320, 15] = 0.0                      # padded rows
     g = torch.randn((1, P), generator=gen, device=dev)
     prod_k, prod_p, grad_k, grad_p = pair_dense(face_rows, pix, g)
+    grad_s = rz.soft_grad_dense_sweep_cuda(face_rows, pix, g, prod_k, sigma)
     e_f = (prod_k - prod_p).abs().max().item()
     e_b = _max_rel(grad_k, grad_p)
+    e_s = _max_rel(grad_k, grad_s)
     covered = int((prod_p == 0).sum().item())
     print(f"soft dense degenerate/outside/padded set F={n}: fwd "
-          f"max_abs_err {e_f:.3e}, bwd rel {e_b:.3e}; covered pixels "
+          f"max_abs_err {e_f:.3e}, bwd rel {e_b:.3e}, vs the first dense "
+          f"backward {e_s:.3e}; covered pixels "
           f"{covered}; gradient of outside and padded faces "
           f"{grad_k[0, 100:200].abs().max().item():.1e} / "
           f"{grad_k[0, 300:320].abs().max().item():.1e} (must be 0)")
-    if not (e_f <= FWD_TOL and e_b <= BWD_TOL and covered
+    if not (e_f <= FWD_TOL and e_b <= BWD_TOL and e_s <= BWD_TOL and covered
             and torch.isfinite(grad_k).all()
             and grad_k[0, 100:200].abs().max().item() == 0
             and grad_k[0, 300:320].abs().max().item() == 0):
@@ -1222,6 +1379,27 @@ def check_soft_kernels(seed: int):
         fail("the culled soft forward mishandles faces with a non-finite "
              "vertex")
     fwd_err = max(fwd_err, e_nf, e_nfb)
+    # #9 on the same faces: with a finite prod (that of the clean faces),
+    # plain gives the three bad faces NaN and every other face a finite
+    # gradient; so must #9, within BWD_TOL elsewhere
+    keep = torch.ones(nf_rows.shape[1], dtype=torch.bool, device=dev)
+    keep[200:203] = False
+    clean_prod = rz.soft_prod_dense_plain(nf_rows[:, keep].contiguous(), pix,
+                                          sigma)
+    g_nf = torch.randn((2, P), generator=gen, device=dev)
+    nf_g = rz.soft_grad_dense_cuda(nf_rows, pix, g_nf, clean_prod, sigma, 64)
+    nf_g_ref = rz.soft_grad_dense_plain(nf_rows, pix, g_nf, clean_prod, sigma)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(nf_g_ref)
+    nan_bwd = torch.equal(torch.isnan(nf_g), torch.isnan(nf_g_ref))
+    e_nfg = _max_rel(nf_g[fin], nf_g_ref[fin])
+    print(f"soft_bwd_dense (#9), NaN/inf vertex set: NaN entries plain "
+          f"{int(torch.isnan(nf_g_ref).sum())} (faces 200-202 of view 0: 18),"
+          f" #9 {int(torch.isnan(nf_g).sum())}, equal: {nan_bwd}; elsewhere "
+          f"max err / max {e_nfg:.3e} (tol {BWD_TOL:.0e})")
+    if not (nan_bwd and torch.isnan(nf_g_ref[0, 200:203]).all()
+            and int(torch.isnan(nf_g_ref).sum()) == 18 and e_nfg <= BWD_TOL):
+        fail("#9 mishandles faces with a non-finite vertex")
 
     # inputs (a) the wide camera's first pose, which has a rim for the
     # backward to work on; (b) a head-camera pose, which the sphere fills,
@@ -1242,7 +1420,6 @@ def check_soft_kernels(seed: int):
     g = torch.randn((1, P), generator=gen, device=dev)
     prod = rz.soft_prod_dense_cuda(face_rows, pix, sigma, 64)
     live = int((g * prod != 0).sum().item())
-    io = face_rows.numel() * 4 + pix.numel() * 4
     rows_out[rz.SOFT_FWD_DENSE] = dict(
         name=rz.SOFT_FWD_DENSE, route="cuda",
         source="tpunerf_torch/csrc/rasterize.cu",
@@ -1253,27 +1430,34 @@ def check_soft_kernels(seed: int):
         bound_ms=dense_cases["a"]["bound_ms"],
         bound_by=dense_cases["a"]["bound_by"], library_ms=None,
         inputs=dense_cases)
-    # the backward skips pixels with g·prod = 0 (count the live ones) and
-    # forms the gradient at few of the live pairs (count those too)
-    routed = _soft_grad_pairs(rz, face_rows, pix, g, prod, sigma)
-    b_ms, b_by = bound(io + 2 * P * 4 + F * 6 * 4,
-                       F * live * SOFT_FWD_FLOPS + routed * SOFT_GRAD_FLOPS,
-                       "f32")
+    # #9 (a) the wide camera with random g; (b) the head camera, which the
+    # sphere fills: hardly a live pixel, the floor; (c), the eval chunk's
+    # 5 views dense at 512², the overflow fallback, and (d), the silhouette
+    # phase's own 64² g and prod, follow below and in main()
+    print("soft_bwd_dense (#9) against its first design (8 faces a block, "
+          "every live pixel), 64² (8 x 4 tiles):")
+    head_prod = rz.soft_prod_dense_cuda(head_rows, pix, sigma, 64)
+    g_head = torch.randn((1, P), generator=gen, device=dev)
+    dense_bwd_cases = {
+        "a": soft_bwd_dense_case("(a) wide camera 64², B=1, random g",
+                                 face_rows, pix, g, prod, sigma, 64),
+        "b": soft_bwd_dense_case("(b) head camera 64², B=1, random g",
+                                 head_rows, pix, g_head, head_prod, sigma,
+                                 64)}
+    a9 = dense_bwd_cases["a"]
     rows_out[rz.SOFT_BWD_DENSE] = dict(
         name=rz.SOFT_BWD_DENSE, route="cuda",
         source="tpunerf_torch/csrc/rasterize.cu",
         replaces="tpunerf/kernels/rasterize.py:725", max_abs_err=bwd_abs,
-        max_rel_err=bwd_err,
-        ms=cuda_ms(lambda: rz.soft_grad_dense_cuda(face_rows, pix, g, prod,
-                                                   sigma), 50),
-        graph_ms=ex.graph_ms(lambda: rz.soft_grad_dense_cuda(
-            face_rows, pix, g, prod, sigma), 50)[0],
+        max_rel_err=max(bwd_err, a9["max_rel_err"]), ms=a9["ms"],
+        graph_ms=a9["graph_ms"],
         plain_ms=cuda_ms(lambda: rz.soft_grad_dense_plain(face_rows, pix, g,
                                                           prod, sigma), 3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=a9["bound_ms"], bound_by=a9["bound_by"], library_ms=None,
+        inputs=dense_bwd_cases)
     print(f"  dense backward: {live} of {P} pixels live (g*prod != 0); "
-          f"{routed} of {F * live} live (face, pixel) pairs reach the "
-          f"routed gradient; max abs err {bwd_abs:.3e}")
+          f"{a9['routed_pairs']} of {F * live} live (face, pixel) pairs "
+          f"reach the routed gradient; max abs err {bwd_abs:.3e}")
 
     # --- #8/#10 binned: the eval chunk, B = 5 views of the orbit at 512² --
     H = W = 512
@@ -1420,21 +1604,33 @@ def check_soft_kernels(seed: int):
             inputs={k: {"ms": c["sweep_ms"], "graph_ms": c["sweep_graph_ms"],
                         "all_pairs_bound_ms": c["all_pairs_bound_ms"]}
                     for k, c in cases.items()})
-    for name in (rz.SOFT_BWD_BINNED_SWEEP, rz.SOFT_FWD_DENSE_SWEEP,
-                 rz.SOFT_FWD_BINNED_SWEEP):
-        rows_out[name]["launches"] = _build.LAUNCHES.get(name, 0)
     gd = g.reshape(5, P).contiguous()
     pd = prod.reshape(5, P).contiguous()
     fv_body = project(orbit, cameras["body"])
     bins_ms = cuda_ms(lambda: rz._soft_bins(fv_body, H, W, sigma, K), 5)
     dense_f = cuda_ms(lambda: rz.soft_prod_dense_cuda(dense_rows, pix, sigma,
                                                       W), 3)
-    dense_b = cuda_ms(lambda: rz.soft_grad_dense_cuda(dense_rows, pix, gd, pd,
-                                                      sigma), 3)
     print(f"  max abs err of #10 at the three cameras {bwd_abs:.3e}; soft "
           f"bins (ranges, mask, rank, scatter) {bins_ms:.4f} ms; dense "
-          f"kernels on the same 5 views: fwd {dense_f:.4f} ms, bwd "
-          f"{dense_b:.4f} ms")
+          f"forward on the same 5 views {dense_f:.4f} ms")
+    print("soft_bwd_dense (#9) at 512², the overflow fallback (8 x 4 tiles):")
+    rows_out[rz.SOFT_BWD_DENSE]["inputs"]["c"] = soft_bwd_dense_case(
+        f"(c) dense {H}², the eval chunk's 5 views, body camera, random g",
+        dense_rows, pix, gd, pd, sigma, W, 3, binned=(face_rows, ids))
+    dense_row9 = rows_out[rz.SOFT_BWD_DENSE]
+    rows_out[rz.SOFT_BWD_DENSE_SWEEP] = dict(
+        dense_row9, name=rz.SOFT_BWD_DENSE_SWEEP,
+        max_rel_err=dense_row9["inputs"]["a"]["sweep_rel_err"],
+        ms=dense_row9["inputs"]["a"]["sweep_ms"],
+        graph_ms=dense_row9["inputs"]["a"]["sweep_graph_ms"],
+        bound_ms=dense_row9["inputs"]["a"]["old_bound_ms"],
+        bound_by=dense_row9["inputs"]["a"]["old_bound_by"], main_path=False,
+        inputs={k: {"ms": c["sweep_ms"], "graph_ms": c["sweep_graph_ms"],
+                    "old_bound_ms": c["old_bound_ms"]}
+                for k, c in dense_row9["inputs"].items()})
+    for name in (rz.SOFT_BWD_BINNED_SWEEP, rz.SOFT_BWD_DENSE_SWEEP,
+                 rz.SOFT_FWD_DENSE_SWEEP, rz.SOFT_FWD_BINNED_SWEEP):
+        rows_out[name]["launches"] = _build.LAUNCHES.get(name, 0)
     for r in rows_out.values():
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms eager, "
               f"{r.get('graph_ms', float('nan')):.4f} graph, plain "
@@ -2077,10 +2273,11 @@ def silhouette_phase(app, trainer, guidance):
     `render_train(...)["soft_mask"]` at 64² (dense, #9) and through
     `render_test(...)["mask"]` at 512² with autograd on (binned, #10), at
     the orbit's radius, where the body camera sees the sphere's rim.
-    Returns the launch counts and a copy of what reached #10 (rows, ids,
-    pix, g, prod, sigma, width) in the call with the most live pixels
-    (g·prod != 0): the phase's own cotangent (the other camera's render is
-    not in the mask, and its g is 0)."""
+    Returns the launch counts and copies of what reached #10 (rows, ids,
+    pix, g, prod, sigma, width) and #9 (rows, pix, g, prod, sigma, width),
+    each in its call with the most live pixels (g·prod != 0): the phase's
+    own cotangent (the other camera's render is not in the mask, and its g
+    is 0)."""
     import torch
     from tpunerf_torch.core.views import circle_poses
     from tpunerf_torch.kernels import _build
@@ -2089,18 +2286,22 @@ def silhouette_phase(app, trainer, guidance):
     scene = app.scene
     size = trainer.cfg.render.eval_grid_size
     views = circle_poses(5, trainer.view_cfg, trainer.device)
-    grad_binned, captured = rz.soft_grad_binned, []
+    grad_binned, grad_dense = rz.soft_grad_binned, rz.soft_grad_dense
+    captured, captured_dense = [], []
 
-    def spy(*args):
-        live = int((args[3] * args[4] != 0).sum().item())
-        if not captured or live > captured[0]:
-            captured[:] = [live] + [a.clone() if torch.is_tensor(a) else a
-                                    for a in args]
-        return grad_binned(*args)
+    def spy_on(fn, store, gi, pi):
+        def spy(*args):
+            live = int((args[gi] * args[pi] != 0).sum().item())
+            if not store or live > store[0]:
+                store[:] = [live] + [a.clone() if torch.is_tensor(a) else a
+                                     for a in args]
+            return fn(*args)
+        return spy
 
     _build.reset_launches()
     out = {}
-    rz.soft_grad_binned = spy
+    rz.soft_grad_binned = spy_on(grad_binned, captured, 3, 4)
+    rz.soft_grad_dense = spy_on(grad_dense, captured_dense, 2, 3)
     for label, render in (
             (f"render_train soft_mask {scene.render_grid_size}²",
              lambda: scene.render_train(views[:1])["soft_mask"]),
@@ -2123,14 +2324,15 @@ def silhouette_phase(app, trainer, guidance):
             fail(f"{label}: no finite non-zero gradient reached the "
                  f"displacement")
         out[label] = grad.abs().max().item()
-    rz.soft_grad_binned = grad_binned
+    rz.soft_grad_binned, rz.soft_grad_dense = grad_binned, grad_dense
     scene.zero_grad()
     launches = dict(_build.LAUNCHES)
     print("silhouette phase launches: " + json.dumps(launches))
-    if launches.get(rz.SOFT_BWD_DENSE, 0) <= 0 or not captured:
+    if (launches.get(rz.SOFT_BWD_DENSE, 0) <= 0 or not captured
+            or not captured_dense):
         fail("the silhouette phase never launched the dense or the binned "
              "backward")
-    return launches, captured[1:]
+    return launches, captured[1:], captured_dense[1:]
 
 
 def mesh_breakdown(app, trainer, mode1) -> None:
@@ -2352,6 +2554,7 @@ def main() -> int:
     logs = _build.build_all()
     print(f"nvcc build of {len(logs)} sources: "
           f"{time.perf_counter() - t0:.1f} s")
+    ptxas = {}   # kernel -> its -Xptxas -v lines (every instance)
     for name, log in logs.items():
         kernel = "?"
         for line in log.splitlines():
@@ -2361,11 +2564,20 @@ def main() -> int:
                 kernel = line[entry.end():entry.end() + int(entry.group(1))]
             elif "registers" in line or "spill" in line:
                 print(f"  [{name}] {kernel}: {line.strip()}")
+                ptxas.setdefault(kernel, []).append(line.strip())
+    # #9 keeps no thread's sums in local memory (its first design spilled)
+    for kernel in ("soft_bwd_dense_kernel", "soft_bwd_dense_tiles_kernel"):
+        lines = ptxas.get(kernel)
+        if lines is not None:
+            print(f"#9 -Xptxas -v {kernel}: " + "; ".join(lines))
+            if any(re.search(r"[1-9]\d* bytes spill stores", ln)
+                   for ln in lines):
+                fail(f"{kernel} spills (-Xptxas -v)")
 
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
-    exp_row = check_hash_bwd_experiment(args.seed)
+    split_row, variant_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
     launches, app, trainer, captured = train_full_width(STEPS, args.seed,
@@ -2385,9 +2597,10 @@ def main() -> int:
     del papp, ptrainer
     mesh_launches, mapp, mtrainer, mode1 = train_mesh_full_width(
         STEPS, args.seed, guidance)
-    sil_launches, sil_inputs = silhouette_phase(mapp, mtrainer, guidance)
-    # #10 (c) on the silhouette phase's own g and prod, beside the first
-    # binned design
+    sil_launches, sil_inputs, sil_dense = silhouette_phase(mapp, mtrainer,
+                                                           guidance)
+    # #10 (c) and #9 (d) on the silhouette phase's own g and prod, beside
+    # the first designs
     from tpunerf_torch.kernels import rasterize as rz
     case_c = soft_bwd_case("(c) the silhouette phase's g = 2·mask and prod",
                            *sil_inputs)
@@ -2395,7 +2608,14 @@ def main() -> int:
     soft_rows[rz.SOFT_BWD_BINNED_SWEEP]["inputs"]["c"] = {
         "ms": case_c["sweep_ms"], "graph_ms": case_c["sweep_graph_ms"],
         "old_bound_ms": case_c["old_bound_ms"]}
-    del sil_inputs
+    case_d = soft_bwd_dense_case(
+        f"(d) the silhouette phase's {math.isqrt(sil_dense[1].shape[0])}² "
+        f"g = 2·mask and prod", *sil_dense)
+    soft_rows[rz.SOFT_BWD_DENSE]["inputs"]["d"] = case_d
+    soft_rows[rz.SOFT_BWD_DENSE_SWEEP]["inputs"]["d"] = {
+        "ms": case_d["sweep_ms"], "graph_ms": case_d["sweep_graph_ms"],
+        "old_bound_ms": case_d["old_bound_ms"]}
+    del sil_inputs, sil_dense
     mesh_breakdown(mapp, mtrainer, mode1)
     profile_steps(mtrainer, "latent-paint-mesh mode 0")
     if mode1 is not None:
@@ -2424,7 +2644,8 @@ def main() -> int:
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
     kernels = (counted(rows, launches) + counted(paint_rows, paint_launches)
                + counted(soft_rows, soft_counts))
-    kernels.append(exp_row)   # launches from the experiment's own run
+    # launches from the experiment's own runs
+    kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
     # the card once more, where the end of a long output still shows it

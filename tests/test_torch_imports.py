@@ -79,13 +79,14 @@ def test_kernels_are_cuda_sources_of_the_package():
                    "soft_fwd_dense_sweep", "soft_fwd_binned_sweep",
                    "soft_fwd_dense_tile_kernel", "select_faces_dense_sweep",
                    "select_faces_binned_sweep", "face_out",
-                   "soft_bwd_binned_sweep", "soft_bwd_faces", "warp_sum8"):
+                   "soft_bwd_binned_sweep", "soft_bwd_faces", "warp_sum8",
+                   "soft_bwd_dense_sweep", "soft_bwd_dense_tiles_kernel"):
         assert symbol in raster, symbol
     # 3 culled selection, 2 all-pairs selection (timed only), 3 culled soft
-    # forward, 2 all-pairs soft forward (timed only), the dense soft
-    # backward, the culled binned one and its face sum, the first binned
-    # one (timed only)
-    assert raster.count("__global__") == 14 and "__expf" not in raster
+    # forward, 2 all-pairs soft forward (timed only), the culled dense soft
+    # backward and its first pass, the first dense one (timed only), the
+    # culled binned one and its face sum, the first binned one (timed only)
+    assert raster.count("__global__") == 16 and "__expf" not in raster
     occ = (PKG / "csrc" / "occgrid.cu").read_text()
     for symbol in ("occgrid_lookup", "occgrid_lookup_scalar", "float4",
                    "__fmul_rn", "__fdiv_rn", "kPow2"):

@@ -218,6 +218,62 @@ def test_hash_bwd_variant_full_matches_the_baseline_kernel():
     _close_to_max(full, hg.hash_bwd_cuda(x, g, cfg), 1e-5, "full vs #2")
 
 
+@pytest.mark.parametrize("grid", ["default", "split", "groups"])
+def test_hash_bwd_split_modes_equal_plain(grid):
+    """Every part of #2 on #2's grid, at 0.5x ... 4x the resident blocks,
+    bit for bit against its plain version; full at 1x against #2."""
+    dev = _card()
+    cfg = HashGridConfig(**GRIDS[grid])
+    x, _, g = _hash_inputs(cfg, 70001, 21, dev)
+    resident = hg._resident(hg.BWD, cfg, dev.index or 0)
+    for factor in hg.SPLIT_FACTORS:
+        blocks = hg.split_blocks(x.shape[0], cfg, factor, resident)
+        gmax = _launched(hg.SPLIT, lambda: hg.hash_bwd_split(
+            x, g, cfg, "gmax", blocks))
+        assert torch.equal(gmax, hg.hash_bwd_split_plain(x, g, cfg, "gmax",
+                                                         blocks))
+        partial = torch.randn(hg._split_partial_shape(cfg, blocks),
+                              device=dev)
+        for mode in ("full", "addr", "accum", "reduce"):
+            out = _launched(hg.SPLIT, lambda: hg.hash_bwd_split(
+                x, g, cfg, mode, blocks, gmax, partial))
+            ref = hg.hash_bwd_split_plain(x, g, cfg, mode, blocks, gmax,
+                                          partial)
+            if mode == "addr":
+                assert torch.equal(out[0], ref[0]) and torch.equal(out[1],
+                                                                   ref[1])
+            else:
+                assert torch.equal(out, ref), (mode, factor)
+        if factor == 1:
+            assert blocks == hg.bwd_blocks(x.shape[0], cfg, dev)
+            assert torch.equal(hg.hash_bwd_split(x, g, cfg, "full", blocks),
+                               hg.hash_bwd_cuda(x, g, cfg))
+
+
+def test_hash_bwd_split_at_full_width_and_non_finite_g():
+    """full at 1x is #2 bit for bit at the main path's N; with inf and NaN
+    in g, gmax, addr and full still equal their plain versions."""
+    dev = _card()
+    cfg = HashGridConfig()
+    x, _, g = _hash_inputs(cfg, 262144, 22, dev)
+    blocks = hg.bwd_blocks(x.shape[0], cfg, dev)
+    assert torch.equal(hg.hash_bwd_split(x, g, cfg, "full", blocks),
+                       hg.hash_bwd_cuda(x, g, cfg))
+    g = g.clone()
+    g[5, 3], g[70000, 0], g[200000, 23] = float("inf"), float("nan"), -1e30
+    for mode in ("gmax", "addr"):
+        out = hg.hash_bwd_split(x, g, cfg, mode, blocks)
+        ref = hg.hash_bwd_split_plain(x, g, cfg, mode, blocks)
+        for a, b in zip(out, ref) if mode == "addr" else [(out, ref)]:
+            assert torch.equal(a, b), mode
+    # full: NaN where plain's sums are, the same bits elsewhere
+    out = hg.hash_bwd_split(x, g, cfg, "full", blocks)
+    ref = hg.hash_bwd_split_plain(x, g, cfg, "full", blocks)
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
+
+
 def test_experiment_graph_counts_the_kernels_that_run():
     from tpunerf_torch.scripts import exp_hash_bwd as ex
     dev = _card()
@@ -796,6 +852,100 @@ def test_culled_binned_soft_backward_graph_replay_equals_eager():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = rz.soft_grad_binned(rows, ids, pix, g, prod, 1e-4, 512)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def _dense_bwd_inputs(dev, size, n_views, seed, cotangent="random"):
+    """Soft rows of the projected sphere (wide camera, with the degenerate,
+    outside and padded faces of _soft_inputs) at size², the kernel's prod
+    and a cotangent: N(0, 1), or the silhouette loss's 2·mask."""
+    _, rows, pix, gen = _soft_inputs(dev, size, n_views, seed)
+    prod = rz.soft_prod_dense_cuda(rows, pix, 1e-4, size)
+    if cotangent == "random":
+        g = torch.randn(prod.shape, generator=gen, device=dev)
+    else:
+        g = 2.0 * (1.0 - prod)
+    return rows, pix, g, prod
+
+
+@pytest.mark.parametrize("case", ["64 random", "64 silhouette", "50 random",
+                                  "512 random"])
+def test_culled_dense_soft_backward_matches_plain_the_sweep_and_10(case):
+    dev = _card()
+    size, cotangent = int(case.split()[0]), case.split()[1]
+    rows, pix, g, prod = _dense_bwd_inputs(dev, size, 2, 16, cotangent)
+    B, F = rows.shape[:2]
+    grad = _launched(rz.SOFT_BWD_DENSE, lambda: rz.soft_grad_dense(
+        rows, pix, g, prod, 1e-4, size))
+    assert grad.shape == (B, F, 6) and torch.isfinite(grad).all()
+    plain = rz.soft_grad_dense_plain(rows, pix, g, prod, 1e-4)
+    assert plain.abs().max() > 0
+    _close_to_max(grad, plain, 2e-5, "culled dense backward vs plain")
+    sweep = _launched(rz.SOFT_BWD_DENSE_SWEEP,
+                      lambda: rz.soft_grad_dense_sweep_cuda(
+                          rows, pix, g, prod, 1e-4))
+    _close_to_max(grad, sweep, 2e-5, "culled vs the first dense design")
+    # #10 on bins of every face (K a multiple of 128): the same function
+    K = -(-(F + 1) // 128) * 128
+    nb = -(-pix.shape[0] // 1024)
+    ids = torch.cat([torch.arange(F, dtype=torch.int32, device=dev),
+                     torch.full((K - F,), F, dtype=torch.int32, device=dev)]
+                    ).expand(B, nb, K).contiguous()
+    via10 = rz.soft_grad_binned(rz._with_filler(rows).contiguous(), ids, pix,
+                                rz._band_maps(g, nb), rz._band_maps(prod, nb),
+                                1e-4, size)
+    _close_to_max(grad, via10, 1e-4, "culled dense vs binned backward")
+    # outside and padded faces: exactly 0; fixed orders: the same bits
+    assert grad[:, 6].abs().max() == 0 and grad[:, 9].abs().max() == 0
+    assert torch.equal(grad, rz.soft_grad_dense(rows, pix, g, prod, 1e-4,
+                                                size))
+
+
+def test_culled_dense_soft_backward_without_tiles_of_8_by_4():
+    """width 0 (32 pixels in a row) and a width that no 8 x 4 tile fits
+    give plain's gradients too, and the wide tiles' within rounding."""
+    dev = _card()
+    rows, pix, g, prod = _dense_bwd_inputs(dev, 64, 1, 17)
+    plain = rz.soft_grad_dense_plain(rows, pix, g, prod, 1e-4)
+    for width in (0, 63, 64):
+        _close_to_max(rz.soft_grad_dense(rows, pix, g, prod, 1e-4, width),
+                      plain, 2e-5, f"dense backward at width {width}")
+
+
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_culled_dense_soft_backward_gives_nan_where_plain_does(k):
+    """A face with a NaN or an infinite vertex: plain gives its gradient
+    NaN (every share is), finite gradients to the other faces where prod is
+    finite; #9 the same, within 2e-5 elsewhere."""
+    dev = _card()
+    rows, pix = _non_finite_rows(dev, k, 18)
+    clean = torch.cat([rows[:, :200], rows[:, 201:]], dim=1).contiguous()
+    prod = rz.soft_prod_dense_plain(clean, pix, 1e-4)
+    g = torch.randn(prod.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(k))
+    grad = rz.soft_grad_dense(rows, pix, g, prod, 1e-4, 64)
+    plain = rz.soft_grad_dense_plain(rows, pix, g, prod, 1e-4)
+    assert torch.equal(torch.isnan(grad), torch.isnan(plain))
+    assert torch.isnan(plain[0, 200]).all()
+    assert int(torch.isnan(plain).sum()) == 6
+    fin = torch.isfinite(plain)
+    _close_to_max(grad[fin], plain[fin], 2e-5, "finite faces beside a NaN one")
+
+
+def test_culled_dense_soft_backward_graph_replay_equals_eager():
+    dev = _card()
+    rows, pix, g, prod = _dense_bwd_inputs(dev, 64, 2, 19, "silhouette")
+    eager = rz.soft_grad_dense(rows, pix, g, prod, 1e-4, 64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rz.soft_grad_dense(rows, pix, g, prod, 1e-4, 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rz.soft_grad_dense(rows, pix, g, prod, 1e-4, 64)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)

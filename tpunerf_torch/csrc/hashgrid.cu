@@ -6,8 +6,10 @@
 //   backward _bwd_kernel, launched by _hash_bwd_pallas (custom VJP _bwd)
 //            (#2, hashgrid_bwd_kernel + hashgrid_bwd_reduce_kernel);
 //   the backward's cost-split experiment, the kernel of _make_kernel
-//   launched by hash_bwd_variant in scripts/exp_hash_bwd.py (#11, see
-//   hashgrid_bwd_variant_kernel below).
+//   launched by hash_bwd_variant in scripts/exp_hash_bwd.py (#11): since
+//   its redesign hashgrid_bwd_split, which takes today's #2 apart on #2's
+//   own grid (see hashgrid_bwd_split_kernel below); its first design, which
+//   took the first #2 apart, stays as hashgrid_bwd_variant.
 // The first, level-per-block forward stays as hashgrid_fwd_level_kernel (C
 // symbol hashgrid_fwd_level), only to be timed beside #1; the first
 // backward is #11's mode `full` at 8192 points per block.
@@ -324,6 +326,94 @@ __device__ __forceinline__ int fixed_exponent(int gmax_bits) {
   return min(29 - e, 126);
 }
 
+// Pass 1 of #2 (and of the split's gmax): max |g| of `level` over the
+// finite g of points begin + t / nl, + q, ... < end, as the bits of a
+// non-negative float (inf and NaN at and above 0x7f800000); `odd` is set
+// where a non-finite g was seen.
+template <int F>
+__device__ __forceinline__ int level_gmax(const float* __restrict__ g,
+                                          long long begin, long long end,
+                                          int q, int t, int nl, int level,
+                                          long long row, bool& odd) {
+  int m = 0;
+#pragma unroll 4
+  for (long long p = begin + t / nl; p < end; p += q) {
+    float gf[F];
+    load_row<F>(g + p * row + level * F, gf);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const int b = __float_as_int(fabsf(gf[f]));
+      odd |= b >= 0x7f800000;
+      m = max(m, b < 0x7f800000 ? b : 0);
+    }
+  }
+  return m;
+}
+
+// Pass 2 of #2 without its adds (and the split's addr): for the same
+// points, every corner whose slot idx lies in [j0, j0 + nj) and every
+// feature, the fixed-point update v = rint(w * g_f * scale), handed to
+// add(f, j = idx - j0, idx, v); non-finite g count as 0 where zero_odd.
+template <int F, typename Add>
+__device__ __forceinline__ void level_updates(
+    const float* __restrict__ x, const float* __restrict__ g, long long begin,
+    long long end, int q, int t, int nl, int level, long long row, int T,
+    const Levels& lv, int j0, int nj, float scale, bool zero_odd, Add add) {
+  const int res = lv.res[level];
+  const bool dense = lv.dense[level] != 0;
+  const float resf = (float)res;
+  const uint32_t mask = (uint32_t)(T - 1);
+#pragma unroll 2
+  for (long long p = begin + t / nl; p < end; p += q) {
+    float gf[F];
+    load_row<F>(g + p * row + level * F, gf);
+    if (zero_odd) {
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        if (!(fabsf(gf[f]) <= FLT_MAX)) gf[f] = 0.0f;
+    }
+    const Cell cell = make_cell(x, p, resf, res);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      int idx;
+      float w;
+      corner(cell, c, res, dense, mask, idx, w);
+      const uint32_t j = (uint32_t)(idx - j0);
+      if (j >= (uint32_t)nj) continue;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        add(f, j, idx,
+            __float2int_rn(__fmul_rn(__fmul_rn(w, gf[f]), scale)));
+      }
+    }
+  }
+}
+
+// v onto the 64-bit sum held as a low word biased by 2^31 and a carry
+// word, by native 32-bit shared atomics (see the header).
+__device__ __forceinline__ void fixed_add(uint32_t* lo, int* hi, int v) {
+  if (v == 0) return;
+  const uint32_t u = (uint32_t)v;
+  const uint32_t old = atomicAdd(lo, u);
+  const int carry = (int)(old + u < old) - (v < 0);
+  if (carry != 0) atomicAdd(hi, carry);
+}
+
+// The block's exact sums hi * 2^32 + lo - 2^31 of (F, nl, nj) values into
+// its slice: one f32 rounding, then * 2^-s of the value's level.
+__device__ __forceinline__ void flush_sums(float* __restrict__ dst,
+                                           const uint32_t* s_lo,
+                                           const int* s_hi,
+                                           const int* s_gmax, int words,
+                                           int nl, int nj) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    const long long sum =
+        (long long)s_hi[i] * 4294967296ll + s_lo[i] - (long long)kLoBias;
+    dst[i] = __fmul_rn((float)sum,
+                       pow2(-fixed_exponent(s_gmax[(i / nj) % nl])));
+  }
+}
+
 // Kernel #2. Block (bx, part) accumulates the table gradient of the
 // part's levels and slots over points [bx * chunk, (bx + 1) * chunk), with
 // kernel #1's thread mapping, and writes its sums to its own slice of
@@ -357,72 +447,29 @@ hashgrid_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int li = t % nl;
   const int level = l0 + li;
   const long long row = (long long)L * F;
-  // pass 1: G = max |g| per level over the block's finite g, compared as
-  // the bits of non-negative floats (inf and NaN at and above 0x7f800000)
+  // pass 1: G = max |g| per level over the block's finite g
   bool odd = false;   // a non-finite g seen
   if (active) {
-    int m = 0;
-#pragma unroll 4
-    for (long long p = begin + t / nl; p < end; p += q) {
-      float gf[F];
-      load_row<F>(g + p * row + level * F, gf);
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        const int b = __float_as_int(fabsf(gf[f]));
-        odd |= b >= 0x7f800000;
-        m = max(m, b < 0x7f800000 ? b : 0);
-      }
-    }
-    atomicMax(&s_gmax[li], m);
+    atomicMax(&s_gmax[li],
+              level_gmax<F>(g, begin, end, q, t, nl, level, row, odd));
   }
   const bool any_odd = __syncthreads_or(odd);
   const int fstride = nl * nj;
   // pass 2: the g tile again (from L2), the addresses, the integer adds
   if (active) {
     const float scale = pow2(fixed_exponent(s_gmax[li]));
-    const int res = lv.res[level];
-    const bool dense = lv.dense[level] != 0;
-    const float resf = (float)res;
-    const uint32_t mask = (uint32_t)(T - 1);
     uint32_t* lo = s_lo + li * nj;
     int* hi = s_hi + li * nj;
-#pragma unroll 2
-    for (long long p = begin + t / nl; p < end; p += q) {
-      float gf[F];
-      load_row<F>(g + p * row + level * F, gf);
-      if (any_odd) {   // pass 3 adds the non-finite g
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          if (!(fabsf(gf[f]) <= FLT_MAX)) gf[f] = 0.0f;
-      }
-      const Cell cell = make_cell(x, p, resf, res);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        int idx;
-        float w;
-        corner(cell, c, res, dense, mask, idx, w);
-        const uint32_t j = (uint32_t)(idx - j0);
-        if (j >= (uint32_t)nj) continue;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const int v = __float2int_rn(__fmul_rn(__fmul_rn(w, gf[f]), scale));
-          if (v == 0) continue;
-          const uint32_t u = (uint32_t)v;
-          const uint32_t old = atomicAdd(&lo[f * fstride + j], u);
-          const int carry = (int)(old + u < old) - (v < 0);
-          if (carry != 0) atomicAdd(&hi[f * fstride + j], carry);
-        }
-      }
-    }
+    // pass 3 adds the non-finite g
+    level_updates<F>(x, g, begin, end, q, t, nl, level, row, T, lv, j0, nj,
+                     scale, any_odd, [&](int f, uint32_t j, int, int v) {
+                       fixed_add(&lo[f * fstride + j], &hi[f * fstride + j],
+                                 v);
+                     });
   }
   __syncthreads();
   float* dst = partial + ((size_t)part * gridDim.x + blockIdx.x) * stride;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const long long sum =
-        (long long)s_hi[i] * 4294967296ll + s_lo[i] - (long long)kLoBias;
-    dst[i] = __fmul_rn((float)sum,
-                       pow2(-fixed_exponent(s_gmax[(i / nj) % nl])));
-  }
+  flush_sums(dst, s_lo, s_hi, s_gmax, words, nl, nj);
   if (!any_odd) return;   // uniform across the block
   // pass 3: each update of a non-finite g onto the converted slice
   __syncthreads();
@@ -665,6 +712,119 @@ cudaError_t launch_variant_mode(int mode, const float* x, const float* g,
   }
 }
 
+// Today's #2 split into its parts (`hashgrid_bwd_split`), each run alone
+// on #2's own grid (blocks a part, chunks, level-fastest threads, parts of
+// table_parts):
+//   kSplitFull    both kernels of #2 (hashgrid_bwd_kernel and the reduce);
+//   kSplitGmax    pass 1 alone: g read once, each block's max |g| per
+//                 level into gmax (blocks, L) f32;
+//   kSplitAddr    pass 2 without the adds: g read again, x, make_cell, the 8
+//                 corners, the rounded fixed-point updates v with the
+//                 exponent of a given gmax, folded per block and level into
+//                 the sums over the updates of idx (uint32, wrapping) and of
+//                 v (int64), by one global atomic of each a thread;
+//   kSplitAccum   pass 2's shared adds alone, low word and carry word
+//                 (fixed_add), then the conversion into slices (flush_sums,
+//                 exponent 28 at every level), on stand-ins from
+//                 h = fmix32(p * 8 + c): the slot h & (T - 1) and, for every
+//                 feature, v = (int32)h >> 3, of either sign and below
+//                 2^28, the size of #2's updates of N(0, 1) g. Neither x nor
+//                 g is read, so no load is timed twice;
+//   kSplitReduce  hashgrid_bwd_reduce_kernel alone over given slices.
+// Integer sums make every mode exact: each equals its plain version bit for
+// bit, and full equals #2.
+enum SplitMode {
+  kSplitFull = 0, kSplitGmax = 1, kSplitAddr = 2, kSplitAccum = 3,
+  kSplitReduce = 4
+};
+
+template <int F, int Mode>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+hashgrid_bwd_split_kernel(const float* __restrict__ x,
+                          const float* __restrict__ g,
+                          const float* __restrict__ gmax_in,   // (blocks, L)
+                          float* __restrict__ gmax_out,        // (blocks, L)
+                          uint32_t* __restrict__ idx_sums,     // (blocks, L)
+                          unsigned long long* __restrict__ v_sums,
+                          float* __restrict__ partial, long long n, int L,
+                          int T, Levels lv, Parts parts, long long chunk,
+                          int stride) {
+  extern __shared__ __align__(16) uint32_t s_words[];
+  const int part = blockIdx.y;
+  const int l0 = parts.l0[part], nl = parts.nl[part];
+  const int j0 = parts.j0[part], nj = parts.nj[part];
+  const int words = nl * nj * F;
+  const long long begin = (long long)blockIdx.x * chunk;
+  const long long end = min(n, begin + chunk);
+  const int q = blockDim.x / nl;   // points per pass
+  const int t = threadIdx.x;
+  const bool active = t < q * nl;
+  const int li = t % nl;
+  const int level = l0 + li;
+  const long long row = (long long)L * F;
+  const size_t out = (size_t)blockIdx.x * L + level;
+  if constexpr (Mode == kSplitGmax) {
+    int* s_gmax = reinterpret_cast<int*>(s_words);
+    if (t < nl) s_gmax[t] = 0;
+    __syncthreads();
+    bool odd = false;
+    if (active) {
+      atomicMax(&s_gmax[li],
+                level_gmax<F>(g, begin, end, q, t, nl, level, row, odd));
+    }
+    __syncthreads();
+    if (t < nl) gmax_out[(size_t)blockIdx.x * L + l0 + t] =
+        __int_as_float(s_gmax[t]);
+  } else if constexpr (Mode == kSplitAddr) {
+    if (!active) return;
+    const float scale =
+        pow2(fixed_exponent(__float_as_int(gmax_in[out])));
+    uint32_t si = 0;
+    long long sv = 0;
+    level_updates<F>(x, g, begin, end, q, t, nl, level, row, T, lv, j0, nj,
+                     scale, true, [&](int, uint32_t, int idx, int v) {
+                       si += (uint32_t)idx;
+                       sv += v;
+                     });
+    atomicAdd(idx_sums + out, si);
+    atomicAdd(v_sums + out, (unsigned long long)sv);
+  } else {  // kSplitAccum
+    uint32_t* s_lo = s_words;
+    int* s_hi = reinterpret_cast<int*>(s_words + words);
+    int* s_gmax = s_hi + words;
+    for (int i = t; i < words; i += blockDim.x) {
+      s_lo[i] = kLoBias;
+      s_hi[i] = 0;
+    }
+    // G = 2: exponent 29 - 1
+    if (t < nl) s_gmax[t] = __float_as_int(2.0f);
+    __syncthreads();
+    if (active) {
+      const int fstride = nl * nj;
+      uint32_t* lo = s_lo + li * nj;
+      int* hi = s_hi + li * nj;
+      const uint32_t mask = (uint32_t)(T - 1);
+#pragma unroll 2
+      for (long long p = begin + t / nl; p < end; p += q) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const uint32_t h = fmix32((uint32_t)(p * 8 + c));
+          const uint32_t j = (h & mask) - (uint32_t)j0;
+          if (j >= (uint32_t)nj) continue;
+          const int v = (int)h >> 3;
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            fixed_add(&lo[f * fstride + j], &hi[f * fstride + j], v);
+        }
+      }
+    }
+    __syncthreads();
+    float* dst = partial + ((size_t)part * gridDim.x + blockIdx.x) * stride;
+    flush_sums(dst, s_lo, s_hi, s_gmax, words, nl, nj);
+    for (int i = words + t; i < stride; i += blockDim.x) dst[i] = 0.0f;
+  }
+}
+
 Levels make_levels(int L, const int* res, const int* dense) {
   Levels lv;
   for (int l = 0; l < kMaxLevels; ++l) {
@@ -796,6 +956,72 @@ cudaError_t launch_bwd(const float* x, const float* g, float* partial,
   return cudaGetLastError();
 }
 
+cudaError_t launch_reduce(const float* partial, float* dtable, int L, int T,
+                          int F, const Parts& parts, int n_parts,
+                          long long blocks, int stride, cudaStream_t s) {
+  const long long total = (long long)L * T * F;
+  const long long grid = std::min((total + 255) / 256, 65535ll);
+  hashgrid_bwd_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(
+      partial, dtable, L, T, F, parts, n_parts, (int)blocks, stride);
+  return cudaGetLastError();
+}
+
+template <int F, int Mode>
+cudaError_t launch_split_part(const float* x, const float* g,
+                              const float* gmax_in, float* gmax_out,
+                              uint32_t* idx_sums,
+                              unsigned long long* v_sums, float* partial,
+                              long long n, int L, int T, const Levels& lv,
+                              const Parts& parts, int n_parts, int max_words,
+                              long long bx, cudaStream_t s) {
+  auto kernel = hashgrid_bwd_split_kernel<F, Mode>;
+  size_t smem = 0;
+  if (Mode == kSplitGmax) smem = kMaxLevels * sizeof(int);
+  if (Mode == kSplitAccum) {
+    smem = bwd_smem(F, max_words);
+    static bool opened = false;   // once per instance, before any capture
+    if (!opened) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+      if (err != cudaSuccess) return err;
+      opened = true;
+    }
+  }
+  if (bx > 0) {
+    const long long chunk = (n + bx - 1) / bx;
+    kernel<<<dim3((unsigned)bx, (unsigned)n_parts), kBwdThreads, smem, s>>>(
+        x, g, gmax_in, gmax_out, idx_sums, v_sums, partial, n, L, T, lv,
+        parts, chunk, max_words * F);
+  }
+  return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_split(int mode, const float* x, const float* g,
+                         float* dtable, float* partial, const float* gmax_in,
+                         float* gmax_out, uint32_t* idx_sums,
+                         unsigned long long* v_sums, long long n, int L,
+                         int T, const Levels& lv, const Parts& parts,
+                         int n_parts, int max_words, long long bx,
+                         cudaStream_t s) {
+  switch (mode) {
+    case kSplitFull: {
+      const cudaError_t err = launch_bwd<F>(x, g, partial, n, L, T, lv, parts,
+                                            n_parts, max_words, bx, s);
+      if (err != cudaSuccess) return err;
+      return launch_reduce(partial, dtable, L, T, F, parts, n_parts, bx,
+                           max_words * F, s);
+    }
+    case kSplitGmax: return launch_split_part<F, kSplitGmax>(x, g, gmax_in, gmax_out, idx_sums, v_sums, partial, n, L, T, lv, parts, n_parts, max_words, bx, s);
+    case kSplitAddr: return launch_split_part<F, kSplitAddr>(x, g, gmax_in, gmax_out, idx_sums, v_sums, partial, n, L, T, lv, parts, n_parts, max_words, bx, s);
+    case kSplitAccum: return launch_split_part<F, kSplitAccum>(x, g, gmax_in, gmax_out, idx_sums, v_sums, partial, n, L, T, lv, parts, n_parts, max_words, bx, s);
+    case kSplitReduce:
+      return launch_reduce(partial, dtable, L, T, F, parts, n_parts, bx,
+                           max_words * F, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -888,11 +1114,8 @@ int hashgrid_bwd(const float* x, const float* g, float* dtable,
     default: err = cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)L * T * F;
-  const long long grid = std::min((total + 255) / 256, 65535ll);
-  hashgrid_bwd_reduce_kernel<<<(unsigned)grid, 256, 0, s>>>(
-      partial, dtable, L, T, F, parts, n_parts, (int)blocks, max_words * F);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce(partial, dtable, L, T, F, parts, n_parts, blocks,
+                            max_words * F, s);
 }
 
 // Kernel #11. The first hashgrid_bwd's arguments (x, g, dtable, n, L, T, F,
@@ -916,6 +1139,41 @@ int hashgrid_bwd_variant(const float* x, const float* g, float* dtable,
     case 2: return (int)launch_variant_mode<2>(mode, x, g, dtable, sums, n, L, T, lv, ppb, s);
     case 4: return (int)launch_variant_mode<4>(mode, x, g, dtable, sums, n, L, T, lv, ppb, s);
     case 8: return (int)launch_variant_mode<8>(mode, x, g, dtable, sums, n, L, T, lv, ppb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Today's #2 split into its parts (see hashgrid_bwd_split_kernel): mode 0
+// full, 1 gmax, 2 addr, 3 accum, 4 reduce, on #2's parts and `blocks` a
+// part (none with over kBwdMaxPoints points). Each mode reads and writes
+// only its own operands, the others may be null: full x, g -> partial
+// scratch, dtable; gmax g -> gmax_out (blocks, L) f32, written at every
+// level; addr x, g, gmax_in (blocks, L) -> idx_sums (blocks, L) uint32 and
+// v_sums (blocks, L) int64, zero-filled by the caller; accum -> partial
+// (n_parts, blocks, max(nl * nj) * F) f32 slices, written whole; reduce
+// partial -> dtable (L, T, F).
+int hashgrid_bwd_split(const float* x, const float* g, float* dtable,
+                       float* partial, const float* gmax_in, float* gmax_out,
+                       unsigned int* idx_sums, unsigned long long* v_sums,
+                       long long n, int L, int T, int F, const int* res,
+                       const int* dense, int n_parts, const int* l0,
+                       const int* nl, const int* j0, const int* nj,
+                       long long blocks, int mode, void* stream) {
+  Parts parts;
+  int max_words = 0;
+  cudaError_t err = make_parts(L, T, n_parts, l0, nl, j0, nj, parts,
+                               max_words);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_blocks(n, blocks, kBwdMaxPoints) || mode < kSplitFull ||
+      mode > kSplitReduce)
+    return (int)cudaErrorInvalidValue;
+  const Levels lv = make_levels(L, res, dense);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (F) {
+    case 1: return (int)launch_split<1>(mode, x, g, dtable, partial, gmax_in, gmax_out, idx_sums, v_sums, n, L, T, lv, parts, n_parts, max_words, blocks, s);
+    case 2: return (int)launch_split<2>(mode, x, g, dtable, partial, gmax_in, gmax_out, idx_sums, v_sums, n, L, T, lv, parts, n_parts, max_words, blocks, s);
+    case 4: return (int)launch_split<4>(mode, x, g, dtable, partial, gmax_in, gmax_out, idx_sums, v_sums, n, L, T, lv, parts, n_parts, max_words, blocks, s);
+    case 8: return (int)launch_split<8>(mode, x, g, dtable, partial, gmax_in, gmax_out, idx_sums, v_sums, n, L, T, lv, parts, n_parts, max_words, blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

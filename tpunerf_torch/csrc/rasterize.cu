@@ -691,7 +691,7 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 //   soft_fwd_dense   <- _soft_fwd_dense_batched  (_soft_fwd_kernel)
 //   soft_fwd_binned  <- _soft_fwd_binned          (_soft_fwd_kernel)
 //   soft_bwd_dense   <- _soft_bwd_dense_batched  (_soft_bwd_kernel,
-//                                                  _soft_grad_rows)
+//   + soft_bwd_dense_tiles, its first pass          _soft_grad_rows)
 //   soft_bwd_binned  <- _soft_bwd_binned          (_soft_bwd_binned_kernel)
 //   + soft_bwd_faces    and the segment_sum to faces in _soft_batched_vjp_bwd
 //
@@ -769,14 +769,34 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 //   slices, every pair evaluated, rows staged synchronously) and
 //   `soft_fwd_binned_sweep` (1024 threads sweep every filled slot), are kept
 //   only to be timed beside the new kernels; no path calls them.
-// * Backward, dense (`soft_bwd_dense`): a block owns 8 faces; its 256
-//   threads stride the pixels with 48 sums in registers, then reduce by
-//   warp shuffles and through shared memory in a fixed order. No atomics:
-//   the result is deterministic. Pixels with g*prod == 0 (all of the
-//   silhouette's interior, where prod is exactly 0) are skipped, which also
-//   keeps 0/0 out. The first binned design (`soft_bwd_binned_sweep`, kept
-//   only to be timed) is the same over 8 slots of one band, one row per
-//   (band, slot), and its caller sums the rows to faces by index_add_.
+// * Backward, dense (`soft_bwd_dense`, after the small first pass
+//   `soft_bwd_dense_tiles`). The same warp tiles as soft_fwd_dense and the
+//   binned backward's cull: a pixel is live where g*prod != 0, a tile's box
+//   is the box of its live pixels, a (face, tile) pair is skipped where the
+//   tile's box lies wholly outside the face's widened vertex box, and a
+//   tile with no live pixel is skipped whole. The first pass, once per
+//   view, lists the live tiles with their boxes in tile order, in segments
+//   of 256 tiles with each segment's count and box, so that no later block
+//   reads g and prod whole and a block skips the segments far from its
+//   faces.
+//   A block then owns 32 faces of one view, staged once with their boxes
+//   and the box around all of them, and walks the live tiles in order: a
+//   tile that meets the chunk's box is tested against the 32 faces by one
+//   `__ballot_sync`; the kept (tile, face) pairs of up to 32 tiles are
+//   listed and shared over the block's 8 warps; a warp forms a pair's 32
+//   lane shares and sums them (warp_sum8); thread (face, component) adds
+//   the pairs' sums of its face in tile order and writes its sum once.
+//   No atomics, no second kernel: two calls give the same bits. A face
+//   with a non-finite vertex gets NaN, as the plain version's NaN shares
+//   make it.
+// * The first dense design (`soft_bwd_dense_sweep`, kept only to be timed):
+//   a block owns 8 faces; its 256 threads stride every pixel with 48 sums in
+//   registers (255 registers with spills), then reduce by warp shuffles and
+//   through shared memory in a fixed order. Pixels with g*prod == 0 are
+//   skipped, which also keeps 0/0 out. The first binned design
+//   (`soft_bwd_binned_sweep`, kept only to be timed) is the same over 8
+//   slots of one band, one row per (band, slot), and its caller sums the
+//   rows to faces by index_add_.
 // * Backward, binned (`soft_bwd_binned`, then `soft_bwd_faces`). A pixel is
 //   live where g*prod != 0; the cotangent of a silhouette loss is non-zero
 //   only near the rim, and prod is exactly 0 inside it. Two blocks of 16
@@ -1377,7 +1397,7 @@ __device__ __forceinline__ float block_sum_rows(float (*acc)[6], int nf) {
 }
 
 __global__ void __launch_bounds__(kGThreads)
-soft_bwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
+soft_bwd_dense_sweep_kernel(const float* __restrict__ rows,  // (B, F, 16)
                       const float* __restrict__ pix,   // (P, 2)
                       const float* __restrict__ g,     // (B, P) dL/dmask
                       const float* __restrict__ prod,  // (B, P) forward's
@@ -1749,6 +1769,279 @@ soft_bwd_faces_kernel(const float* __restrict__ rows,       // (B, Fr, 16)
   if (lane < 6) out[wf * 6 + lane] = s;
 }
 
+// ---- the dense backward, culled (soft_bwd_dense_tiles, soft_bwd_dense) ---
+
+constexpr int kLTiles = 256;           // dense backward: tiles a segment
+constexpr int kLWarps = 32;            // ... first pass: warps a block
+constexpr int kQFaces = 8;             // ... faces a block
+constexpr int kQWarps = 8;             // ... warps a block
+constexpr int kQThreads = kQWarps * 32;
+constexpr int kQBatch = 32;            // ... kept tiles a batch
+static_assert(kQThreads == kLTiles, "a thread a live tile of a segment");
+static_assert(kQBatch <= 32, "a lane of warp 0 a tile of a batch");
+static_assert(kQFaces <= 32 && 6 * kQFaces <= kQThreads,
+              "a ballot's faces, a thread a face's component");
+
+// First pass of the dense backward: block (s, b) takes the tiles
+// [s * kLTiles, (s + 1) * kLTiles) of view b, a warp a tile at a time, and
+// lists the tiles with a live pixel (g*prod != 0; dense_tile_pixel's
+// tiles) in tile order in segment s: their ids in `live`, the boxes of
+// their live pixels in `live_boxes`, their number in counts[b][s] and the
+// box around them all in seg_boxes[b][s].
+__global__ void __launch_bounds__(kLWarps * 32, 1)
+soft_bwd_dense_tiles_kernel(const float* __restrict__ pix,   // (P, 2)
+                            const float* __restrict__ g,     // (B, P)
+                            const float* __restrict__ prod,  // (B, P)
+                            int* __restrict__ live,          // (B, S, 256)
+                            float4* __restrict__ live_boxes,  // (B, S, 256)
+                            int* __restrict__ counts,        // (B, S)
+                            float4* __restrict__ seg_boxes,  // (B, S)
+                            int P, int width, int T) {
+  __shared__ float4 box[kLTiles];
+  __shared__ int wcount[kLTiles / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x, b = blockIdx.y, S = gridDim.x;
+  const float* gb = g + (size_t)b * P;
+  const float* pb = prod + (size_t)b * P;
+  for (int k = warp; k < kLTiles; k += kLWarps) {
+    const int t = s * kLTiles + k;
+    Box tb{INFINITY, -INFINITY, INFINITY, -INFINITY};
+    bool tile_live = false;
+    if (t < T) {  // uniform over the warp
+      const int p = dense_tile_pixel(t, lane, P, width);
+      const bool in = p >= 0;
+      const float gp = in ? __fmul_rn(gb[p], pb[p]) : 0.0f;
+      const bool lv = gp != 0.0f;  // a NaN is live
+      const float px = in ? pix[2 * p + 0] : 5.0f;
+      const float py = in ? pix[2 * p + 1] : 5.0f;
+      tb = tile_box(px, py, lv);
+      tile_live = __any_sync(0xffffffffu, lv);
+    }
+    // a dead tile: the empty box and no entry (NaN marks "dead")
+    if (lane == 0) {
+      box[k] = tile_live ? make_float4(tb.x0, tb.x1, tb.y0, tb.y1)
+                         : make_float4(NAN, 0.f, 0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k >= kLTiles) return;  // whole warps
+  const float4 q = box[k];
+  const bool on = !isnan(q.x);  // a live tile's box is never NaN at x0
+  const unsigned mask = __ballot_sync(0xffffffffu, on);
+  if (lane == 0) wcount[warp] = __popc(mask);
+  if (warp == 0) {  // the box around the segment's live tiles
+    Box u{INFINITY, -INFINITY, INFINITY, -INFINITY};
+    for (int i = lane; i < kLTiles; i += 32) {
+      const float4 c = box[i];
+      if (!isnan(c.x)) {
+        u = Box{fminf(u.x0, c.x), fmaxf(u.x1, c.y), fminf(u.y0, c.z),
+                fmaxf(u.y1, c.w)};
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      u.x0 = fminf(u.x0, __shfl_xor_sync(0xffffffffu, u.x0, off));
+      u.x1 = fmaxf(u.x1, __shfl_xor_sync(0xffffffffu, u.x1, off));
+      u.y0 = fminf(u.y0, __shfl_xor_sync(0xffffffffu, u.y0, off));
+      u.y1 = fmaxf(u.y1, __shfl_xor_sync(0xffffffffu, u.y1, off));
+    }
+    if (lane == 0) {
+      seg_boxes[(size_t)b * S + s] = make_float4(u.x0, u.x1, u.y0, u.y1);
+    }
+  }
+  // the first kLTiles threads only: the others have returned
+  asm volatile("bar.sync 1, %0;" ::"n"(kLTiles));
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kLTiles / 32; ++w) {
+    base += w < warp ? wcount[w] : 0;
+    total += wcount[w];
+  }
+  const size_t seg = (size_t)b * S + s;
+  if (on) {
+    const size_t pos =
+        seg * kLTiles + base + __popc(mask & ((1u << lane) - 1u));
+    live[pos] = s * kLTiles + k;
+    live_boxes[pos] = q;
+  }
+  if (k == 0) counts[seg] = total;
+}
+
+// Dense backward: block (c, b) owns faces [32c, 32c + 32) of view b. Warp
+// 0 stages their rows with their cull boxes (face_box) and the box around
+// them all. Each segment of the live list whose box meets the chunk's box
+// is a round: thread i takes live tile i, which is kept for the chunk
+// where its box meets the chunk's box;
+// for each such tile its warp tests the 32 faces by one ballot. The tiles
+// with a kept face are compacted in tile order and taken in batches of up
+// to kQBatch: warp 0 lists the batch's kept (tile, face) pairs, every warp
+// stages the pixels (x, y, g*prod) of some of its tiles, the pairs are
+// shared over the warps (a warp a pair, its lanes the tile's pixels,
+// warp_sum8), and thread 6f + c adds component c of face f's pairs in tile
+// order. Static shared memory: under 48 KB, four blocks an SM.
+__global__ void __launch_bounds__(kQThreads)
+soft_bwd_dense_kernel(const float* __restrict__ rows,        // (B, F, 16)
+                      const float* __restrict__ pix,         // (P, 2)
+                      const float* __restrict__ g,           // (B, P)
+                      const float* __restrict__ prod,        // (B, P)
+                      const int* __restrict__ live,          // (B, S, 256)
+                      const float4* __restrict__ live_boxes,  // (B, S, 256)
+                      const int* __restrict__ counts,        // (B, S)
+                      const float4* __restrict__ seg_boxes,  // (B, S)
+                      float* __restrict__ out,               // (B, F, 6)
+                      int F, int P, int width, int S, float sigma, float m) {
+  __shared__ float4 conv[kQFaces * kRQuads];   // staged rows, boxes
+  __shared__ float4 tpix[kQBatch * 32];        // a batch's pixels
+  __shared__ float part[kQBatch * kQFaces * 6];  // its pairs' sums
+  __shared__ int kt[kQThreads];                // a round's kept tiles
+  __shared__ unsigned km[kQThreads];           // ... and their faces
+  __shared__ unsigned short plist[kQBatch * kQFaces];  // a batch's pairs
+  __shared__ int pbase[kQBatch];               // ... each tile's first
+  __shared__ int wcnt[kQWarps];
+  __shared__ int npairs;
+  __shared__ float4 chunk_box;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int f0 = blockIdx.x * kQFaces, b = blockIdx.y;
+  const int nf = min(kQFaces, F - f0);
+  const float* src = rows + ((size_t)b * F + f0) * kSRow;
+  const float* gb = g + (size_t)b * P;
+  const float* pb = prod + (size_t)b * P;
+
+  if (warp == 0) {
+    Box fb{INFINITY, -INFINITY, INFINITY, -INFINITY};  // no face: empty
+    if (lane < nf) {
+      stage_row(src + lane * kSRow, conv + lane * kRQuads);
+      fb = face_box(src + lane * kSRow, m);
+    } else if (lane < kQFaces) {
+      stage_zero(conv + lane * kRQuads);
+    }
+    if (lane < kQFaces) {
+      conv[lane * kRQuads + kSQuads] =
+          make_float4(fb.x0, fb.x1, fb.y0, fb.y1);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      fb.x0 = fminf(fb.x0, __shfl_xor_sync(0xffffffffu, fb.x0, off));
+      fb.x1 = fmaxf(fb.x1, __shfl_xor_sync(0xffffffffu, fb.x1, off));
+      fb.y0 = fminf(fb.y0, __shfl_xor_sync(0xffffffffu, fb.y0, off));
+      fb.y1 = fmaxf(fb.y1, __shfl_xor_sync(0xffffffffu, fb.y1, off));
+    }
+    if (lane == 0) chunk_box = make_float4(fb.x0, fb.x1, fb.y0, fb.y1);
+  }
+  __syncthreads();
+  const float4 cq = chunk_box;
+  const Box cb{cq.x, cq.y, cq.z, cq.w};
+  const float4 fq = conv[min(lane, kQFaces - 1) * kRQuads + kSQuads];
+  const Box my_face{fq.x, fq.y, fq.z, fq.w};  // lane's face, for the ballots
+
+  float acc = 0.0f;  // thread 6f + c: component c of face f
+  for (int s = 0; s < S; ++s) {
+    const size_t seg = (size_t)b * S + s;
+    const int n = counts[seg];  // uniform over the block
+    const float4 sq = seg_boxes[seg];
+    if (n == 0 || outside(cb, Box{sq.x, sq.y, sq.z, sq.w})) continue;
+    int t = -1;
+    Box tb{INFINITY, -INFINITY, INFINITY, -INFINITY};
+    bool hit = false;
+    if (tid < n) {
+      t = live[seg * kLTiles + tid];
+      const float4 q = live_boxes[seg * kLTiles + tid];
+      tb = Box{q.x, q.y, q.z, q.w};
+      hit = !outside(cb, tb);
+    }
+    unsigned mask = 0u;
+    for (unsigned hits = __ballot_sync(0xffffffffu, hit); hits;
+         hits &= hits - 1u) {
+      const int k = __ffs(hits) - 1;
+      const Box kb{__shfl_sync(0xffffffffu, tb.x0, k),
+                   __shfl_sync(0xffffffffu, tb.x1, k),
+                   __shfl_sync(0xffffffffu, tb.y0, k),
+                   __shfl_sync(0xffffffffu, tb.y1, k)};
+      const unsigned faces =
+          __ballot_sync(0xffffffffu, lane < nf && !outside(my_face, kb));
+      if (lane == k) mask = faces;
+    }
+    // the tiles with a kept face, compacted in tile order
+    const unsigned keep = __ballot_sync(0xffffffffu, mask != 0u);
+    if (lane == 0) wcnt[warp] = __popc(keep);
+    __syncthreads();  // the counts are visible; the last round is done
+    int base = 0, nk = 0;
+#pragma unroll
+    for (int w = 0; w < kQWarps; ++w) {
+      base += w < warp ? wcnt[w] : 0;
+      nk += wcnt[w];
+    }
+    if (mask != 0u) {
+      const int pos = base + __popc(keep & ((1u << lane) - 1u));
+      kt[pos] = t;
+      km[pos] = mask;
+    }
+    __syncthreads();  // the round's kept tiles are visible
+    for (int c0 = 0; c0 < nk; c0 += kQBatch) {
+      const int nc = min(kQBatch, nk - c0);
+      if (warp == 0) {  // the batch's pairs, tile-major
+        const unsigned mm = lane < nc ? km[c0 + lane] : 0u;
+        const int cnt = __popc(mm);
+        int incl = cnt;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        int i = incl - cnt;
+        if (lane < kQBatch) pbase[lane] = i;
+        if (lane == 31) npairs = incl;
+        for (unsigned bits = mm; bits; bits &= bits - 1u) {
+          plist[i++] = (unsigned short)(lane << 5 | (__ffs(bits) - 1));
+        }
+      }
+      for (int j = warp; j < nc; j += kQWarps) {
+        const int p = dense_tile_pixel(kt[c0 + j], lane, P, width);
+        float4 q = make_float4(5.0f, 5.0f, 0.0f, 0.0f);
+        if (p >= 0) {
+          q = make_float4(pix[2 * p + 0], pix[2 * p + 1],
+                          __fmul_rn(gb[p], pb[p]), 0.0f);
+        }
+        tpix[j * 32 + lane] = q;
+      }
+      __syncthreads();  // the pairs and the pixels are visible
+      const int np = npairs;
+      for (int i = warp; i < np; i += kQWarps) {
+        const int j = plist[i] >> 5, f = plist[i] & 31;
+        const float4 q = tpix[j * 32 + lane];
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        const bool added = q.z != 0.0f && grad_face(conv + f * kRQuads, q.x,
+                                                    q.y, sigma, q.z, v);
+        if (__any_sync(0xffffffffu, added)) {
+          warp_sum8(v, lane);
+          if ((lane & 3) == 0 && lane < 24) part[i * 6 + (lane >> 2)] = v[0];
+        } else if (lane < 6) {
+          part[i * 6 + lane] = 0.0f;
+        }
+      }
+      __syncthreads();  // the pairs' sums are visible
+      if (tid < 6 * kQFaces) {
+        const int f = tid / 6, c = tid - 6 * f;
+        const unsigned below = (1u << f) - 1u;
+        for (int j = 0; j < nc; ++j) {  // in tile order
+          const unsigned mm = km[c0 + j];
+          if ((mm >> f) & 1u) {
+            acc = __fadd_rn(acc,
+                            part[(pbase[j] + __popc(mm & below)) * 6 + c]);
+          }
+        }
+      }
+      __syncthreads();  // the batch's buffers are free
+    }
+  }
+  if (tid < 6 * nf) {
+    const bool bad = P > 0 && !finite_vertices(src + (tid / 6) * kSRow);
+    out[((size_t)b * F + f0) * 6 + tid] =
+        bad ? __int_as_float(0x7fc00000) : acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1838,13 +2131,60 @@ int soft_fwd_binned_sweep(const float* rows, const int* ids, const float* pix,
   return (int)cudaGetLastError();
 }
 
-// g, prod (B, P) f32; out (B, F, 6) f32 vertex gradients.
+// Kernel #9. rows (B, F, 16) f32, 16-byte aligned; pix (P, 2); g, prod
+// (B, P) f32; out (B, F, 6) f32 vertex gradients. width: the image's width
+// where it is a multiple of 8 that divides P (8 x 4 tiles), else 0 (32
+// pixels in a row); margin the cull's sqrt(27.7 sigma). scratch: at least
+// soft_bwd_dense_scratch(B, P, width) 32-bit words, 16-byte aligned (the
+// live list with its tiles' boxes, each segment's count and box).
+long long soft_bwd_dense_scratch(int B, int P, int width) {
+  const long long T = dense_tiles(P, width);
+  const long long S = (T + kLTiles - 1) / kLTiles;
+  return (long long)B * S * (5 * kLTiles + 5);
+}
+
 int soft_bwd_dense(const float* rows, const float* pix, const float* g,
-                   const float* prod, float* out, int B, int F, int P,
-                   float sigma, void* stream) {
+                   const float* prod, float* out, int* scratch,
+                   long long scratch_words, int B, int F, int P, int width,
+                   float sigma, float margin, void* stream) {
+  if (B <= 0 || F <= 0) return (int)cudaGetLastError();
+  if (B > 65535 || P < 0 ||
+      scratch_words < soft_bwd_dense_scratch(B, P, width)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long T = dense_tiles(P, width);
+  const int S = (int)((T + kLTiles - 1) / kLTiles);
+  const size_t segs = (size_t)B * S;
+  float4* live_boxes = reinterpret_cast<float4*>(scratch);
+  float4* seg_boxes = live_boxes + segs * kLTiles;
+  int* live = reinterpret_cast<int*>(seg_boxes + segs);
+  int* counts = live + segs * kLTiles;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S > 0) {
+    soft_bwd_dense_tiles_kernel<<<dim3((unsigned)S, (unsigned)B),
+                                  kLWarps * 32, 0, st>>>(
+        pix, g, prod, live, live_boxes, counts, seg_boxes, P, width, (int)T);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((unsigned)((F + kQFaces - 1) / kQFaces), (unsigned)B);
+  soft_bwd_dense_kernel<<<grid, kQThreads, 0, st>>>(
+      rows, pix, g, prod, live, live_boxes, counts, seg_boxes, out, F, P,
+      width, S, sigma, margin);
+  return (int)cudaGetLastError();
+}
+
+// The first dense backward design (every face of a block at every live
+// pixel), with #9's contract but no width and no margin; kept only to be
+// timed beside #9. g, prod (B, P) f32; out (B, F, 6) f32 vertex gradients.
+int soft_bwd_dense_sweep(const float* rows, const float* pix, const float* g,
+                         const float* prod, float* out, int B, int F, int P,
+                         float sigma, void* stream) {
   if (B > 0 && F > 0) {
+    if (B > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)((F + kGFaces - 1) / kGFaces), (unsigned)B);
-    soft_bwd_dense_kernel<<<grid, kGThreads, 0, (cudaStream_t)stream>>>(
+    soft_bwd_dense_sweep_kernel<<<grid, kGThreads, 0,
+                                  (cudaStream_t)stream>>>(
         rows, pix, g, prod, out, F, P, sigma);
   }
   return (int)cudaGetLastError();

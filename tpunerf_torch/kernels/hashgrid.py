@@ -12,9 +12,12 @@ Both kernels hold a part of the table in shared memory (`table_parts`).
 arithmetic in PyTorch. `hash_encode_level_cuda` runs the level-per-block
 forward, kept only to be timed beside #1.
 
-`hash_bwd_variant` runs the table gradient's cost-split variants of the
-same kernel file (full, global, addr, accum); only the experiment
-`python -m tpunerf_torch.scripts.exp_hash_bwd` and `chip_smoke.py` call it.
+`hash_bwd_split` takes today's #2 apart on its own grid (full, gmax,
+addr, accum, reduce: kernel #11 since its redesign); `hash_bwd_variant`
+runs the first design of #11, the cost-split variants of the first #2
+(full, global, addr, accum). Only the experiment
+`python -m tpunerf_torch.scripts.exp_hash_bwd`, `chip_smoke.py` and the
+tests call them.
 """
 from __future__ import annotations
 
@@ -37,6 +40,12 @@ FWD_LEVEL = "hashgrid_fwd_level"   # level-per-block forward, timed only
 # exp_hash_bwd.py): kernel modes in the order of their codes
 VARIANT = "hashgrid_bwd_variant"
 VARIANT_MODES = ("full", "global", "addr", "accum")
+# today's #2 taken apart (kernel #11): modes in the order of their codes,
+# and the grids they run, as multiples of #2's resident blocks
+SPLIT = "hashgrid_bwd_split"
+SPLIT_MODES = ("full", "gmax", "addr", "accum", "reduce")
+SPLIT_FACTORS = (0.5, 1, 2, 4)
+STAND_IN_EXPONENT = 28        # accum's fixed point: G = 2 at every level
 THREADS = 256                 # threads per block of the variants
 # shared memory a block can use on Hopper, and what #1 and #2 keep beside
 # their part of the table (an mbarrier; the per-level maxima)
@@ -153,6 +162,8 @@ _SIGNATURES = {
           _I),
     "hashgrid_resident_blocks": ([_I] * 3 + [_P], _I),
     VARIANT: ([_P] * 4 + [_L] + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P], _I),
+    SPLIT: ([_P] * 8 + [_L] + [_I] * 3 + [_P] * 2 + [_I] + [_P] * 4
+            + [_L, _I, _P], _I),
 }
 
 
@@ -265,6 +276,12 @@ def _pow2(s: torch.Tensor) -> torch.Tensor:
     return ((s + 127) << 23).to(torch.int32).view(torch.float32)
 
 
+def _chunks(n: int, blocks: int):
+    """#2's chunks of points: [b·c, min(n, (b + 1)·c)) with c = ⌈n/blocks⌉."""
+    c = -(-n // blocks) if blocks else 0
+    return [(b * c, min(n, (b + 1) * c)) for b in range(blocks)]
+
+
 def hash_bwd_fixed_point_plain(x: torch.Tensor, g: torch.Tensor,
                                cfg: HashGridConfig,
                                blocks: int) -> torch.Tensor:
@@ -281,12 +298,10 @@ def hash_bwd_fixed_point_plain(x: torch.Tensor, g: torch.Tensor,
     dtable = torch.zeros((L * T, F), dtype=torch.float32, device=dev)
     if N == 0:
         return dtable.reshape(L, T, F)
-    chunk = -(-N // blocks)
     idx8, w8 = corner_indices_and_weights(x, cfg)               # (L, N, 8)
     flat = idx8 + torch.arange(L, device=dev)[:, None, None] * T
     g_lnf = g.reshape(N, L, F).permute(1, 0, 2)                 # (L, N, F)
-    for b in range(blocks):
-        lo, hi = b * chunk, min(N, (b + 1) * chunk)
+    for lo, hi in _chunks(N, blocks):
         if lo >= hi:
             continue
         gb = g_lnf[:, lo:hi]
@@ -328,17 +343,23 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & 0xFFFFFFFF
 
 
-def accum_stand_ins(n: int, table_size: int, device):
-    """`accum`'s stand-in slots (N, 8) int64 and payloads (N, 8) f32, from
-    h = fmix32(p·8 + c), MurmurHash3's 32-bit finaliser (csrc/hashgrid.cu):
-    the slot h & (T − 1) and the f32 with bits 0x3F800000 | (h >> 9), in
-    [1, 2)."""
+def _corner_hashes(n: int, device) -> torch.Tensor:
+    """h = fmix32(p·8 + c), MurmurHash3's 32-bit finaliser
+    (csrc/hashgrid.cu), for every (point, corner): (N·8,) int64 in
+    [0, 2³²)."""
     h = torch.arange(n * 8, dtype=torch.int64, device=device)
     h = h ^ (h >> 16)
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
-    h = h ^ (h >> 16)
+    return h ^ (h >> 16)
+
+
+def accum_stand_ins(n: int, table_size: int, device):
+    """`accum`'s stand-in slots (N, 8) int64 and payloads (N, 8) f32, from
+    h = `_corner_hashes`: the slot h & (T − 1) and the f32 with bits
+    0x3F800000 | (h >> 9), in [1, 2)."""
+    h = _corner_hashes(n, device)
     payload = ((h >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return (h & (table_size - 1)).reshape(n, 8), payload.reshape(n, 8)
 
@@ -401,6 +422,211 @@ def hash_bwd_variant_cuda(x: torch.Tensor, g: torch.Tensor,
     if sums is not None:
         return sums[:, 0], sums[:, 1:].view(torch.float32)
     return dtable
+
+
+def split_blocks(n: int, cfg: HashGridConfig, factor: float,
+                 resident: int) -> int:
+    """Blocks a part of #2's grid at `factor` times the `resident` blocks
+    of #2 (the card's, `_resident(BWD, ...)`): factor 1 gives #2's own
+    grid, `bwd_blocks`."""
+    return grid_blocks(n, _part_arrays(cfg, BWD_VALUE_BYTES)[0],
+                       max(1, round(factor * resident)), BWD_MIN_POINTS,
+                       BWD_MAX_POINTS)
+
+
+def _split_mode(mode: str, n: int, blocks: int) -> int:
+    """The kernel's code for `mode`; raises on an unknown mode or on a grid
+    that is not #2's: `blocks` a part an int, 0 only for n = 0, with no
+    block over BWD_MAX_POINTS points."""
+    if mode not in SPLIT_MODES:
+        raise ValueError(f"unknown mode {mode!r}, not one of {SPLIT_MODES}")
+    if (not isinstance(blocks, int) or isinstance(blocks, bool)
+            or blocks < 0 or blocks > 1 << 30 or (blocks == 0) != (n == 0)
+            or (blocks and -(-n // blocks) > BWD_MAX_POINTS)):
+        raise ValueError(f"blocks {blocks!r} a part is no grid of #2 for "
+                         f"{n} points (at most {BWD_MAX_POINTS} a block)")
+    return SPLIT_MODES.index(mode)
+
+
+def _split_gmax_plain(g: torch.Tensor, cfg: HashGridConfig,
+                      blocks: int) -> torch.Tensor:
+    """Pass 1: (blocks, L) f32, each chunk's max |g| per level over its
+    finite g, 0 where there is none."""
+    L, F = cfg.n_levels, cfg.n_features_per_level
+    gl = g.reshape(-1, L, F).abs()
+    gl = torch.where(torch.isfinite(gl), gl, torch.zeros_like(gl))
+    out = torch.zeros((blocks, L), dtype=torch.float32, device=g.device)
+    for b, (lo, hi) in enumerate(_chunks(g.shape[0], blocks)):
+        if lo < hi:
+            out[b] = gl[lo:hi].amax(dim=(0, 2))
+    return out
+
+
+def _split_addr_plain(x: torch.Tensor, g: torch.Tensor, cfg: HashGridConfig,
+                      blocks: int, gmax: torch.Tensor):
+    """Pass 2 without the adds: per chunk and level, over the updates
+    (point, corner, feature) the sum of the slot idx (int32, the uint32
+    sum's bits) and of v = rint(w·g_f·2^s), s from `gmax` (int64); a
+    non-finite g gives v = 0."""
+    L, F = cfg.n_levels, cfg.n_features_per_level
+    idx8, w8 = corner_indices_and_weights(x, cfg)               # (L, N, 8)
+    g_lnf = g.reshape(-1, L, F).permute(1, 0, 2)                # (L, N, F)
+    g_lnf = torch.where(torch.isfinite(g_lnf), g_lnf,
+                        torch.zeros_like(g_lnf))
+    scale = _pow2(fixed_point_exponent(gmax))                   # (blocks, L)
+    isum = torch.zeros((blocks, L), dtype=torch.int64, device=x.device)
+    vsum = torch.zeros((blocks, L), dtype=torch.int64, device=x.device)
+    for b, (lo, hi) in enumerate(_chunks(x.shape[0], blocks)):
+        if lo >= hi:
+            continue
+        v = w8[:, lo:hi, :, None] * g_lnf[:, lo:hi, None, :]    # f32 w·g_f
+        q = torch.round(v * scale[b][:, None, None, None]).long()
+        isum[b] = idx8[:, lo:hi].sum(dim=(1, 2)) * F
+        vsum[b] = q.sum(dim=(1, 2, 3))
+    return _wrap_int32(isum), vsum
+
+
+def split_stand_ins(n: int, table_size: int, device):
+    """The split's `accum` stand-ins from h = `_corner_hashes`: slots
+    h & (T − 1) (N, 8) int64, as `accum_stand_ins`, and updates
+    v = (int32)h >> 3 (N, 8) int64, of either sign and below 2^28."""
+    h = _corner_hashes(n, device)
+    signed = torch.where(h >= 2 ** 31, h - 2 ** 32, h)
+    return ((h & (table_size - 1)).reshape(n, 8),
+            (signed >> 3).reshape(n, 8))
+
+
+def _split_accum_plain(n: int, cfg: HashGridConfig, blocks: int, device
+                       ) -> torch.Tensor:
+    """The shared adds and the conversion alone: the slices (n_parts,
+    blocks, most·F) f32, (F, nl, nj) each, of every chunk's exact int64
+    sums of the stand-in updates into their slots (every level and feature
+    alike), converted once to f32 and · 2^-28; 0 past a part's words."""
+    T, F = cfg.table_size, cfg.n_features_per_level
+    parts = table_parts(cfg, BWD_VALUE_BYTES)
+    most = max(nl * nj for _, nl, _, nj in parts)
+    slots, v = split_stand_ins(n, T, device)
+    out = torch.zeros((len(parts), blocks, most * F), dtype=torch.float32,
+                      device=device)
+    for b, (lo, hi) in enumerate(_chunks(n, blocks)):
+        sums = torch.zeros((T,), dtype=torch.int64, device=device)
+        if lo < hi:
+            sums.index_add_(0, slots[lo:hi].reshape(-1), v[lo:hi].reshape(-1))
+        back = sums.float() * 2.0 ** -STAND_IN_EXPONENT
+        for k, (_, nl, j0, nj) in enumerate(parts):
+            out[k, b, :nl * nj * F] = back[j0:j0 + nj].repeat(F * nl)
+    return out
+
+
+def _split_reduce_plain(partial: torch.Tensor, cfg: HashGridConfig
+                        ) -> torch.Tensor:
+    """The slices (n_parts, blocks, stride) added in block order from 0,
+    each part's (F, nl, nj) values put back at their (level, slot,
+    feature): (L, T, F) f32."""
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    dtable = torch.zeros((L, T, F), dtype=torch.float32,
+                         device=partial.device)
+    for k, (l0, nl, j0, nj) in enumerate(table_parts(cfg, BWD_VALUE_BYTES)):
+        acc = torch.zeros((nl * nj * F,), dtype=torch.float32,
+                          device=partial.device)
+        for b in range(partial.shape[1]):
+            acc = acc + partial[k, b, :nl * nj * F]
+        dtable[l0:l0 + nl, j0:j0 + nj] = acc.reshape(F, nl, nj).permute(
+            1, 2, 0)
+    return dtable
+
+
+def _split_partial_shape(cfg: HashGridConfig, blocks: int):
+    n_parts, _, most = _part_arrays(cfg, BWD_VALUE_BYTES)
+    return (n_parts, blocks, most * cfg.n_features_per_level)
+
+
+def hash_bwd_split_plain(x: torch.Tensor, g: torch.Tensor,
+                         cfg: HashGridConfig, mode: str, blocks: int,
+                         gmax: torch.Tensor = None,
+                         partial: torch.Tensor = None):
+    """Plain versions of #2's parts on #2's grid of `blocks` a part:
+      full: the table gradient, `hash_bwd_fixed_point_plain`;
+      gmax: each chunk's max |g| per level, (blocks, L) f32;
+      addr: (Σ idx (blocks, L) int32, Σ v (blocks, L) int64) over each
+            chunk's updates, v with the exponents of `gmax` (default: this
+            function's gmax);
+      accum: the slices of the stand-in updates, (n_parts, blocks, most·F);
+      reduce: `partial` (that shape) added in block order → (L, T, F)."""
+    _split_mode(mode, x.shape[0], blocks)
+    if mode == "full":
+        return hash_bwd_fixed_point_plain(x, g, cfg, blocks)
+    if mode == "gmax":
+        return _split_gmax_plain(g, cfg, blocks)
+    if mode == "addr":
+        if gmax is None:
+            gmax = _split_gmax_plain(g, cfg, blocks)
+        return _split_addr_plain(x, g, cfg, blocks, gmax)
+    if mode == "accum":
+        return _split_accum_plain(x.shape[0], cfg, blocks, x.device)
+    _check_partial(partial, cfg, blocks)
+    return _split_reduce_plain(partial, cfg)
+
+
+def _check_partial(partial: torch.Tensor, cfg: HashGridConfig,
+                   blocks: int) -> None:
+    shape = _split_partial_shape(cfg, blocks)
+    if (partial is None or tuple(partial.shape) != shape
+            or partial.dtype != torch.float32
+            or not partial.is_contiguous()):
+        raise ValueError(f"reduce takes contiguous f32 slices {shape}")
+
+
+def hash_bwd_split_cuda(x: torch.Tensor, g: torch.Tensor,
+                        cfg: HashGridConfig, mode: str, blocks: int,
+                        gmax: torch.Tensor = None,
+                        partial: torch.Tensor = None):
+    """Kernel #11, `hashgrid_bwd_split`: part `mode` of #2 on #2's grid of
+    `blocks` a part, x (N, 3), g (N, L·F) f32 → what `hash_bwd_split_plain`
+    returns, bit for bit (full at `bwd_blocks` is #2, launch for launch).
+    addr without `gmax` first runs gmax (counted apart); reduce needs
+    `partial`."""
+    code = _split_mode(mode, x.shape[0], blocks)
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    _check_inputs(x, g, cfg, (x.shape[0], L * F))
+    dev = x.device
+    n_parts, cols, most = _part_arrays(cfg, BWD_VALUE_BYTES)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    dtable = gmax_out = idx = vs = None
+    if mode in ("full", "reduce"):
+        dtable = torch.empty((L, T, F), dtype=torch.float32, device=dev)
+    if mode == "full" or mode == "accum":
+        partial = torch.empty(_split_partial_shape(cfg, blocks),
+                              dtype=torch.float32, device=dev)
+    elif mode == "reduce":
+        _check_partial(partial, cfg, blocks)
+        _build.check_cuda(x, partial)
+    if mode == "gmax":
+        gmax_out = torch.empty((blocks, L), dtype=torch.float32, device=dev)
+    if mode == "addr":
+        if gmax is None:
+            gmax = hash_bwd_split_cuda(x, g, cfg, "gmax", blocks)
+        if tuple(gmax.shape) != (blocks, L) or not gmax.is_contiguous():
+            raise ValueError(f"addr takes gmax ({blocks}, {L}) f32")
+        _build.check_cuda(x, gmax)
+        idx = torch.zeros((blocks, L), dtype=torch.int32, device=dev)
+        vs = torch.zeros((blocks, L), dtype=torch.int64, device=dev)
+    res_c, dense_c = _level_arrays(cfg)
+    err = _symbol(SPLIT)(
+        x.data_ptr(), g.data_ptr(), ptr(dtable), ptr(partial),
+        ptr(gmax if mode == "addr" else None), ptr(gmax_out), ptr(idx),
+        ptr(vs), x.shape[0], L, T, F, res_c, dense_c, n_parts, *cols,
+        blocks, code, _build.stream_ptr(dev))
+    _build.check(err, SPLIT)
+    _build.count_launch(SPLIT)
+    return {"full": dtable, "reduce": dtable, "gmax": gmax_out,
+            "addr": (idx, vs), "accum": partial}[mode]
+
+
+def hash_bwd_split(x, g, cfg, mode, blocks, gmax=None, partial=None):
+    if x.is_cuda:
+        return hash_bwd_split_cuda(x, g, cfg, mode, blocks, gmax, partial)
+    return hash_bwd_split_plain(x, g, cfg, mode, blocks, gmax, partial)
 
 
 def hash_bwd_variant(x, g, cfg, mode="full", points_per_block=8192):

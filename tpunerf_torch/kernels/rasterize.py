@@ -32,10 +32,11 @@ per warp tile of 32 pixels, the faces whose vertex box widened by
 √(27.7·σ) the tile lies outside, where every factor is exactly 1.0f;
 `_soft_cull_boxes`, `_soft_tile_pixels`, `_soft_tile_boxes` and
 `_soft_kept` are that rule in PyTorch, for the tests and the pair counts
-of `chip_smoke.py`. The binned backward skips by the same rule against the
-box of a tile's live pixels (g·prod ≠ 0), where each skipped share is below
-|g·prod|·2e^−27.7·m/σ, and sums to faces in a fixed order
-(`_soft_bwd_kept` and `_slots_to_faces_ordered` are its twins).
+of `chip_smoke.py`. Both backward kernels skip by the same rule against
+the box of a tile's live pixels (g·prod ≠ 0), where each skipped share is
+below |g·prod|·2e^−27.7·m/σ, skip tiles with no live pixel whole, and sum
+to faces in a fixed order (`_soft_bwd_kept` and `_slots_to_faces_ordered`
+are the binned one's twins, `_soft_bwd_dense_kept` the dense one's).
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ SOFT_BWD_BINNED = "soft_bwd_binned"
 # the all-pairs designs of the soft kernels, timed only
 SOFT_FWD_DENSE_SWEEP = "soft_fwd_dense_sweep"
 SOFT_FWD_BINNED_SWEEP = "soft_fwd_binned_sweep"
+SOFT_BWD_DENSE_SWEEP = "soft_bwd_dense_sweep"
 SOFT_BWD_BINNED_SWEEP = "soft_bwd_binned_sweep"
 
 _EPS = 1e-10
@@ -801,6 +803,15 @@ def _soft_kept(face_boxes: torch.Tensor, tile_boxes: torch.Tensor
     return ~skip
 
 
+def _soft_live_tile_boxes(pix: torch.Tensor, gp: torch.Tensor,
+                          tiles: torch.Tensor) -> torch.Tensor:
+    """(B, T, 4) box of each warp tile's live pixels (g·prod ≠ 0, in the
+    image) for the per-view maps gp (B, ·) indexed by `tiles` (T, 32):
+    empty where none is live, as `_soft_tile_boxes`."""
+    live = (tiles >= 0) & (gp[:, tiles.clamp(min=0)] != 0)   # (B, T, 32)
+    return _soft_tile_boxes(pix, torch.where(live, tiles, -1))
+
+
 def _soft_bwd_kept(rows: torch.Tensor, ids: torch.Tensor, pix: torch.Tensor,
                    g: torch.Tensor, prod: torch.Tensor, sigma: float,
                    width: int = 0) -> torch.Tensor:
@@ -814,13 +825,27 @@ def _soft_bwd_kept(rows: torch.Tensor, ids: torch.Tensor, pix: torch.Tensor,
     filler last, ids (B, nb, K), g and prod (B, nb, 1024)."""
     B, nb, K = ids.shape
     tiles = _soft_tile_pixels(pix.shape[0], width, True, pix.device)
-    gp = (g * prod).reshape(B, nb * _BAND)
-    live = (tiles >= 0) & (gp[:, tiles.clamp(min=0)] != 0)   # (B, T, 32)
-    boxes = _soft_tile_boxes(pix, torch.where(live, tiles, -1))
+    boxes = _soft_live_tile_boxes(pix, (g * prod).reshape(B, nb * _BAND),
+                                  tiles)
     bidx = torch.arange(B, device=ids.device)[:, None, None]
     face = _soft_cull_boxes(rows, sigma)[bidx, ids.long()]     # (B, nb, K, 4)
     real = (ids >= 0) & (ids < rows.shape[1] - 1)
     return _soft_kept(face, boxes.reshape(B, nb, 32, 4)) & real[:, :, None, :]
+
+
+def _soft_bwd_dense_kept(rows: torch.Tensor, pix: torch.Tensor,
+                         g: torch.Tensor, prod: torch.Tensor, sigma: float,
+                         width: int = 0) -> torch.Tensor:
+    """(B, T, F) True where kernel #9's cull keeps the pair of a dense warp
+    tile (`_soft_tile_pixels`) and a face: the face's widened vertex box
+    does not lie wholly outside the box of the tile's live pixels (g·prod
+    ≠ 0). A tile with no live pixel has an empty box, outside every finite
+    one (the kernel skips it whole); a face with a non-finite vertex, whose
+    box is the plane, is kept at every tile (the kernel gives its sum NaN).
+    rows (B, F, 16), g and prod (B, P)."""
+    tiles = _soft_tile_pixels(pix.shape[0], width, False, pix.device)
+    boxes = _soft_live_tile_boxes(pix, g * prod, tiles)
+    return _soft_kept(_soft_cull_boxes(rows, sigma), boxes)
 
 
 # --------------------------------------------------------------------------
@@ -932,22 +957,59 @@ def soft_prod_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _soft_bwd_dense_entries():
+    """The typed C entries of kernel #9: its scratch size and its launch."""
+    lib = _build.load("rasterize")
+    size = lib.soft_bwd_dense_scratch
+    size.argtypes = [_build.INT] * 3
+    size.restype = _build.LONG
+    fn = lib.soft_bwd_dense
+    fn.argtypes = ([_build.VOIDP] * 6 + [_build.LONG] + [_build.INT] * 4
+                   + [_build.FLOAT] * 2 + [_build.VOIDP])
+    fn.restype = _build.INT
+    return size, fn
+
+
 def soft_grad_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
-                         g: torch.Tensor, prod: torch.Tensor, sigma: float
-                         ) -> torch.Tensor:
+                         g: torch.Tensor, prod: torch.Tensor, sigma: float,
+                         width: int = 0) -> torch.Tensor:
+    """Kernel #9 (with its first pass over the tiles): the vertex
+    gradients (B, F, 6), culled by warp tiles of 8 × 4 pixels where
+    `width` (the image's) allows, else 32 in a row; deterministic."""
     _check_soft(rows, pix, g, prod)
     B, F, _ = rows.shape
     P = pix.shape[0]
-    fn = _build.load("rasterize").soft_bwd_dense
-    fn.argtypes = ([_build.VOIDP] * 5 + [_build.INT] * 3 + [_build.FLOAT]
-                   + [_build.VOIDP])
-    fn.restype = _build.INT
+    w = _soft_tile_width(P, width, False)
+    size, fn = _soft_bwd_dense_entries()
+    words = size(B, P, w)
+    scratch = torch.empty((max(words, 4),), dtype=torch.int32,
+                          device=rows.device)
     out = torch.empty((B, F, 6), dtype=torch.float32, device=rows.device)
     err = fn(rows.data_ptr(), pix.data_ptr(), g.data_ptr(), prod.data_ptr(),
-             out.data_ptr(), B, F, P, float(sigma),
+             out.data_ptr(), scratch.data_ptr(), scratch.numel(), B, F, P, w,
+             float(sigma), _soft_margin(sigma),
              _build.stream_ptr(rows.device))
     _build.check(err, SOFT_BWD_DENSE)
     _build.count_launch(SOFT_BWD_DENSE)
+    return out
+
+
+def soft_grad_dense_sweep_cuda(rows: torch.Tensor, pix: torch.Tensor,
+                               g: torch.Tensor, prod: torch.Tensor,
+                               sigma: float) -> torch.Tensor:
+    """The first design of #9 (8 faces a block at every live pixel), with
+    #9's contract; only `chip_smoke.py` and the card tests call it, to time
+    and check it beside #9."""
+    _check_soft(rows, pix, g, prod)
+    B, F, _ = rows.shape
+    out = torch.empty((B, F, 6), dtype=torch.float32, device=rows.device)
+    err = _entry(SOFT_BWD_DENSE_SWEEP, 5, 3, 1)(
+        rows.data_ptr(), pix.data_ptr(), g.data_ptr(), prod.data_ptr(),
+        out.data_ptr(), B, F, pix.shape[0], float(sigma),
+        _build.stream_ptr(rows.device))
+    _build.check(err, SOFT_BWD_DENSE_SWEEP)
+    _build.count_launch(SOFT_BWD_DENSE_SWEEP)
     return out
 
 
@@ -1045,10 +1107,11 @@ def soft_prod_binned(rows, ids, pix, sigma, width: int = 0):
     return soft_prod_binned_plain(rows, ids, pix, sigma)
 
 
-def soft_grad_dense(rows, pix, g, prod, sigma):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
+def soft_grad_dense(rows, pix, g, prod, sigma, width: int = 0):
+    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
+    image's, only shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_grad_dense_cuda(rows, pix, g, prod, sigma)
+        return soft_grad_dense_cuda(rows, pix, g, prod, sigma, width)
     return soft_grad_dense_plain(rows, pix, g, prod, sigma)
 
 
@@ -1127,7 +1190,7 @@ class _SoftSilhouette(torch.autograd.Function):
         pix = pixel_grid_ndc(height, width, rows.device)
         g = g.reshape(B, -1).contiguous()
         if not ids:
-            grad = soft_grad_dense(rows, pix, g, prod, sigma)
+            grad = soft_grad_dense(rows, pix, g, prod, sigma, width)
         else:
             nb = ids[0].shape[1]
             grad = soft_grad_binned(

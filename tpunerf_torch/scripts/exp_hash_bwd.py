@@ -1,11 +1,33 @@
 """Experiment: where the hash-grid table gradient's time goes on the card.
 
-Counterpart of the JAX package's scripts/exp_hash_bwd.py. Kernel #2 as
-first written (one level a block, f32 shared atomics) has two parts: the
+Counterpart of the JAX package's scripts/exp_hash_bwd.py (kernel #11).
+
+The split of today's #2 (`hashgrid_bwd_split`, printed first). Kernel #2
+keeps the table's gradient in fixed point in shared memory: pass 1 reads a
+block's g for each level's max |g|, pass 2 reads g again with x, finds the
+8 corners and adds the rounded updates to 64-bit sums (a biased low word
+and a carry word, native integer shared atomics), the sums are converted
+into the block's slice, and a second kernel adds the slices in block order.
+The modes run these parts alone, on #2's own grid:
+
+  full    both kernels of #2 (at 1x the resident blocks, #2 itself)
+  gmax    pass 1: g read once, the per-level maxima
+  addr    pass 2 without the adds: g and x read, cells, corners, the
+          rounded updates, folded into integer sums
+  accum   pass 2's shared adds and the conversion into slices, on stand-in
+          slots and updates from a hash: it reads neither x nor g
+  reduce  the second kernel over slices of full size
+
+If full ≈ gmax + addr + accum + reduce, the parts run one after the other;
+if less, they overlap. Each mode runs at 0.5x, 1x, 2x and 4x #2's resident
+blocks a part (its counterpart of the points-per-block sweep below) and is
+held to its plain version bit for bit: the sums are integers.
+
+The first design of this split (`hashgrid_bwd_variant`: the first #2, one
+level a block, f32 shared atomics), printed second, has two parts: the
 address part (load x and g, floor and clamp, hash, the 8 trilinear
 weights) and the accumulation part (shared-memory atomicAdds, then one
-global atomicAdd per non-zero slot). `hashgrid_bwd_variant` runs them
-apart, one mode each:
+global atomicAdd per non-zero slot). Its modes:
 
   full    that first #2, at any number of points per block
   global  every update an atomicAdd straight to the global table gradient,
@@ -17,12 +39,13 @@ apart, one mode each:
 
 If full ≈ addr + accum, the two parts run one after the other; if full ≈
 max(addr, accum), they overlap. Every mode runs at 2048 … 32768 points per
-block (8192 is its own setting), on the default grid (L=12, T=2^11,
-F=2). A time is one replay of `iters` calls captured in a CUDA graph,
-between CUDA events, over `iters`: no host time falls between launches, as
-in the JAX script's lax.scan. Each call is timed as the wrapper makes it,
-the zero-fill of its output included. Each mode's result is held against
-its plain PyTorch version.
+block (8192 is its own setting).
+
+Both on the default grid (L=12, T=2^11, F=2). A time is one replay of
+`iters` calls captured in a CUDA graph, between CUDA events, over `iters`:
+no host time falls between launches, as in the JAX script's lax.scan. Each
+call is timed as the wrapper makes it, the fill of its outputs included.
+Each mode's result is held against its plain PyTorch version.
 
     python -m tpunerf_torch.scripts.exp_hash_bwd [--n 262144] [--seed 0]
         [--iters 50] [--device cuda]
@@ -141,6 +164,95 @@ def run(device, n: int = FULL_N, seed: int = 0,
     return rows
 
 
+def split_resident(device) -> int:
+    """#2's resident blocks: the card's own where `device` is one, else
+    (plain versions) the H100's one block an SM."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return hg._resident(hg.BWD, CFG, device.index
+                            if device.index is not None
+                            else torch.cuda.current_device())
+    return card.SMS
+
+
+def split_slices(blocks: int, seed: int, device) -> torch.Tensor:
+    """reduce's input: slices of #2's full size, N(0, 1) f32 from numpy."""
+    shape = hg._split_partial_shape(CFG, blocks)
+    rng = np.random.default_rng(seed + blocks)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            ).to(device)
+
+
+def _equal(out, ref) -> bool:
+    if isinstance(out, tuple):
+        return all(torch.equal(a, b) for a, b in zip(out, ref))
+    return torch.equal(out, ref)
+
+
+def run_split(device, n: int = FULL_N, seed: int = 0,
+              iters: int = ITERS) -> List[dict]:
+    """One row per (grid factor, mode) of today's #2 taken apart: blocks a
+    part, ms (None off the card), equal to the plain version bit for bit,
+    ok; on the card each row's result is the output of its timed graph,
+    and full at 1x is also held bit for bit against #2 (`hash_bwd_cuda`)."""
+    device = torch.device(device)
+    x, g = make_inputs(n, seed, device)
+    on_card = device.type == "cuda"
+    resident = split_resident(device)
+    rows = []
+    for factor in hg.SPLIT_FACTORS:
+        blocks = hg.split_blocks(n, CFG, factor, resident)
+        gmax = hg.hash_bwd_split_plain(x, g, CFG, "gmax", blocks)
+        partial = split_slices(blocks, seed, device)
+        for mode in hg.SPLIT_MODES:
+            ref = hg.hash_bwd_split_plain(x, g, CFG, mode, blocks, gmax,
+                                          partial)
+
+            def call(mode=mode, blocks=blocks, gmax=gmax, partial=partial):
+                return hg.hash_bwd_split(x, g, CFG, mode, blocks, gmax,
+                                         partial)
+            ms, out = graph_ms(call, iters) if on_card else (None, call())
+            row = dict(mode=mode, factor=factor, blocks=blocks, ms=ms,
+                       equal=_equal(out, ref))
+            row["ok"] = row["equal"]
+            if on_card and mode == "full" and factor == 1:
+                row["equals_2"] = torch.equal(out, hg.hash_bwd_cuda(x, g,
+                                                                    CFG))
+                row["ok"] = row["ok"] and row["equals_2"]
+            rows.append(row)
+    return rows
+
+
+def format_split_row(r: dict, base_ms: float = None,
+                     b_ms: float = None) -> str:
+    t = "plain" if r["ms"] is None else f"{r['ms']:.4f} ms"
+    line = (f"split {r['mode']} {r['factor']}x ({r['blocks']} blocks a "
+            f"part): {t}  equal to plain: {r['equal']}")
+    if "equals_2" in r:
+        line += f"  equal to #2: {r['equals_2']}"
+    if r["ms"] is not None and base_ms and b_ms:
+        line += (f"  share of #2's {base_ms:.4f} ms {r['ms'] / base_ms:.3f},"
+                 f" of the bound {b_ms / r['ms']:.3f}")
+    return line + ("" if r["ok"] else "  FAIL")
+
+
+def split_sum_lines(rows: List[dict]) -> List[str]:
+    """Per grid factor: full against gmax + addr + accum + reduce (the
+    parts one after the other) and the largest part (all overlapped)."""
+    ms = {(r["mode"], r["factor"]): r["ms"] for r in rows}
+    out = []
+    for factor in hg.SPLIT_FACTORS:
+        parts = [ms[m, factor] for m in ("gmax", "addr", "accum", "reduce")]
+        blocks = next(r["blocks"] for r in rows if r["factor"] == factor)
+        out.append(
+            f"split of #2 at {factor}x ({blocks} blocks a part): full "
+            f"{ms['full', factor]:.4f} ms; gmax {parts[0]:.4f} + addr "
+            f"{parts[1]:.4f} + accum {parts[2]:.4f} + reduce {parts[3]:.4f}"
+            f" = {sum(parts):.4f} (serial), max {max(parts):.4f} "
+            f"(overlapped); full - serial {ms['full', factor] - sum(parts):+.4f}")
+    return out
+
+
 def format_row(r: dict) -> str:
     t = "plain" if r["ms"] is None else f"{r['ms']:.4f} ms"
     line = (f"variant {r['mode']} ppb={r['points_per_block']}: {t}  "
@@ -212,8 +324,9 @@ def sass_atomics() -> Dict[str, Counter]:
         m = re.search(r"(hashgrid_bwd\w*?_kernel)ILi2E(?:Li(\d)E)?", head)
         if m is None:
             continue
+        modes = hg.SPLIT_MODES if "split" in m.group(1) else hg.VARIANT_MODES
         name = m.group(1) + ("" if m.group(2) is None else
-                             f"<{hg.VARIANT_MODES[int(m.group(2))]}>")
+                             f"<{modes[int(m.group(2))]}>")
         found[name] = Counter(re.findall(
             r"\b(?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+", chunk))
     return found
@@ -245,10 +358,18 @@ def main(argv=None) -> int:
     else:
         print("device cpu: plain versions, no times")
 
+    b_ms, b_by = bound_ms(args.n)
+    srows = run_split(device, args.n, args.seed, args.iters)
+    for r in srows:
+        print(format_split_row(r, base_ms if on_card else None, b_ms))
+    if on_card:
+        for line in split_sum_lines(srows):
+            print(line)
+    print("the split of the first #2 (hashgrid_bwd_variant):")
     rows = run(device, args.n, args.seed, args.iters)
     for r in rows:
         print(format_row(r))
-    ok = all(r["ok"] for r in rows)
+    ok = all(r["ok"] for r in rows + srows)
     if not on_card:
         return 0 if ok else 1
 
@@ -260,7 +381,6 @@ def main(argv=None) -> int:
     ok = ok and err <= tol
     for line in split_lines(rows):
         print(line)
-    b_ms, b_by = bound_ms(args.n)
     print(f"bound: x {args.n * 12 / 1e6:.2f} MB + g "
           f"{args.n * L * F * 4 / 1e6:.2f} MB + dtable "
           f"{L * T * F * 4 / 1e6:.2f} MB = {table_bytes(args.n) / 1e6:.2f} "
