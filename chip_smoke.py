@@ -40,7 +40,10 @@
    within 2e-5 of plain and that design, 1e-4 of #10, bit-identical over
    two calls, with its live pixels and tiles, kept, within-margin,
    candidate and live pairs and both bounds; on the degenerate, outside,
-   padded and NaN/inf sets; its -Xptxas -v free of spills.
+   padded and NaN/inf sets; its -Xptxas -v free of spills. The four soft
+   kernels #7-#10 on a sliver set (256 needles of 1e-6 to 1e-5 rad beside
+   the sphere, pixels on their axes where plain's rounded inside test
+   holds far from the face) against plain: the culls keep slivers.
 3. Runs the hash-grid table gradient's cost-split experiment (kernel #11;
    `python -m tpunerf_torch.scripts.exp_hash_bwd`) at full width
    (N = 262,144, L=12, T=2^11, F=2): the first design
@@ -49,16 +52,24 @@
    (`hashgrid_bwd_split`: full, gmax, addr, accum, reduce at 0.5x ... 4x
    the resident blocks, `full` at 1x equal to #2), each timed in a CUDA
    graph and held against its plain version (the split's bit for bit).
-4. Checks a tiny step of each app, and the soft silhouette's gradient to
-   the displacement, on the card against the same on the CPU.
+4. Checks a tiny step of each app, the soft silhouette's gradient to the
+   displacement and a tiny latent-NeRF eval chunk on the card against the
+   same on the CPU.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
    128^3 occupancy grid; S=128, K=64 at 64x64; the 859M-parameter SD-v1
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
-   from the seed) through `Trainer.train()` for 17+ steps, so that the
-   occupancy refreshes at steps 1 and 16 run. It copies the x, table and g
-   that reach #1 and #2 and the samples that reach #3 on step 10 and then
-   times those kernels, and their first designs, on those ray-ordered
-   inputs.
+   from the seed) through `Trainer.train()` at sand_castle.yaml's defaults,
+   cut to 24 steps (so that the occupancy refreshes at steps 1 and 16 run)
+   and a checkpoint every 12: the 10-frame eval orbit at 512^2 before step
+   1 and after each checkpoint, train images at 5 %, asynchronous
+   checkpoints, the 100-frame final orbit and the mesh export (skipped
+   until ROADMAP.md A.7). It copies the x, table and g that reach #1 and
+   #2 and the samples that reach #3 on step 10, and what reaches #1 and #3
+   in the first eval chunk, and then times those kernels, and their first
+   designs, on those ray-ordered inputs. It times the eval chunk (render,
+   VAE decode) and a save (to its return, to the end of the write), then
+   resumes a second Trainer from the checkpoint (state equal bit for bit,
+   two more finite steps) and runs the CLI with log.eval_only.
 6. Trains the port's latent-paint app at full width with the same guidance
    (procedural sphere of 3968 faces, 960-face background dome, 128^2 latent
    texture, 64x64 train grid) through `Trainer.train()`, which ends with the
@@ -125,7 +136,7 @@ def hash_grid_rows(x, table, g, cfg, label: str):
     fixed-point emulation); eager and CUDA-graph times beside the
     level-per-block designs (#1: `hashgrid_fwd_level`; #2: #11's `full` at
     8192 points per block), the plain version, the bound and the share of the bound.
-    Returns the two kernels' rows."""
+    Returns the two kernels' rows (#2's None where g is None: #1 alone)."""
     import torch
     from tpunerf_torch.kernels import hashgrid as hg
     from tpunerf_torch.scripts import exp_hash_bwd as ex
@@ -133,20 +144,24 @@ def hash_grid_rows(x, table, g, cfg, label: str):
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
     N = x.shape[0]
     flops = N * L * 8 * (2 + 2 * F)
-    zero_g = (g == 0).all(dim=1).float().mean().item()
-    print(f"hash grid, {label}: N={N}, rows of g all zero {zero_g:.4f}")
+    if g is None:
+        print(f"hash grid, {label}: N={N} (#1 alone)")
+    else:
+        zero_g = (g == 0).all(dim=1).float().mean().item()
+        print(f"hash grid, {label}: N={N}, rows of g all zero {zero_g:.4f}")
     calls = {
         hg.FWD: (lambda: hg.hash_encode_cuda(x, table, cfg),
                  lambda: hg.hash_encode_level_cuda(x, table, cfg),
                  lambda: hg.hash_encode_plain(x, table, cfg),
                  x.numel() + table.numel() + N * L * F,
-                 "tpunerf/kernels/hashgrid.py:252"),
-        hg.BWD: (lambda: hg.hash_bwd_cuda(x, g, cfg),
-                 lambda: hg.hash_bwd_variant_cuda(x, g, cfg, "full", 8192),
-                 lambda: hg.hash_bwd_plain(x, g, cfg),
-                 x.numel() + g.numel() + L * T * F,
-                 "tpunerf/kernels/hashgrid.py:408"),
-    }
+                 "tpunerf/kernels/hashgrid.py:252")}
+    if g is not None:
+        calls[hg.BWD] = (
+            lambda: hg.hash_bwd_cuda(x, g, cfg),
+            lambda: hg.hash_bwd_variant_cuda(x, g, cfg, "full", 8192),
+            lambda: hg.hash_bwd_plain(x, g, cfg),
+            x.numel() + g.numel() + L * T * F,
+            "tpunerf/kernels/hashgrid.py:408")
     rows = {}
     for name, (new, old, plain, words, site) in calls.items():
         out, ref, before = new(), plain(), old()
@@ -180,7 +195,7 @@ def hash_grid_rows(x, table, g, cfg, label: str):
               f"{graph:.4f} ms; level-per-block design eager {old_ms:.4f}, graph "
               f"{old_graph:.4f}; plain {rows[name]['plain_ms']:.4f}; bound "
               f"{b_ms:.4f} ms ({b_by}), share {b_ms / graph:.3f} (graph)")
-    return rows[hg.FWD], rows[hg.BWD]
+    return rows[hg.FWD], rows.get(hg.BWD)
 
 
 def occgrid_case(x, packed, G: int, bnd: float, label: str,
@@ -1639,6 +1654,111 @@ def check_soft_kernels(seed: int):
     return rows_out
 
 
+def _needles(seed: int, n: int, dev):
+    """(n, 3, 2) needle faces: an angle of 1e-6 to 1e-5 rad at vertex 0,
+    long edges of 0.05 to 0.6 and 0.5 to 1.5 times that, tips inside NDC;
+    and (2·n·32, 2) pixels on each needle's axis 1 to 8 cull margins (σ =
+    1e-4) behind its tip and past its short edge, where its nearly parallel
+    long edge forms round to either sign. Drawn on the host, so that the
+    set is the one whose spurious insides a CPU run counts (256 needles
+    give some at every seed tried)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 6), generator=gen, dtype=torch.float64)
+    tip = u[:, :2] * 1.6 - 0.8
+    th = u[:, 2] * 2 * math.pi
+    ang = 10.0 ** (u[:, 3] - 6.0)
+    length = (u[:, 4] * 0.55 + 0.05)[:, None]
+    stretch = (u[:, 5] + 0.5)[:, None]
+    a = torch.stack([th.cos(), th.sin()], -1) * length
+    b = torch.stack([(th + ang).cos(), (th + ang).sin()], -1) * length * stretch
+    faces = torch.stack([tip, tip + a, tip + b], 1).float()
+    # the axis of the f32 faces: the wedge of spurious insides behind a tip
+    # is ~1e-7 wide
+    f = faces.double()
+    mid = (f[:, 1] + f[:, 2]) / 2
+    axis = (mid - f[:, 0]) / (mid - f[:, 0]).norm(dim=-1, keepdim=True)
+    m = (27.7 * 1e-4) ** 0.5
+    dist = torch.linspace(1.0, 8.0, 32, dtype=torch.float64)[None, :, None] * m
+    pix = torch.cat([f[:, 0, None] - dist * axis[:, None],
+                     mid[:, None] + dist * axis[:, None]], 1)
+    return faces.to(dev), pix.reshape(-1, 2).float().to(dev)
+
+
+def check_slivers(seed: int, device: str = "cuda") -> None:
+    """Fault C.3: the soft kernels #7-#10 on the wide camera's sphere (two
+    poses, 64²) with 256 needles (slivers of 1e-6 to 1e-5 rad) added to
+    both views, at the image's pixels and at 16384 pixels on the needles'
+    axes beyond their tips. There the plain version's rounded inside test
+    holds for some needle (p = 1, a factor of 0) though the pixel lies
+    outside the needle's widened vertex box, where a box cull would skip
+    the pair; the kernels keep every sliver and must agree with plain:
+    forwards within 5e-6, backwards within 2e-5 of the largest gradient,
+    the binned ones on bins that hold every face."""
+    import torch
+    from tpunerf_torch.core.views import ViewSamplerConfig, rand_poses
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.meshrep import shapes
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sigma = 1e-4
+    mesh = shapes.uv_sphere().normalize(target_scale=0.6, dy=0.25).to(dev)
+    poses = rand_poses(2, ViewSamplerConfig(), dev, generator=gen)
+    fv = mrender._project(mesh.vertices, mesh.faces, poses.theta, poses.phi,
+                          poses.radius,
+                          mrender.CameraSpec(look_at_height=0.25))[1]
+    needles, beyond = _needles(seed, 256, dev)
+    fv = torch.cat([fv, needles.expand(2, -1, -1, -1)], 1)
+    rows = rz._soft_rows(fv).contiguous()
+    B, F = rows.shape[:2]
+    pix = torch.cat([rz.pixel_grid_ndc(64, 64, dev), beyond]).contiguous()
+    P = pix.shape[0]
+    nb = P // 1024
+    # the spurious insides a box cull would skip
+    nrows = rows[:1, -256:]
+    p_n = rz._soft_face_prob(rz._soft_stage(nrows[0]), pix[:, 0][None],
+                             pix[:, 1][None], sigma)[0]          # (256, P)
+    vx, vy = nrows[0, :, 9:15:2], nrows[0, :, 10:15:2]
+    m = rz._soft_margin(sigma)
+    outside = ((pix[None, :, 0] < vx.amin(-1, keepdim=True) - m)
+               | (pix[None, :, 0] > vx.amax(-1, keepdim=True) + m)
+               | (pix[None, :, 1] < vy.amin(-1, keepdim=True) - m)
+               | (pix[None, :, 1] > vy.amax(-1, keepdim=True) + m))
+    spurious = int(((p_n == 1.0) & outside).sum())
+    kept = bool(torch.isinf(rz._soft_cull_boxes(nrows, sigma)).all())
+
+    ref = rz.soft_prod_dense_plain(rows, pix, sigma)
+    prod7 = rz.soft_prod_dense(rows, pix, sigma, 0)
+    K = -(-(F + 1) // 128) * 128
+    ids = torch.cat([torch.arange(F, dtype=torch.int32, device=dev),
+                     torch.full((K - F,), F, dtype=torch.int32, device=dev)]
+                    ).expand(B, nb, K).contiguous()
+    frows = rz._with_filler(rows).contiguous()
+    prod8 = rz.soft_prod_binned(frows, ids, pix, sigma, 0).reshape(B, P)
+    g = torch.randn((B, P), generator=gen, device=dev)
+    grad_ref = rz.soft_grad_dense_plain(rows, pix, g, ref, sigma)
+    grad9 = rz.soft_grad_dense(rows, pix, g, ref, sigma, 0)
+    grad10 = rz.soft_grad_binned(frows, ids, pix, rz._band_maps(g, nb),
+                                 rz._band_maps(ref, nb), sigma, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    e7 = (prod7 - ref).abs().max().item()
+    e8 = (prod8 - ref).abs().max().item()
+    e9, e10 = _max_rel(grad9, grad_ref), _max_rel(grad10, grad_ref)
+    zeros = int((ref == 0).sum())
+    print(f"slivers (C.3): 256 needles of 1e-6..1e-5 rad beside the sphere, "
+          f"B={B}, F={F}, P={P}: plain's spurious insides beyond a needle's "
+          f"widened box {spurious} (pixels with a factor 0: {zeros}); every "
+          f"needle kept by the cull: {kept}; #7 max_abs_err {e7:.3e}, #8 "
+          f"{e8:.3e} (tol 5e-6); #9 max err / max {e9:.3e}, #10 {e10:.3e} "
+          f"(tol {BWD_TOL:.0e})")
+    if not (spurious > 0 and kept and e7 <= 5e-6 and e8 <= 5e-6
+            and e9 <= BWD_TOL and e10 <= BWD_TOL):
+        fail("the soft kernels disagree with plain on slivers (C.3)")
+
+
 def _rel_grad_err(got, ref) -> float:
     """max over the gradients of max|got − ref| / max|ref| (a gradient that
     is all zero on both sides counts 0)."""
@@ -1667,10 +1787,11 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
         "--render.num_samples_per_ray", "32"])
     cpu, gpu = torch.device("cpu"), torch.device(device)
     gen = torch.Generator().manual_seed(seed)
-    guides = {d: StableDiffusionGuidance.create(tiny=True,
-                                                unet_dtype="float32",
-                                                device=d)
-              for d in (cpu, gpu)}
+    # random weights from the seed (the card's are copied from the CPU's)
+    guides = {d: StableDiffusionGuidance.create(
+        tiny=True, unet_dtype="float32", device=d,
+        generator=torch.Generator().manual_seed(seed) if d == cpu else None)
+        for d in (cpu, gpu)}
     for name in ("unet", "text_encoder", "vae"):
         getattr(guides[gpu], name).load_state_dict(
             getattr(guides[cpu], name).state_dict())
@@ -1841,6 +1962,20 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
                 fail("the soft silhouette's gradient on the card disagrees "
                      "with the CPU")
 
+    # the eval chunk: 5 poses at the 16² latent grid, the tiny VAE's 64²
+    # frames resized to 96² as jax.image.resize resizes
+    from tpunerf_torch.core.views import circle_poses
+    ev = circle_poses(5, Trainer.view_config(cfg), cpu)
+    frames = {d: app.eval_render(ev.to(d), (96, 96))["image"].cpu()
+              for d, app in apps.items()}
+    e_ev = ((frames[gpu] - frames[cpu]).abs().max()
+            / frames[cpu].abs().max()).item()
+    print(f"tiny latent-NeRF eval chunk (5 views, 16² latents decoded and "
+          f"resized to 96²), card vs CPU: max err / max {e_ev:.2e} (tol "
+          f"1e-4)")
+    if not (frames[gpu].shape == (5, 96, 96, 3) and e_ev <= 1e-4):
+        fail("the tiny eval chunk on the card disagrees with the CPU's")
+
 
 def build_guidance(seed: int):
     """The full-width guidance stack, built once for both apps: SD-v1 UNet
@@ -1890,43 +2025,208 @@ def timed_train(trainer, steps: int):
     return losses, times, t_end - stamps[-1], launches
 
 
+SAND_CASTLE = ROOT / "demo_configs" / "latent_nerf" / "sand_castle.yaml"
+
+
+def _nerf_argv(steps: int, seed: int, *extra: str):
+    """sand_castle.yaml cut to `steps` steps with a checkpoint (and its
+    eval) every STEPS/2; every other setting its default."""
+    return ["--optim.iters", str(steps), "--optim.seed", str(seed),
+            "--log.exp_root", str(ROOT / "experiments" / "chip_smoke"),
+            "--log.save_interval", str(STEPS // 2), *extra]
+
+
 def train_full_width(steps: int, seed: int, guidance):
-    """Full-width latent-NeRF training through the port's Trainer."""
+    """Full-width latent-NeRF training through the port's Trainer at
+    sand_castle.yaml's defaults, cut only to `steps` steps and a checkpoint
+    every steps/2: the eval orbit's 10 frames at 512² before the first
+    step and after each checkpoint, train images at 5 %, asynchronous
+    checkpoints, the 100-frame final orbit and the mesh export (skipped
+    until ROADMAP.md item A.7). Prints the eval chunk's times, the save's,
+    the checkpoint's size, the artifacts and the steady median without the
+    steps that carry a checkpoint, an eval or an image."""
+    import shutil
     import torch
     from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import circle_poses
     from tpunerf_torch.training.config import TrainConfig
     from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
     from tpunerf_torch.training.trainer import Trainer
 
-    exp_root = ROOT / "experiments" / "chip_smoke"
-    cfg = parse(TrainConfig, [
-        "--optim.iters", str(steps), "--optim.seed", str(seed),
-        "--log.exp_root", str(exp_root), "--log.eval_size", "0",
-        "--log.full_eval_size", "0", "--log.save_mesh", "false",
-        "--log.log_images", "false", "--log.save_interval", str(steps + 1)],
-        config_path=ROOT / "demo_configs" / "latent_nerf" /
-        "sand_castle.yaml")
+    cfg = parse(TrainConfig, _nerf_argv(steps, seed),
+                config_path=SAND_CASTLE)
+    log = cfg.log
+    exp = Path(log.exp_dir)
+    shutil.rmtree(exp, ignore_errors=True)      # an earlier call's
+    print(f"latent-NeRF, {SAND_CASTLE.name}, cuts: optim.iters {steps} (of "
+          f"5000), log.save_interval {log.save_interval} (of 100); at their "
+          f"defaults: eval_size {log.eval_size}, full_eval_size "
+          f"{log.full_eval_size}, eval_batch {log.eval_batch}, log_images "
+          f"{log.log_images} at vis_train_prob {log.vis_train_prob}, "
+          f"async_ckpt {log.async_ckpt}, max_keep_ckpts "
+          f"{log.max_keep_ckpts}, save_mesh {log.save_mesh}, eval_grid_size "
+          f"{cfg.render.eval_grid_size}")
     t0 = time.perf_counter()
     app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
     trainer = Trainer(cfg, app, device="cuda")
     torch.cuda.synchronize()
     print(f"latent-NeRF setup (text embeddings, field): "
           f"{time.perf_counter() - t0:.2f} s")
+    save_return = []
+    real_save = trainer.save_checkpoint
+
+    def timed_save(full=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_save(full)
+        save_return.append(time.perf_counter() - t)
+
+    trainer.save_checkpoint = timed_save
     with capture_hash_inputs(CAPTURE_STEP) as captured:
-        _, times, _, launches = timed_train(trainer, steps)
-    # steady steps: past the first, excluding refresh steps (1, 16, 32, …)
+        _, times, tail_s, launches = timed_train(trainer, steps)
+    del trainer.save_checkpoint
+
+    # what the run wrote
+    ckpts = [p.name for p in trainer.ckpts.existing()]
+    evals = sorted(p.name for p in (exp / "vis" / "eval").iterdir())
+    results = sorted(p.name for p in (exp / "results").iterdir())
+    images = sorted(p.name for p in (exp / "vis" / "train").iterdir())
+    skipped = [ln for ln in (exp / "log.txt").read_text().splitlines()
+               if "mesh export skipped" in ln]
+    saves = list(range(log.save_interval, steps + 1, log.save_interval))
+    print(f"checkpoints kept: {ckpts}; eval frames: {len(evals)} (steps "
+          f"{sorted({int(e[5:11]) for e in evals})}); results: "
+          f"{len(results)} files ({results[0]} ... {results[-1]}); train "
+          f"images: {images}")
+    print(f"log: {skipped[0] if skipped else 'no mesh export line'}")
+    if not (ckpts == [f"step_{s:06d}.ckpt" for s in saves[-2:]]
+            and len(evals) == log.eval_size * (len(saves) + 1)
+            and (len(results) == log.full_eval_size
+                 or any(r.endswith((".mp4", ".gif")) for r in results))
+            and all(r.startswith(f"step_{steps:06d}") for r in results)
+            and skipped):
+        fail("the latent-NeRF run did not write its checkpoints, frames or "
+             "mesh-export line")
+
+    # steady steps: past the first (it carries the first eval), without the
+    # refresh steps (16, 32, ...) and the steps after a checkpoint with its
+    # eval, or after an image: their time lands in the next step's interval
+    aside = {1} | {s + 1 for s in saves} | {
+        int(name[5:11]) + 1 for name in images}
     steady = sorted(t for i, t in enumerate(times, start=1)
-                    if i > 1 and i % 16 != 0)
+                    if i not in aside and i % 16 != 0)
     med = steady[len(steady) // 2]
     rays = cfg.render.batch_size * cfg.render.train_grid_size ** 2
     print(f"latent-NeRF steady step: median {1e3 * med:.3f} ms over "
-          f"{len(steady)} steps "
-          f"({rays / med:.1f} rays/s); refresh step 16: "
-          f"{1e3 * times[15]:.3f} ms; peak memory "
+          f"{len(steady)} steps ({rays / med:.1f} rays/s; left out: steps "
+          f"{sorted(aside)} and the refresh steps); refresh step 16: "
+          f"{1e3 * times[15]:.3f} ms; step {saves[0] + 1} (after the step-"
+          f"{saves[0]} checkpoint and eval): {1e3 * times[saves[0]]:.3f} ms;"
+          f" full eval (100 frames, PNG writes, export skip, joins) "
+          f"{tail_s:.3f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    print(f"save_checkpoint in the run: returned in "
+          + ", ".join(f"{1e3 * t:.2f}" for t in save_return) + " ms")
     occ_frac = app.metric_scalars().get("occ_frac")
     print(f"occ_frac after training: {occ_frac}")
+
+    # one save by hand: to its return, to the end of the write; its size
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    trainer.save_checkpoint(True)
+    t_ret = time.perf_counter() - t
+    trainer.ckpts.flush()
+    t_end = time.perf_counter() - t
+    size = (exp / "checkpoints" / f"step_{steps:06d}.ckpt").stat().st_size
+    print(f"checkpoint of step {steps} (scene state_dict + Adam), async: "
+          f"returned in {1e3 * t_ret:.2f} ms, written in {1e3 * t_end:.2f} "
+          f"ms; {size} bytes ({size / 2 ** 20:.2f} MiB)")
+
+    # the eval chunk split: render at the 64² latent grid, VAE decode
+    views = circle_poses(log.eval_batch, trainer.view_cfg, trainer.device)
+    dims = (cfg.render.eval_grid_size,) * 2
+    chunk_ms = cuda_ms(lambda: app.eval_render(views, dims), 3, warmup=1)
+    with torch.no_grad():
+        def render():
+            return app.scene.render_views(
+                views, (app.scene.latent_size,) * 2, perturb=False,
+                use_occupancy=True, white_background=True)
+        latents = render()["image"]
+        render_ms = cuda_ms(render, 5)
+        decode_ms = cuda_ms(lambda: guidance.decode_latents(latents), 3,
+                            warmup=1)
+    print(f"latent-NeRF eval chunk ({log.eval_batch} views, "
+          f"{app.scene.latent_size}² latent render + VAE decode to "
+          f"{dims[0]}²): {chunk_ms:.3f} ms; alone: render {render_ms:.3f} "
+          f"ms, VAE decode of {tuple(latents.shape)} {decode_ms:.3f} ms")
     return launches, app, trainer, captured
+
+
+def resume_and_eval_only(steps: int, seed: int, guidance, trainer) -> None:
+    """A second Trainer over the same experiment with optim.resume and two
+    more steps: it restores step `steps`, its scene and Adam state equal
+    the first trainer's bit for bit, and its steps are finite. Then the
+    CLI with log.eval_only writes the final orbit of the newest checkpoint
+    and takes no step."""
+    import shutil
+    import torch
+    from tpunerf_torch import train_latent_nerf
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training import trainer as trainer_lib
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+
+    argv = _nerf_argv(steps + 2, seed, "--optim.resume", "true")
+    cfg = parse(TrainConfig, argv, config_path=SAND_CASTLE)
+    t0 = time.perf_counter()
+    app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
+    resumed = trainer_lib.Trainer(cfg, app, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = trainer.app.state_dict(), resumed.app.state_dict()
+    same_scene = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                              for k in a)
+    oa = trainer.optimizer.state_dict()["state"]
+    ob = resumed.optimizer.state_dict()["state"]
+    same_adam = oa.keys() == ob.keys() and all(
+        oa[i].keys() == ob[i].keys()
+        and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa)
+    print(f"resume: restored step {resumed.train_step_idx} in {load_s:.2f} "
+          f"s (app and trainer construction included); scene state_dict "
+          f"({len(a)} tensors) equal bit for bit: {same_scene}; Adam state "
+          f"({len(oa)} parameters, step, exp_avg, exp_avg_sq) equal bit for "
+          f"bit: {same_adam}")
+    if not (resumed.train_step_idx == steps and same_scene and same_adam):
+        fail("the resumed trainer does not restore the saved state")
+    losses, _, _, _ = timed_train(resumed, 2)
+    print(f"resume: steps {steps + 1}-{steps + 2} losses "
+          + " ".join(f"{v:+.4e}" for v in losses))
+    del resumed, app
+
+    exp = Path(cfg.log.exp_dir)
+    shutil.rmtree(exp / "results")
+    real_step = trainer_lib.Trainer.train_step
+
+    def no_step(self):
+        fail("log.eval_only took a training step")
+
+    trainer_lib.Trainer.train_step = no_step
+    t0 = time.perf_counter()
+    try:
+        train_latent_nerf.main(
+            ["--config_path", str(SAND_CASTLE)]
+            + _nerf_argv(steps + 2, seed, "--log.eval_only", "true",
+                         "--optim.resume", "true", "--device", "cuda"))
+    finally:
+        trainer_lib.Trainer.train_step = real_step
+    torch.cuda.synchronize()
+    results = sorted(p.name for p in (exp / "results").iterdir())
+    print(f"eval only (CLI, guidance built anew): {time.perf_counter() - t0:.2f}"
+          f" s; results: {len(results)} files ({results[0] if results else ''}"
+          f" ...)")
+    if not (results and all(r.startswith(f"step_{steps:06d}")
+                            for r in results)):
+        fail("log.eval_only wrote no results frames of the newest checkpoint")
 
 
 CAPTURE_STEP = 10   # a steady latent-NeRF step: past step 1, no refresh
@@ -1936,24 +2236,35 @@ CAPTURE_STEP = 10   # a steady latent-NeRF step: past step 1, no refresh
 def capture_hash_inputs(step: int):
     """While open, copies what reaches kernels #1 and #2 on training step
     `step` (the step-th table gradient): {"x", "table", "g"}, and what
-    reaches #3 on that step (its step-th lookup, one a step): "occ". It
-    wraps the module functions `HashEncode` and `occupied` call and calls
-    through to them, so every launch still counts; the package is not
-    changed."""
+    reaches #3 on that step (its step-th lookup outside the eval render, one
+    a step): "occ"; and what reaches #1 and #3 in the first eval chunk (the
+    first calls inside `LatentNeRFScene.render_test`): "eval_x",
+    "eval_table", "eval_occ". It wraps the module functions `HashEncode`
+    and `occupied` call, and `render_test`, and calls through to them, so
+    every launch still counts; the package is not changed."""
+    from tpunerf_torch.fields.scene import LatentNeRFScene
     from tpunerf_torch.kernels import hashgrid as hg
     from tpunerf_torch.kernels import occgrid as og
     fwd, bwd = hg.hash_encode_fwd, hg.hash_encode_bwd
     lookup = og.occupancy_lookup
-    last, captured, seen = {}, {}, [0, 0]
+    render_test = LatentNeRFScene.render_test
+    last, captured, seen, in_eval = {}, {}, [0, 0], [False]
 
     def lookup_spy(x, packed, grid_res, bnd):
-        seen[1] += 1
-        if seen[1] == step:
-            captured["occ"] = (x.clone(), packed.clone(), grid_res, bnd)
+        if not in_eval[0]:
+            seen[1] += 1
+            if seen[1] == step:
+                captured["occ"] = (x.clone(), packed.clone(), grid_res, bnd)
+        elif "eval_occ" not in captured:
+            captured["eval_occ"] = (x.clone(), packed.clone(), grid_res, bnd)
         return lookup(x, packed, grid_res, bnd)
 
     def fwd_spy(x, table, cfg):
-        last.update(x=x, table=table)   # references only, no copy
+        if not in_eval[0]:
+            last.update(x=x, table=table)   # references only, no copy
+        elif "eval_x" not in captured:
+            captured.update(eval_x=x.clone(), eval_table=table.clone(),
+                            eval_cfg=cfg)
         return fwd(x, table, cfg)
 
     def bwd_spy(x, g, cfg):
@@ -1964,13 +2275,22 @@ def capture_hash_inputs(step: int):
                             table=last["table"].clone(), cfg=cfg)
         return bwd(x, g, cfg)
 
+    def render_test_spy(self, *args, **kwargs):
+        in_eval[0] = True
+        try:
+            return render_test(self, *args, **kwargs)
+        finally:
+            in_eval[0] = False
+
     hg.hash_encode_fwd, hg.hash_encode_bwd = fwd_spy, bwd_spy
     og.occupancy_lookup = lookup_spy
+    LatentNeRFScene.render_test = render_test_spy
     try:
         yield captured
     finally:
         hg.hash_encode_fwd, hg.hash_encode_bwd = fwd, bwd
         og.occupancy_lookup = lookup
+        LatentNeRFScene.render_test = render_test
 
 
 def check_hash_step_inputs(captured, rows) -> None:
@@ -1978,7 +2298,8 @@ def check_hash_step_inputs(captured, rows) -> None:
     full-width latent-NeRF step (ray-ordered: 64 compacted samples a ray),
     beside the level-per-block designs; (b) kernel #3 on that step's
     samples beside its first design; the times go into the rows as
-    `step_inputs`."""
+    `step_inputs`. Then #1 and #3 on the first eval chunk's inputs
+    (`eval_inputs`)."""
     from tpunerf_torch.kernels import hashgrid as hg
     from tpunerf_torch.kernels import occgrid as og
     if "g" not in captured or "occ" not in captured:
@@ -1989,10 +2310,20 @@ def check_hash_step_inputs(captured, rows) -> None:
     fwd, bwd = hash_grid_rows(captured["x"], captured["table"],
                               captured["g"], captured["cfg"],
                               f"latent-NeRF step {CAPTURE_STEP}'s inputs")
+    keys = ("max_abs_err", "ms", "graph_ms", "level_per_block_ms",
+            "level_per_block_graph_ms", "bound_ms", "share_of_bound")
     for name, row in ((hg.FWD, fwd), (hg.BWD, bwd)):
-        rows[name]["step_inputs"] = {k: row[k] for k in (
-            "max_abs_err", "ms", "graph_ms", "level_per_block_ms",
-            "level_per_block_graph_ms", "bound_ms", "share_of_bound")}
+        rows[name]["step_inputs"] = {k: row[k] for k in keys}
+    # the eval orbit's first chunk: 5 poses at the 64² latent grid, S = 128,
+    # K = 64, under no_grad (#1 and #3 only: nothing runs backward there)
+    if "eval_x" not in captured or "eval_occ" not in captured:
+        fail("no eval chunk reached kernels #1 and #3")
+    rows[og.LOOKUP]["eval_inputs"] = occgrid_case(
+        *captured["eval_occ"], "(c) the first eval chunk's samples")
+    fwd, _ = hash_grid_rows(captured["eval_x"], captured["eval_table"], None,
+                            captured["eval_cfg"],
+                            "latent-NeRF eval chunk's inputs")
+    rows[hg.FWD]["eval_inputs"] = {k: fwd[k] for k in keys}
 
 
 def train_paint_full_width(steps: int, seed: int, guidance):
@@ -2062,6 +2393,8 @@ def train_paint_full_width(steps: int, seed: int, guidance):
 
         # the eval chunk once more, by hand: frames checked and times split
         frames = trainer.evaluate(steps, size=n_eval)
+        trainer.flush()           # the frames' PNGs are written by a pool
+        trainer.close()
         written = sorted((exp / "vis" / "eval").glob("*_rgb.png"))
         size = cfg.render.eval_grid_size
         if (len(frames) != n_eval or len(written) != n_eval
@@ -2215,6 +2548,8 @@ def train_mesh_full_width(steps: int, seed: int, guidance):
         if not 0 < moved <= steps * cfg.optim.disp_lr * 1.05:
             fail("the exported mesh does not carry the displacement")
         frames = trainer.evaluate(steps, size=n_eval)
+        trainer.flush()
+        trainer.close()
         if (len(frames) != n_eval
                 or any(f.shape != (size, size, 3) for f in frames)
                 or not (np.stack(frames) == 255).all(-1).any()):
@@ -2577,6 +2912,7 @@ def main() -> int:
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
+    check_slivers(args.seed)
     split_row, variant_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
@@ -2588,6 +2924,7 @@ def main() -> int:
         fail(f"latent-NeRF path never launched {missing}")
     check_hash_step_inputs(captured, rows)
     del captured
+    resume_and_eval_only(STEPS, args.seed, guidance, trainer)
     breakdown(app, trainer)
     del app, trainer
     paint_launches, papp, ptrainer = train_paint_full_width(

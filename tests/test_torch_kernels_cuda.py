@@ -1173,3 +1173,116 @@ def test_tiny_mesh_app_step_and_eval_go_through_the_kernels(tmp_path):
     assert _build.LAUNCHES.get(rz.SOFT_BWD_DENSE, 0) == 0
     assert app.scene.displacement.abs().max() > 0
     assert (tmp_path / "default" / "mesh" / "mesh.obj").exists()
+
+
+def _needles(seed, n, dev):
+    """(n, 3, 2) needles (an angle of 1e-6 to 1e-5 rad at vertex 0, long
+    edges 0.05 to 0.6 and 0.5 to 1.5 times that) and pixels on their axes
+    1 to 8 cull margins (σ = 1e-4) beyond both ends; drawn on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 6), generator=gen, dtype=torch.float64)
+    tip = u[:, :2] * 1.6 - 0.8
+    th, ang = u[:, 2] * 2 * np.pi, 10.0 ** (u[:, 3] - 6.0)
+    length = (u[:, 4] * 0.55 + 0.05)[:, None]
+    a = torch.stack([th.cos(), th.sin()], -1) * length
+    b = torch.stack([(th + ang).cos(), (th + ang).sin()], -1) * length * (
+        u[:, 5] + 0.5)[:, None]
+    faces = torch.stack([tip, tip + a, tip + b], 1).float()
+    f = faces.double()
+    mid = (f[:, 1] + f[:, 2]) / 2
+    axis = (mid - f[:, 0]) / (mid - f[:, 0]).norm(dim=-1, keepdim=True)
+    dist = torch.linspace(1.0, 8.0, 32, dtype=torch.float64)[
+        None, :, None] * (27.7e-4) ** 0.5
+    pix = torch.cat([f[:, 0, None] - dist * axis[:, None],
+                     mid[:, None] + dist * axis[:, None]], 1)
+    return faces.to(dev), pix.reshape(-1, 2).float().to(dev)
+
+
+def test_soft_kernels_keep_slivers_as_plain_does():
+    """Fault C.3: needles beside the sphere, at the image's pixels and on
+    the needles' axes, where the plain version's rounded inside test holds
+    for some far pixel (factor 0). The culls keep every sliver, so #7 and
+    #8 equal plain within 5e-6, #9 and #10 within 2e-5."""
+    dev = _card()
+    fv, _, pix, gen = _soft_inputs(dev, 64, 2, 12)
+    needles, beyond = _needles(3, 256, dev)
+    fv = torch.cat([fv, needles.expand(2, -1, -1, -1)], 1)
+    rows = rz._soft_rows(fv).contiguous()
+    B, F = rows.shape[:2]
+    pix = torch.cat([pix, beyond]).contiguous()
+    P, nb = pix.shape[0], pix.shape[0] // 1024
+    assert torch.isinf(rz._soft_cull_boxes(rows[:, -256:], 1e-4)).all()
+    ref = rz.soft_prod_dense_plain(rows, pix, 1e-4)
+    prod = _launched(rz.SOFT_FWD_DENSE,
+                     lambda: rz.soft_prod_dense(rows, pix, 1e-4, 0))
+    assert _max_abs(prod - ref) <= 5e-6
+    assert torch.equal(prod, rz.soft_prod_dense_sweep_cuda(rows, pix, 1e-4))
+    K = -(-(F + 1) // 128) * 128
+    ids = torch.cat([torch.arange(F, dtype=torch.int32, device=dev),
+                     torch.full((K - F,), F, dtype=torch.int32, device=dev)]
+                    ).expand(B, nb, K).contiguous()
+    frows = rz._with_filler(rows).contiguous()
+    binned = rz.soft_prod_binned(frows, ids, pix, 1e-4, 0).reshape(B, P)
+    assert _max_abs(binned - ref) <= 5e-6
+    g = torch.randn((B, P), generator=gen, device=dev)
+    plain = rz.soft_grad_dense_plain(rows, pix, g, ref, 1e-4)
+    _close_to_max(rz.soft_grad_dense(rows, pix, g, ref, 1e-4, 0), plain,
+                  2e-5, "#9 with slivers")
+    _close_to_max(rz.soft_grad_binned(frows, ids, pix, rz._band_maps(g, nb),
+                                      rz._band_maps(ref, nb), 1e-4, 0),
+                  plain, 2e-5, "#10 with slivers")
+
+
+def test_latent_nerf_eval_chunk_on_the_card_equals_the_cpu(tmp_path,
+                                                          monkeypatch):
+    """The tiny latent-NeRF eval render (#1 and #3 under no_grad, the tiny
+    VAE, the resize of `jax.image.resize`) on the card against the CPU, on
+    the same weights, f32 throughout: 1e-4 of the largest value."""
+    dev = _card()
+    # cuDNN's convolutions take TF32 by default: 1e-3 of the frames
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import ViewSamplerConfig, circle_poses
+    from tpunerf_torch.guidance.stable_diffusion import \
+        StableDiffusionGuidance
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+    cfg = parse(TrainConfig, [
+        "--guide.tiny_diffusion", "true", "--guide.unet_dtype", "float32",
+        "--render.mlp_dtype", "float32", "--log.exp_root", str(tmp_path)])
+    cpu = torch.device("cpu")
+    apps = {}
+    for d in (cpu, dev):
+        g = StableDiffusionGuidance.create(tiny=True, unet_dtype="float32",
+                                           device=d)
+        if d == dev:
+            for name in ("unet", "text_encoder", "vae"):
+                getattr(g, name).load_state_dict(
+                    getattr(apps[cpu].guidance, name).state_dict())
+        apps[d] = LatentNeRFApp.create(cfg, guidance=g, device=d)
+    apps[cpu].init_params(torch.Generator().manual_seed(4))
+    apps[dev].load_state_dict(apps[cpu].state_dict())
+    views = circle_poses(5, ViewSamplerConfig(), cpu)
+    before = {n: _build.LAUNCHES.get(n, 0) for n in (hg.FWD, og.LOOKUP)}
+    got = apps[dev].eval_render(views.to(dev), (96, 96))["image"]
+    assert all(_build.LAUNCHES[n] > before[n] for n in before)
+    ref = apps[cpu].eval_render(views, (96, 96))["image"]
+    assert got.shape == (5, 96, 96, 3)
+    _close_to_max(got.cpu(), ref, 1e-4, "eval chunk, card vs CPU")
+
+
+def test_async_save_of_card_tensors_holds_the_values_of_the_save(tmp_path):
+    """Tensors on the card changed in place right after an asynchronous
+    save (as the next Adam step changes them) do not reach the file."""
+    dev = _card()
+    from tpunerf_torch.training.checkpoints import CheckpointManager
+    mgr = CheckpointManager(tmp_path, max_keep=2)
+    w = torch.randn(1 << 20, device=dev)
+    m = torch.randn(1 << 20, device=dev)
+    want_w, want_m = w.cpu().clone(), m.cpu().clone()
+    mgr.save(1, {"w": w}, {"state": {0: {"exp_avg": m}}}, async_write=True)
+    w.mul_(-2.0)
+    m.add_(1.0)
+    params, opt, _ = mgr.load()
+    assert torch.equal(params["w"], want_w)
+    assert torch.equal(opt["state"][0]["exp_avg"], want_m)

@@ -275,8 +275,10 @@ def test_unported_options_are_refused_naming_their_slice(apps):
     assert scene.displacement.shape == scene.mesh.vertices.shape
     assert scene.head_camera is not None and scene.soft_mask_sigma == 1e-4
     assert tapp.scene.head_camera is None and tapp.scene.laplacian is None
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tapp.migrate_params()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    # a latent-mode scene loads a checkpoint as it is; the latent→RGB
+    # finetune is ROADMAP.md item A.2
+    params = tapp.state_dict()
+    assert tapp.migrate_params(params) is params
+    with pytest.raises(NotImplementedError, match="A.2"):
         tapp.scene.migrate_latent_to_rgb(tapp.guidance.decode_latents)
     assert not TR.uses_bins(24, 24, tapp.scene.mesh.num_faces)

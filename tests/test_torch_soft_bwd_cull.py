@@ -11,7 +11,8 @@ within the tail bound the cull implies (each skipped share is at most
 |g·prod|·2e^-27.7·m/sigma, checked in float64), to JAX's band-binned VJP
 in interpret mode within the tolerance of
 tests/test_torch_soft_silhouette.py, and to the plain version's NaN on
-faces with a non-finite vertex, which are never skipped. Inputs are
+faces with a non-finite vertex, which are never skipped, nor are slivers
+(needles of 1e-6 to 1e-5 rad, added to the spheres). Inputs are
 projected spheres and seeded numpy arrays, float32."""
 import math
 
@@ -42,18 +43,37 @@ def _sphere(theta, phi, r=1.3):
     return np.array(fv_img, np.float32)
 
 
+def _with_slivers(fv, seed):
+    """Each view's faces and 12 needles after them: an angle of 1e-6 to
+    1e-5 rad at vertex 0, tips inside NDC. Their rounded inside test can
+    hold far beyond the tip, so the cull never skips them."""
+    rng = np.random.default_rng(seed)
+    B, n = fv.shape[0], 12
+    tip = rng.uniform(-0.8, 0.8, (B, n, 2))
+    th = rng.uniform(0.0, 2 * np.pi, (B, n))
+    ang = 10.0 ** rng.uniform(-6.0, -5.0, (B, n))
+    length = rng.uniform(0.05, 0.6, (B, n, 1))
+    a = np.stack([np.cos(th), np.sin(th)], -1) * length
+    b = np.stack([np.cos(th + ang), np.sin(th + ang)], -1) * length * 1.2
+    needles = np.stack([tip, tip + a, tip + b], 2).astype(np.float32)
+    return np.concatenate([fv, needles], 1)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setattr(JR, "_SOFT_INTERPRET", True)
 
 
-def _scene(sigma, cotangent, seed=0):
-    """Two views of the sphere at H², their bins (K, or wider where K
-    overflows), rows with the filler, the
+def _scene(sigma, cotangent, seed=0, slivers=False):
+    """Two views of the sphere at H² (with needles after its faces where
+    `slivers`), their bins (K, or wider where K overflows), rows with the
+    filler, the
     plain forward's prod and a cotangent g, all (B, nb, 1024) maps:
     "random" N(0, 1) everywhere, "silhouette" d sum(mask²)/d mask = 2 mask,
     which with prod makes only the rim live."""
     fv = np.stack([_sphere(1.0, 0.7), _sphere(0.6, 2.1)])
+    if slivers:
+        fv = _with_slivers(fv, seed)
     fvt = torch.from_numpy(fv)
     ids, maxc = TR._soft_bins(fvt, H, H, sigma, K)
     if int(maxc) > K:                  # bins that hold, whatever sigma
@@ -102,13 +122,21 @@ def _slot_rows(rows, ids, pix, g, prod, sigma, mask=None,
     return torch.cat(out, dim=2)
 
 
+@pytest.mark.parametrize("slivers", [False, True],
+                         ids=["sphere", "sphere+slivers"])
 @pytest.mark.parametrize("cotangent", ["random", "silhouette"])
 @pytest.mark.parametrize("sigma", [1e-4, 1e-3])
-def test_skipped_shares_stay_within_the_tail_bound(sigma, cotangent):
-    _, rows, ids, pix, g, prod = _scene(sigma, cotangent, seed=int(sigma * 1e5))
+def test_skipped_shares_stay_within_the_tail_bound(sigma, cotangent,
+                                                   slivers):
+    _, rows, ids, pix, g, prod = _scene(sigma, cotangent, int(sigma * 1e5),
+                                        slivers)
     kept = TR._soft_bwd_kept(rows, ids, pix, g, prod, sigma, H)
     mask = _pixel_mask(kept, pix.shape[0], H)
     F = rows.shape[1] - 1
+    if slivers:
+        # a needle's slots are kept at every tile of the bands that hold it
+        held = (ids >= F - 12) & (ids < F)                  # (B, nb, K)
+        assert held.any() and kept.permute(0, 1, 3, 2)[held].all()
     real = (ids < F)[..., None]                              # (B, nb, K, 1)
     live = ((g * prod) != 0)[:, :, None, :]                  # (B, nb, 1, 1024)
     pairs = (real & live).sum()

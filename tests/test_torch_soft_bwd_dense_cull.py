@@ -12,7 +12,8 @@ within the tail bound the cull implies (each skipped share is at most
 (where JAX does not bin, so its dense Pallas kernels run, in interpret
 mode) within the tolerance of tests/test_torch_soft_silhouette.py, and to
 the plain version's NaN on faces with a non-finite vertex, which are never
-skipped. Inputs are projected spheres and seeded numpy arrays, float32."""
+skipped, nor are slivers (needles of 1e-6 to 1e-5 rad, added to the
+spheres). Inputs are projected spheres and seeded numpy arrays, float32."""
 import math
 
 import jax
@@ -42,16 +43,35 @@ def _sphere(theta, phi, r=1.3):
     return np.array(fv_img, np.float32)
 
 
+def _with_slivers(fv, seed):
+    """Each view's faces and 12 needles after them: an angle of 1e-6 to
+    1e-5 rad at vertex 0, tips inside NDC. Their rounded inside test can
+    hold far beyond the tip, so the cull never skips them."""
+    rng = np.random.default_rng(seed)
+    B, n = fv.shape[0], 12
+    tip = rng.uniform(-0.8, 0.8, (B, n, 2))
+    th = rng.uniform(0.0, 2 * np.pi, (B, n))
+    ang = 10.0 ** rng.uniform(-6.0, -5.0, (B, n))
+    length = rng.uniform(0.05, 0.6, (B, n, 1))
+    a = np.stack([np.cos(th), np.sin(th)], -1) * length
+    b = np.stack([np.cos(th + ang), np.sin(th + ang)], -1) * length * 1.2
+    needles = np.stack([tip, tip + a, tip + b], 2).astype(np.float32)
+    return np.concatenate([fv, needles], 1)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setattr(JR, "_SOFT_INTERPRET", True)
 
 
-def _scene(sigma, cotangent, seed=0):
-    """Two views of the sphere at H², their rows, the plain forward's prod
-    and a cotangent g, (B, P): "random" N(0, 1) everywhere, "silhouette"
-    d sum(mask²)/d mask = 2 mask, which with prod makes only the rim live."""
+def _scene(sigma, cotangent, seed=0, slivers=False):
+    """Two views of the sphere at H² (with needles after its faces where
+    `slivers`), their rows, the plain forward's prod and a cotangent g,
+    (B, P): "random" N(0, 1) everywhere, "silhouette" d sum(mask²)/d mask =
+    2 mask, which with prod makes only the rim live."""
     fv = np.stack([_sphere(1.0, 0.7), _sphere(0.6, 2.1)])
+    if slivers:
+        fv = _with_slivers(fv, seed)
     rows = TR._soft_rows(torch.from_numpy(fv)).contiguous()
     pix = TR.pixel_grid_ndc(H, H, CPU)
     prod = TR.soft_prod_dense_plain(rows, pix, sigma)
@@ -84,12 +104,18 @@ def _grads(rows, pix, g, prod, sigma, mask=None, dtype=torch.float32):
     return TR._soft_grad_rows_plain(tab, px, py, sigma, gm, prod[:, None, :])
 
 
+@pytest.mark.parametrize("slivers", [False, True],
+                         ids=["sphere", "sphere+slivers"])
 @pytest.mark.parametrize("cotangent", ["random", "silhouette"])
 @pytest.mark.parametrize("sigma", [1e-4, 1e-3])
-def test_skipped_shares_stay_within_the_tail_bound(sigma, cotangent):
-    _, rows, pix, g, prod = _scene(sigma, cotangent, seed=int(sigma * 1e5))
+def test_skipped_shares_stay_within_the_tail_bound(sigma, cotangent,
+                                                   slivers):
+    _, rows, pix, g, prod = _scene(sigma, cotangent, int(sigma * 1e5),
+                                   slivers)
     kept = TR._soft_bwd_dense_kept(rows, pix, g, prod, sigma, H)
     mask = _pixel_mask(kept, pix.shape[0], H)                # (B, F, P)
+    if slivers:
+        assert kept[..., -12:].all()          # needles: kept at every tile
     live = ((g * prod) != 0)[:, None, :]
     pairs = live.expand_as(mask).sum()
     skipped = (live & ~mask).sum()

@@ -4,8 +4,10 @@ Kernels #7 and #8 skip a (face, warp tile) pair when the tile's pixels all
 lie outside the face's vertex box widened by m = sqrt(27.7 sigma). Their
 twins here (`_soft_cull_boxes`, `_soft_tile_pixels`, `_soft_tile_boxes`,
 `_soft_kept`) are held to three things: every pair the rule skips has a
-factor 1 - p of exactly 1.0f under the plain `_soft_face_prob`; a face with
-a non-finite vertex is never skipped; and the plain sweep with the skipped
+factor 1 - p of exactly 1.0f under the plain `_soft_face_prob`, slivers
+(needles with an angle of 1e-6 to 1e-5 rad, whose rounded inside test can
+hold far beyond their tip) included; a face with a non-finite vertex and a
+sliver are never skipped; and the plain sweep with the skipped
 factors set to 1 equals `soft_prod_dense_plain` bit for bit, and JAX's
 Pallas forward (interpret mode) within the tolerance of
 tests/test_torch_soft_silhouette.py. Inputs are seeded numpy arrays,
@@ -38,8 +40,24 @@ def interpret(monkeypatch):
     monkeypatch.setattr(JR, "_SOFT_INTERPRET", True)
 
 
+def _slivers(rng, n: int, far: bool = False) -> np.ndarray:
+    """(n, 3, 2) needles: an angle of 1e-6 to 1e-5 rad at vertex 0, long
+    edges of 0.05 to 0.6; tips inside NDC, or (far) 2 to 3 away from it."""
+    tip = rng.uniform(-0.8, 0.8, (n, 2))
+    if far:
+        tip = rng.choice([-1.0, 1.0], (n, 2)) * rng.uniform(2.0, 3.0, (n, 2))
+    th = rng.uniform(0.0, 2 * np.pi, n)
+    ang = 10.0 ** rng.uniform(-6.0, -5.0, n)
+    length = rng.uniform(0.05, 0.6, n)[:, None]
+    stretch = rng.uniform(0.5, 1.5, n)[:, None]
+    a = np.stack([np.cos(th), np.sin(th)], -1) * length
+    b = np.stack([np.cos(th + ang), np.sin(th + ang)], -1) * length * stretch
+    return np.stack([tip, tip + a, tip + b], 1)
+
+
 def _faces(seed: int) -> np.ndarray:
-    """(n, 3, 2) random, zero-area, thin and tiny triangles."""
+    """(n, 3, 2) random, zero-area, thin and tiny triangles, then slivers
+    near (60:70) and far (70:75) from the pixels."""
     rng = np.random.default_rng(seed)
     n = 60
     c = rng.uniform(-0.8, 0.8, (n, 1, 2))
@@ -51,7 +69,34 @@ def _faces(seed: int) -> np.ndarray:
         [np.zeros_like(d), d, d + 1e-3 * np.stack([-d[..., 1], d[..., 0]],
                                                   -1)], axis=1)
     tri[35:40] = c[35:40] + rng.uniform(-1e-4, 1e-4, (5, 3, 2))  # tiny
+    tri = np.concatenate([tri, _slivers(rng, 10), _slivers(rng, 5, True)])
     return tri.astype(np.float32)
+
+
+SLIVERS = slice(60, 75)
+
+
+def _vertex_boxes(rows: torch.Tensor, sigma: float) -> torch.Tensor:
+    """The vertex boxes widened by the margin, slivers' too (the boxes the
+    cull had before it kept slivers)."""
+    vx, vy = rows[:, 9:15:2], rows[:, 10:15:2]
+    m = torch.tensor(TR._soft_margin(sigma), dtype=torch.float32)
+    return torch.stack([vx.amin(-1) - m, vx.amax(-1) + m,
+                        vy.amin(-1) - m, vy.amax(-1) + m], dim=-1)
+
+
+def _beyond_the_tips(tri: np.ndarray, sigma: float) -> torch.Tensor:
+    """Pixels on each sliver's axis behind its sharp vertex and past its
+    short edge, 1 to 8 margins out: where its long edge forms are nearly
+    parallel and round to either sign."""
+    m = TR._soft_margin(sigma)
+    tip = tri[:, 0].astype(np.float64)
+    mid = (tri[:, 1] + tri[:, 2]).astype(np.float64) / 2
+    axis = (mid - tip) / np.linalg.norm(mid - tip, axis=-1, keepdims=True)
+    dist = np.linspace(1.0, 8.0, 57)[None, :, None] * m
+    pts = np.concatenate([tip[:, None] - dist * axis[:, None],
+                          mid[:, None] + dist * axis[:, None]], 1)
+    return torch.from_numpy(pts.reshape(-1, 2).astype(np.float32))
 
 
 def _step_out(v: np.ndarray, direction: float, steps: int) -> np.ndarray:
@@ -78,11 +123,13 @@ def _pixels_around_boxes(boxes: torch.Tensor, seed: int) -> torch.Tensor:
 
 @pytest.mark.parametrize("sigma", SIGMAS)
 def test_every_skipped_factor_is_exactly_one(sigma):
-    tri = torch.from_numpy(_faces(int(sigma * 1e6)))
-    rows = TR._soft_rows(tri)
+    tri = _faces(int(sigma * 1e6))
+    rows = TR._soft_rows(torch.from_numpy(tri))
     rows[40:45, 15] = 0.0                               # valid = 0
     boxes = TR._soft_cull_boxes(rows, sigma)
-    pix = _pixels_around_boxes(boxes, 3)
+    vboxes = _vertex_boxes(rows, sigma)
+    pix = torch.cat([_pixels_around_boxes(vboxes, 3),
+                     _beyond_the_tips(tri[SLIVERS], sigma)])
     # each pixel a tile of its own: its box is the point
     tiles = torch.arange(pix.shape[0])[:, None].expand(-1, 32)
     kept = TR._soft_kept(boxes, TR._soft_tile_boxes(pix, tiles))  # (P, F)
@@ -95,6 +142,16 @@ def test_every_skipped_factor_is_exactly_one(sigma):
     # the rule is not vacuous: pixels just outside a box are skipped, and
     # some kept pairs are live
     assert skipped[:, 600:].any() and (factor[~skipped] != 1.0).any()
+    # slivers are kept at every pixel: outside their widened vertex boxes,
+    # where a box cull would skip them, their factor is 0 at some pixels (a
+    # spurious inside)
+    assert not skipped[SLIVERS].any()
+    beyond = ~TR._soft_kept(vboxes, TR._soft_tile_boxes(pix, tiles)).T
+    assert ((factor[SLIVERS] == 0.0) & beyond[SLIVERS]).any()
+    # every other face keeps its vertex box
+    others = torch.ones(rows.shape[0], dtype=torch.bool)
+    others[SLIVERS] = False
+    assert torch.equal(boxes[others], vboxes[others])
 
 
 def test_margin_and_boxes_are_f32():
@@ -105,10 +162,39 @@ def test_margin_and_boxes_are_f32():
     boxes = TR._soft_cull_boxes(rows, sigma)
     v = rows[:, 9:15].reshape(-1, 3, 2).numpy()
     m32 = np.float32(m)
+    # the slivers' boxes are the plane; every other face's is f32
+    inf = float("inf")
+    assert (boxes[SLIVERS] == torch.tensor([-inf, inf, -inf, inf])).all()
+    boxes, v = boxes[:SLIVERS.start], v[:SLIVERS.start]
     np.testing.assert_array_equal(boxes[:, 0].numpy(),
                                   v[..., 0].min(-1) - m32)
     np.testing.assert_array_equal(boxes[:, 3].numpy(),
                                   v[..., 1].max(-1) + m32)
+
+
+def test_the_sliver_test_is_the_f32_one_of_the_kernels():
+    """`_soft_cull_boxes` keeps a face whole-plane exactly where its rows'
+    edge normals give |n0 × n1| < 2^-10 · max |n_k|², each product and sum
+    rounded to f32 (csrc/rasterize.cu:sliver); a face with an angle of
+    2e-3 rad keeps its box, and a degenerate face (normals 0) too."""
+    rng = np.random.default_rng(7)
+    tri = np.concatenate([_slivers(rng, 20), _faces(5)[:60]])
+    wide = _slivers(rng, 20)
+    wide[:, 2] = wide[:, 0] + (wide[:, 2] - wide[:, 0]) @ np.array(
+        [[np.cos(2e-3), np.sin(2e-3)], [-np.sin(2e-3), np.cos(2e-3)]])
+    tri = np.concatenate([tri, wide]).astype(np.float32)
+    rows = TR._soft_rows(torch.from_numpy(tri))
+    whole = torch.isinf(TR._soft_cull_boxes(rows, 1e-4)[:, 0])
+    r = rows.numpy()
+    f32 = np.float32
+    cross = (r[:, 0] * r[:, 4]).astype(f32) - (r[:, 1] * r[:, 3]).astype(f32)
+    l2 = np.max([(r[:, 3 * k] * r[:, 3 * k]).astype(f32)
+                 + (r[:, 3 * k + 1] * r[:, 3 * k + 1]).astype(f32)
+                 for k in range(3)], axis=0)
+    want = ~(np.abs(cross) >= f32(2.0 ** -10) * l2)
+    assert np.array_equal(whole.numpy(), want)
+    assert whole[:20].all() and not whole[-20:].any()
+    assert not whole[30:40].any()                       # zero area
 
 
 @pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])

@@ -734,11 +734,10 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 //   a time (`__ballot_sync`), stages the hits, in face order, into its own
 //   compacted list in shared memory and sweeps only those. Multiplying by
 //   1.0f is exact, so for faces with finite vertices the culled sweep
-//   equals the unculled one in the same order bit for bit, wherever the
-//   inside test is itself right at a distance m from the face. It is not
-//   for slivers thinner than about 1e-5 radians at one vertex, where the
-//   rounding of the edge forms can call a far pixel inside (p = 1): the
-//   cull then skips that spurious 0.
+//   equals the unculled one in the same order bit for bit. A sliver (sin
+//   of its smallest angle under ~1e-3) is never skipped: the rounding of
+//   its edge forms can call a pixel far beyond its tip inside (p = 1,
+//   factor 0), there as in the plain version (`sliver`).
 // * Forward, dense (`soft_fwd_dense`). The product keeps the order of the
 //   all-pairs sweep: the face list cut into 8 slices, each slice's factors
 //   multiplied in face order, the 8 partial products in slice order. So
@@ -828,6 +827,7 @@ int select_faces_binned_sweep(const float* rows, const int* ids,
 namespace {
 
 constexpr int kSRow = 16;     // floats per soft row
+constexpr float kSliver = 9.765625e-4f;  // 2^-10: face_box's sliver test
 constexpr int kSQuads = 5;    // float4 per staged row: 16 + 3 inverses + pad
 constexpr int kSPix = 32;     // dense sweep: pixels per block, one warp
 constexpr int kSSlices = 8;   // dense forward: slices of the face list
@@ -1003,12 +1003,28 @@ __device__ __forceinline__ bool finite_vertices(
          isfinite(d.y) && isfinite(d.z);
 }
 
+// A sliver: |n0 x n1| < 2^-10 max_k |n_k|^2 over the row's edge normals
+// n_k (twice the area against the longest edge squared; sin of the
+// smallest angle under ~1e-3), or a NaN there. Its rounded inside test can
+// hold at pixels far beyond its tip, so the cull keeps it everywhere.
+// Products and sums rounded one by one, as the twin rounds them; a
+// degenerate row (normals 0) is no sliver: it never tests inside.
+__device__ __forceinline__ bool sliver(const float* __restrict__ row) {
+  const float4 a = reinterpret_cast<const float4*>(row)[0];  // e0 e1x
+  const float4 b = reinterpret_cast<const float4*>(row)[1];  // e1y e1c e2xy
+  const float cross = __fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, a.w));
+  const float l0 = __fadd_rn(__fmul_rn(a.x, a.x), __fmul_rn(a.y, a.y));
+  const float l1 = __fadd_rn(__fmul_rn(a.w, a.w), __fmul_rn(b.x, b.x));
+  const float l2 = __fadd_rn(__fmul_rn(b.z, b.z), __fmul_rn(b.w, b.w));
+  return !(fabsf(cross) >= __fmul_rn(kSliver, fmaxf(fmaxf(l0, l1), l2)));
+}
+
 // The box of a raw 16-float row's three vertices, widened by m; the whole
-// plane for a face with a non-finite vertex coordinate.
+// plane for a face with a non-finite vertex coordinate and for a sliver.
 // kernels/rasterize.py:_soft_cull_boxes is its twin.
 __device__ __forceinline__ Box face_box(const float* __restrict__ row,
                                         float m) {
-  if (!finite_vertices(row)) return whole_plane();
+  if (!finite_vertices(row) || sliver(row)) return whole_plane();
   const float4 c = reinterpret_cast<const float4*>(row)[2];
   const float4 d = reinterpret_cast<const float4*>(row)[3];
   Box b;

@@ -1,15 +1,16 @@
 """LatentNeRFScene — the volumetric scene representation.
 
 The hash-grid NeRF field (trainable parameters), the occupancy grid and its
-packed bitfield (buffers, refreshed by `update_occupancy`), and train-time
-rendering with its regularizers. The sketch-shape SDF loss and mesh
-extraction are not ported yet (ROADMAP.md item A.7).
+packed bitfield (buffers, refreshed by `update_occupancy`), train-time
+rendering with its regularizers, and the eval render (`render_test`). The
+sketch-shape SDF loss and mesh extraction are not ported yet (ROADMAP.md
+item A.7).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +19,7 @@ from tpunerf_torch.core.views import ViewBatch
 from tpunerf_torch.fields import occupancy as occ_lib
 from tpunerf_torch.fields import volume_render as vr
 from tpunerf_torch.fields.latent_nerf import LatentNeRFConfig, LatentNeRFField
+from tpunerf_torch.kernels.texture import resize_cubic_jax
 from tpunerf_torch.utils import resolve_device
 
 ROADMAP_A7 = ("not ported yet: the sketch-shape SDF and mesh extraction "
@@ -36,6 +38,7 @@ class LatentNeRFScene(nn.Module):
         self.dy = dy
         self.train_grid_size = train_grid_size
         self.occ_update_interval = occ_update_interval
+        self.latent_size = 64            # the guidance's latent grid
         dev = field.hash_table.device
         grid = occ_lib.init_occupancy(occ_cfg, dev)
         self.register_buffer("occ_grid", grid)
@@ -127,6 +130,29 @@ class LatentNeRFScene(nn.Module):
         out["sparsity_loss"] = torch.mean(torch.sqrt(wsum ** 2 + 0.01))
         out["opacity_loss"] = torch.mean(-wsum * torch.log(wsum + 1e-5))
         return out
+
+    @torch.no_grad()
+    def render_test(self, views: ViewBatch, decode_fn: Optional[Callable],
+                    dims: Tuple[int, int]) -> Dict[str, torch.Tensor]:
+        """Eval render, no random draw: latent fields render at the latent
+        grid (white background, occupancy on, no jitter) and decode through
+        `decode_fn` to images, resized to `dims` as `jax.image.resize(
+        method='bicubic')` resizes where the decoded size differs, then
+        clipped to [0, 1]; RGB fields render at `dims` directly."""
+        if self.field.config.out_channels == 4:
+            out = self.render_views(views, (self.latent_size,) * 2,
+                                    perturb=False, use_occupancy=True,
+                                    white_background=True)
+            rgb = decode_fn(out["image"])
+            if rgb.shape[1] != dims[0]:
+                # bicubic overshoots [0, 1]
+                rgb = resize_cubic_jax(rgb, *dims).clamp(0.0, 1.0)
+            return {"image": rgb, "mask": out["mask"], "texture_map": None,
+                    "depth": out["depth"]}
+        out = self.render_views(views, dims, perturb=False,
+                                use_occupancy=True, white_background=True)
+        return {"image": out["image"].clamp(0.0, 1.0), "mask": out["mask"],
+                "texture_map": None, "depth": out["depth"]}
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

@@ -2,7 +2,7 @@
 
 Tables from the Stable-Diffusion config (scaled_linear β ∈ [0.00085,
 0.012], 1000 train steps). The DDIM-inverse and PNDM samplers of the JAX
-package come with a later slice of the port.
+package are not ported yet: ROADMAP.md item A.6.
 """
 from __future__ import annotations
 

@@ -95,8 +95,8 @@ class StableDiffusionGuidance:
         the VAE and the text tower stay f32."""
         if model_dir is not None:
             raise NotImplementedError(
-                "guide.model_dir: loading pretrained SD weights is not "
-                "ported yet (it waits for the weights to be in the repo)")
+                "guide.model_dir: the loaders of pretrained SD weights are "
+                "not ported yet: ROADMAP.md item A.8")
         device = resolve_device(device)
         ucfg = UNetConfig.tiny() if tiny else UNetConfig.sd_v1()
         vcfg = vae_lib.VAEConfig.tiny() if tiny else vae_lib.VAEConfig.sd_v1()
@@ -157,8 +157,8 @@ class StableDiffusionGuidance:
         unless given."""
         if not self.latent_mode:
             raise NotImplementedError(
-                "RGB-mode SDS (encode the render through the VAE) comes "
-                "with the RGB-finetune slice of the port (see ROADMAP.md)")
+                "RGB-mode SDS (encode the render through the VAE) is not "
+                "ported yet: ROADMAP.md item A.2")
         return sds_lib.sds_loss(self.unet_apply, self.sched, inputs,
                                 text_embeddings, guidance_scale,
                                 self.min_step, self.max_step, t=t,

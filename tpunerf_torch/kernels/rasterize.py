@@ -29,7 +29,8 @@ rows of 16 floats (`_soft_rows`); forward and backward are kernels (dense
 and band-binned, as the selection) behind one `autograd.Function`, whose
 backward is the closed-form vertex gradient. The forward kernels skip,
 per warp tile of 32 pixels, the faces whose vertex box widened by
-√(27.7·σ) the tile lies outside, where every factor is exactly 1.0f;
+√(27.7·σ) the tile lies outside, where every factor is exactly 1.0f, but
+never a sliver, whose rounded inside test can hold far from the face;
 `_soft_cull_boxes`, `_soft_tile_pixels`, `_soft_tile_boxes` and
 `_soft_kept` are that rule in PyTorch, for the tests and the pair counts
 of `chip_smoke.py`. Both backward kernels skip by the same rule against
@@ -73,6 +74,10 @@ _SOFT_BIN_K = 768
 # exp(−d²/σ) < 1e-12 beyond d = √(27.7·σ): a face farther than that from a
 # band adds nothing to its probabilities or gradients above f32 rounding
 _SOFT_TAIL = 27.7
+# a face with |2·area| < 2^−10 · (longest edge)², i.e. sin(smallest angle)
+# under ~1e-3, is a sliver: its two long edge forms round to ≥ 0 at pixels
+# well beyond its tip, so the cull keeps it everywhere (see _soft_cull_boxes)
+_SOFT_SLIVER = 2.0 ** -10
 _BIN_MIN_PIXELS = 128 * 128  # binning engages at ≥128² renders
 # elements of one (faces, pixels) block of the plain sweeps
 _PLAIN_BLOCK = 1 << 22
@@ -725,16 +730,34 @@ def _soft_margin(sigma: float) -> float:
 def _soft_cull_boxes(rows: torch.Tensor, sigma: float) -> torch.Tensor:
     """(..., F, 16) → (..., F, 4) [xmin, xmax, ymin, ymax] of each face's
     three vertices, widened by the margin in f32; (−inf, inf, −inf, inf)
-    for a face with a non-finite vertex coordinate, which the cull never
-    skips. The twin of csrc/rasterize.cu:face_box."""
+    for a face the cull never skips: one with a non-finite vertex
+    coordinate, and a sliver. The twin of csrc/rasterize.cu:face_box.
+
+    A pixel outside the widened box is farther than m from the face, so one
+    of its edge forms is below −|edge|·m·sin(A/2) for the smallest angle A,
+    and the inside test fails there, if that exceeds the forms' rounding
+    (a few ulps of |edge|·(|p| + |v|)). For a sliver (sin A ≲ 1e-5 at
+    σ = 1e-4) it does not, a far pixel can test inside (p = 1, factor 0)
+    in the plain version, and skipping the pair would give 1. So a face is
+    kept everywhere unless |n0 × n1| ≥ 2^−10 · max_k |n_k|², the n_k being
+    its rows' edge normals (2·area and the edges' squared lengths), each
+    product and sum rounded to f32 as the kernels round them: enough for
+    σ ≥ 1e-6 in NDC. A degenerate face (normals 0, edge0 ≡ −1) never tests
+    inside and keeps its box."""
     vx, vy = rows[..., 9:15:2], rows[..., 10:15:2]           # (..., F, 3)
     m = torch.tensor(_soft_margin(sigma), dtype=torch.float32,
                      device=rows.device)
     box = torch.stack([vx.amin(-1) - m, vx.amax(-1) + m,
                        vy.amin(-1) - m, vy.amax(-1) + m], dim=-1)
-    finite = torch.isfinite(rows[..., 9:15]).all(-1, keepdim=True)
+    nx, ny = rows[..., 0:9:3], rows[..., 1:9:3]              # (..., F, 3)
+    cross = nx[..., 0] * ny[..., 1] - ny[..., 0] * nx[..., 1]
+    l2 = (nx * nx + ny * ny).amax(-1)
+    # written so that a NaN keeps the face
+    sliver = ~(cross.abs() >= _SOFT_SLIVER * l2)
+    keep = ~torch.isfinite(rows[..., 9:15]).all(-1) | sliver
     inf = float("inf")
-    return torch.where(finite, box, box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where(keep[..., None],
+                       box.new_tensor([-inf, inf, -inf, inf]), box)
 
 
 def _soft_tile_width(P: int, width: int, banded: bool) -> int:

@@ -3,7 +3,9 @@
 The JAX package's module is XLA gathers, not a TPU kernel, written to be
 `grid_sample(align_corners=False, padding_mode='zeros')` after the uv → grid
 conversion and `F.interpolate(mode='bicubic')` (Keys' cubic convolution,
-a = −0.75); the port calls those two directly. Textures and images are
+a = −0.75); the port calls those two directly. The latent-NeRF eval render
+resizes with `jax.image.resize(method='bicubic')` instead, which is another
+filter: `resize_cubic_jax` builds its weights. Textures and images are
 NHWC; uv ∈ [0,1]² with v flipped (texture row 0 is v = 1). The gradient
 flows to the texture (and, except in nearest mode, to the uv coordinates).
 """
@@ -49,3 +51,57 @@ def resize_bilinear(image: torch.Tensor, height: int, width: int
     out = F.interpolate(image.permute(0, 3, 1, 2), size=(height, width),
                         mode="bilinear", align_corners=False, antialias=True)
     return out.permute(0, 2, 3, 1)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = −0.5 at |offsets| x."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_weights(n_in: int, n_out: int, device: torch.device
+                   ) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of one axis of `jax.image.resize(method=
+    'bicubic')` (its `compute_weight_mat` with the Keys kernel): half-pixel
+    centres, the kernel widened by n_in/n_out when shrinking (antialiased),
+    each column renormalised over the taps inside the image, and columns
+    whose sample lies outside the image zeroed.
+
+    The sample positions (i + 0.5)·inv − 0.5 are rounded to f32 once, as
+    the fused multiply-add of JAX's compiled resize rounds them (an f32
+    product and difference move a position near 256 by an ulp, 3e-5, and a
+    weight by as much); offsets are f32 as JAX's, the kernel and its
+    normalisation float64, rounded to f32 at the end."""
+    f32, f64 = torch.float32, torch.float64
+    inv = torch.tensor(1.0 / (n_out / n_in), dtype=f32).item()
+    sample = ((torch.arange(n_out, dtype=f64, device=device) + 0.5) * inv
+              - 0.5).to(f32)
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32, device=device)[
+        :, None]).abs() / max(inv, 1.0)
+    w = _keys_cubic(x.to(f64))
+    total = w.sum(dim=0, keepdim=True)
+    eps = torch.finfo(f32).eps
+    w = torch.where(total.abs() > 1000.0 * eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(f32)
+
+
+def resize_cubic_jax(image: torch.Tensor, height: int, width: int
+                     ) -> torch.Tensor:
+    """NHWC resize equal to `jax.image.resize(image, (B, height, width, C),
+    method='bicubic')`: Keys' kernel with a = −0.5, antialiased when
+    shrinking, the weights renormalised at the borders (not
+    `resize_bicubic`'s a = −0.75 with clamped indices). Two products, one
+    an axis that changes size: out = W_yᵀ · image · W_x per channel."""
+    B, H, W, C = image.shape
+    out = image
+    if H != height:
+        wy = _cubic_weights(H, height, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,hy->bywc", out, wy)
+    if W != width:
+        wx = _cubic_weights(W, width, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,wx->bhxc", out, wx)
+    return out

@@ -306,5 +306,5 @@ class TexturedMeshScene(nn.Module):
 
     def migrate_latent_to_rgb(self, decode_fn: Callable) -> None:
         raise NotImplementedError(
-            "the latent→RGB finetune stage comes with the checkpoint slice "
-            "of the port (see ROADMAP.md)")
+            "the latent→RGB finetune stage is not ported yet: ROADMAP.md "
+            "item A.2")

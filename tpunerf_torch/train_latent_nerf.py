@@ -2,14 +2,17 @@
 
 Usage:
     python -m tpunerf_torch.train_latent_nerf \\
-        --config_path demo_configs/latent_nerf/sand_castle.yaml \\
-        --log.eval_size 0 --log.full_eval_size 0 --log.save_mesh false \\
-        --log.log_images false --log.save_interval 100000
+        --config_path demo_configs/latent_nerf/sand_castle.yaml
 
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
-given. The eval orbit, checkpoints, train-render images and mesh export
-are not ported yet, so the settings that ask for them must be switched
-off as above.
+given. Under `<log.exp_root>/<log.exp_name>/` a run writes
+`checkpoints/step_%06d.ckpt` every `log.save_interval` steps with the eval
+frames `vis/eval/step_%06d_%03d_rgb.png`, train-render images
+`vis/train/step_%06d.png` (PNG, where the JAX package writes JPEG), and
+after the last step the orbit in `results/`; the mesh export is skipped
+until ROADMAP.md item A.7. `--optim.resume true` continues from the newest
+checkpoint; `--log.eval_only true` renders the final orbit of the newest
+checkpoint and takes no step.
 """
 from __future__ import annotations
 
@@ -44,7 +47,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = parse(TrainConfig, args)
     cfg.render.backbone = "latent-nerf"
     app = LatentNeRFApp.create(cfg, device=device)
-    Trainer(cfg, app, device=device).train()
+    run(Trainer(cfg, app, device=device))
+
+
+def run(trainer: Trainer) -> None:
+    """`log.eval_only`: the final eval of the loaded checkpoint, no step;
+    otherwise the training run."""
+    if trainer.cfg.log.eval_only:
+        trainer.full_eval()
+    else:
+        trainer.train()
 
 
 if __name__ == "__main__":

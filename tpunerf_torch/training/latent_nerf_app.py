@@ -1,20 +1,26 @@
 """Latent-NeRF application: text-to-3D volumetric SDS training.
 
 A hash-grid latent-NeRF field optimized by text-conditioned SDS, with
-occupancy-grid pruning and sparsity regularization. Sketch-shape guidance
-and the latent→RGB refine stage come with a later slice of the port.
+occupancy-grid pruning and sparsity regularization, and its eval orbit: the
+field rendered at the latent grid and decoded by the VAE. Sketch-shape
+guidance and mesh extraction are ROADMAP.md item A.7, the latent→RGB
+refine stage item A.2.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpunerf_torch.core.camera import VIEW_DIRECTION_SUFFIXES
+from tpunerf_torch.core.obj_io import save_obj_with_mtl
 from tpunerf_torch.core.views import ViewBatch
 from tpunerf_torch.fields.scene import LatentNeRFScene
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
+from tpunerf_torch.meshrep import uv_unwrap
 from tpunerf_torch.training.config import TrainConfig
 from tpunerf_torch.utils import make_generator, resolve_device
 
@@ -58,7 +64,7 @@ class LatentNeRFApp:
         if cfg.guide.concept_name:
             raise NotImplementedError(
                 "guide.concept_name: textual-inversion concepts are not "
-                "ported yet")
+                "ported yet: ROADMAP.md item A.6")
         latent_mode = cfg.render.nerf_type == "latent"
         if guidance is None:
             guidance = StableDiffusionGuidance.create(
@@ -75,6 +81,7 @@ class LatentNeRFApp:
             train_grid_size=cfg.render.train_grid_size,
             shape_path=cfg.guide.shape_path, dy=cfg.guide.dy,
             mlp_dtype=cfg.render.mlp_dtype, device=device)
+        scene.latent_size = guidance.latent_size
         neg = cfg.guide.negative_text if cfg.guide.append_neg_text else ""
         text_z = directional_text_embeddings(guidance, cfg.guide.text,
                                              cfg.guide.append_direction, neg)
@@ -123,3 +130,61 @@ class LatentNeRFApp:
         return torch.optim.Adam(self.scene.trainable_parameters(),
                                 lr=self.cfg.optim.lr, betas=(0.9, 0.99),
                                 eps=1e-15)
+
+    # ------------------------------------------------------------------ #
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """What a checkpoint holds: the scene's parameters and buffers (the
+        occupancy grid and its bitfield)."""
+        return self.scene.state_dict()
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.scene.load_state_dict(state)
+
+    def eval_render(self, views: ViewBatch, dims: Tuple[int, int]
+                    ) -> Dict[str, torch.Tensor]:
+        return self.scene.render_test(
+            views, decode_fn=self.guidance.decode_latents, dims=dims)
+
+    def max_eval_batch(self, dims: Tuple[int, int]) -> int:
+        """Eval poses a chunk: no cap at the latent grid (the VAE decodes
+        to `dims`); an RGB field marches every output pixel, so at most
+        ~40 M ray samples a chunk."""
+        if self.scene.field.config.out_channels == 4:
+            return 1 << 30
+        per_pose = dims[0] * dims[1] * self.scene.march.num_samples
+        return max(1, (40 << 20) // max(per_pose, 1))
+
+    def export(self, path: Path) -> None:
+        """NeRF → mesh: the 64³ iso-surface with a grid UV atlas and a grey
+        albedo. `extract_mesh` raises NotImplementedError naming ROADMAP.md
+        item A.7 until that item (the trainer logs the export as skipped),
+        as does an empty surface."""
+        verts, faces = self.scene.extract_mesh(resolution=64)
+        if len(faces) == 0:
+            raise NotImplementedError("no surface at isolevel")
+        vt, ft = uv_unwrap.grid_atlas(verts, faces)
+        albedo = np.full((256, 256, 3), 0.5, np.float32)
+        save_obj_with_mtl(path, verts, faces, vt, ft, albedo)
+
+    def preview_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        return self.guidance.decode_latents(latents)
+
+    def migrate_params(self, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A checkpoint whose colour heads are as wide as this field's
+        loads unchanged. Loading a latent (4-channel) checkpoint into an
+        RGB field re-initialises the last layers of `color_mlp` and
+        `bg_mlp`: ROADMAP.md item A.2."""
+        own = self.scene.state_dict()
+        for head in ("color_mlp", "bg_mlp"):
+            keys = sorted((k for k in own
+                           if k.startswith(f"field.{head}.layers.")),
+                          key=lambda k: int(k.split(".")[3]))
+            last = keys[-1]
+            if last in params and params[last].shape != own[last].shape:
+                raise NotImplementedError(
+                    f"{last}: a checkpoint with {params[last].shape[0]} "
+                    f"output channels into a field with "
+                    f"{own[last].shape[0]} (the latent→RGB refine stage) "
+                    f"is ROADMAP.md item A.2")
+        return params

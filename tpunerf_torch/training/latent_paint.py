@@ -3,7 +3,8 @@
 Optimizes a 4-channel latent UV texture (and the colours of the background
 dome) through the hard rasterizer under text-conditioned SDS. The eval
 render decodes the latent texture through the VAE. Resuming a latent run in
-RGB mode (`migrate_params`) comes with the checkpoint slice of the port.
+RGB mode (`migrate_params`, the latent→RGB finetune) is ROADMAP.md item
+A.2.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class LatentPaintApp:
         if cfg.guide.concept_name:
             raise NotImplementedError(
                 "guide.concept_name: textual-inversion concepts are not "
-                "ported yet")
+                "ported yet: ROADMAP.md item A.6")
         latent_mode = cfg.render.nerf_type == "latent"
         if guidance is None:
             guidance = StableDiffusionGuidance.create(
@@ -104,7 +105,21 @@ class LatentPaintApp:
     def preview_latents(self, latents: torch.Tensor) -> torch.Tensor:
         return self.guidance.decode_latents(latents)
 
-    def migrate_params(self) -> None:
-        raise NotImplementedError(
-            "loading a latent-mode checkpoint into RGB mode comes with the "
-            "checkpoint slice of the port (see ROADMAP.md)")
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """What a checkpoint holds: the scene's parameters."""
+        return self.scene.state_dict()
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.scene.load_state_dict(state)
+
+    def migrate_params(self, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A latent-mode scene loads a checkpoint unchanged, as does an RGB
+        one whose finetune texture is not all zero. A latent checkpoint
+        into RGB mode (finetune texture all zero) would decode the latent
+        texture as the finetune's start: ROADMAP.md item A.2."""
+        rgb = params.get("texture_img_rgb_finetune")
+        if (not self.scene.latent_mode and rgb is not None
+                and rgb.abs().max() == 0):
+            self.scene.migrate_latent_to_rgb(self.guidance.decode_latents)
+        return params

@@ -239,3 +239,16 @@ class LatentPaintMeshApp:
 
     def preview_latents(self, latents: torch.Tensor) -> torch.Tensor:
         return self.guidance.decode_latents(latents)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """What a checkpoint holds: the scene's parameters."""
+        return self.scene.state_dict()
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        self.scene.load_state_dict(state)
+
+    def migrate_params(self, params: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A checkpoint loads unchanged in every mode, as in the JAX
+        package."""
+        return params

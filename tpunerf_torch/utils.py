@@ -1,4 +1,5 @@
-"""Host-side utilities: device and dtype policy, seeding, metric rows."""
+"""Host-side utilities: device and dtype policy, seeding, images, metric
+rows."""
 from __future__ import annotations
 
 import json
@@ -104,6 +105,17 @@ def make_path(path: Path) -> Path:
     path = Path(path)
     path.mkdir(exist_ok=True, parents=True)
     return path
+
+
+def tensor2numpy(array: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
+    """An image → uint8: rescaled from [−1, 1] to [0, 1] where it has a
+    negative value, clipped to [0, 1], times 255, truncated."""
+    if isinstance(array, torch.Tensor):
+        array = array.detach().cpu().numpy()
+    array = np.asarray(array)
+    if array.min() < 0:
+        array = array * 0.5 + 0.5
+    return (np.clip(array, 0.0, 1.0) * 255).astype(np.uint8)
 
 
 def write_png(path: Union[str, Path], img: np.ndarray) -> None:
