@@ -87,7 +87,39 @@
    at 512^2 (no loss of the app reads the soft mask, so no training step
    launches them), then times #10 and #9 ((d) at 64²) on that phase's own
    g = 2 mask and prod beside their first designs.
-For each path the launch counters are reset just before and read just after.
+9. Config #4 end to end, the latent→RGB refine stage and the chunked
+   trainer (`optim.train_chunk`: one step captured in a CUDA graph and
+   replayed k times a chunk):
+   (a) before 5, a full-width step of stage 1, of the refine stage and of
+       latent-paint, captured and replayed against the same step run
+       eagerly twice from the same state (parameters, buffers, Adam's
+       moments, the generator): bit for bit where the eager runs agree,
+       else each tensor within its own stated bound, with the operations
+       that have no deterministic form named (the refine step, which names
+       none, bit for bit under deterministic algorithms);
+   (b) after 5, stage 1 again with `--optim.train_chunk 8`: chunks of 8
+       and 4, the refreshes of steps 1 and 16 between replays, checkpoints
+       and evals on the eager run's steps (final orbit cut to 10 frames);
+       the steady step graphed beside eager in turns, the profiler's idle
+       share of graphed steps and the launches a replay; the run's launches
+       exactly 25 steps' worth (24 replays and the capture's warm-up step)
+       and the eager launches of its evals and refreshes;
+   (e) in the same run `--log.trace_steps 5,9`, whose trace holds the
+       kernels of #1-#4, each as many times as the window's replays times
+       what the capture recorded, plus the refresh between them;
+   (c) the refine stage from (b)'s step-24 checkpoint: the migration (3
+       channel heads, the rest the checkpoint's), the refine step's split
+       (render; resize + VAE encode fwd+bwd; UNet CFG pass), graphed beside
+       eager, one RGB eval chunk (one pose at 512²) with its peak memory
+       and #1, #3 on its inputs; then the CLI, `--render.nerf_type rgb
+       --optim.ckpt <ckpt> --optim.train_chunk 8`, 16 steps with the
+       10-frame RGB evals and a 10-frame final orbit;
+   (d) after 6, latent-paint trains again with `--optim.train_chunk 4`
+       (its launches exactly 25 steps' worth and the eval's, graphed beside
+       eager after it) and its latent checkpoint is refined in RGB mode
+       (the texture decoded into the finetune texture), 8 steps.
+For each path the launch counters are reset just before and read just after;
+a replay counts the launches its capture recorded.
 
 The profiles of the paint, mode-0 and mode-1 steps end with the selection
 kernels' device ms a step.
@@ -2422,6 +2454,127 @@ def train_paint_full_width(steps: int, seed: int, guidance):
     return launches, app, trainer
 
 
+def train_paint_chunked(steps: int, seed: int, guidance):
+    """(d) Full-width latent-paint as `train_paint_full_width` trains it,
+    with `--optim.train_chunk 4`: `steps` steps in chunks of 4 replays of
+    the captured step, then the eval orbit (5 frames at 512², one chunk),
+    no mesh export. Its launches are exactly `steps` replays and the
+    capture's warm-up step (5 attention, 2 dense selection launches each)
+    and the eval chunk's binned selection. Then the steady step graphed
+    beside eager and the RGB refine of the run's latent checkpoint
+    (`refine_paint`). Returns the run's launches."""
+    import tempfile
+    import torch
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.training.trainer import Trainer
+
+    n_eval = 5
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_paint_") as tmp:
+        cfg = parse(TrainConfig, [
+            "--guide.text", "a goldfish", "--guide.shape_path", "sphere",
+            "--optim.iters", str(steps), "--optim.seed", str(seed),
+            "--log.exp_root", tmp, "--log.exp_name", "paint",
+            "--log.eval_size", "0", "--log.full_eval_size", str(n_eval),
+            "--log.eval_batch", str(n_eval), "--log.save_mesh", "false",
+            "--log.log_images", "false", "--optim.train_chunk", "4",
+            "--log.save_interval", str(steps + 1)])
+        app = LatentPaintApp.create(cfg, guidance=guidance, device="cuda")
+        trainer = Trainer(cfg, app, device="cuda")
+        scene = app.scene
+        tex0 = scene.texture_img.detach().clone()
+        chunks, _, launches = timed_chunks(trainer)
+        per_step = sorted(t / k for _, k, t in chunks)
+        per_replay = trainer.graph.launches
+        print(f"latent-paint chunked (train_chunk 4): median chunk "
+              f"{1e3 * per_step[len(per_step) // 2]:.3f} ms a step over "
+              f"{len(chunks)} chunks; launches a replay "
+              f"{json.dumps(per_replay)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        print("latent-paint chunked launches: " + json.dumps(launches))
+        if torch.equal(tex0, scene.texture_img.detach()):
+            fail("chunked latent-paint left the texture unchanged")
+        if per_replay != {at.ATTN: 5, rz.DENSE: 2}:
+            fail(f"the captured latent-paint step records {per_replay}, "
+                 f"not 5 attention and 2 dense selection launches")
+        want = {at.ATTN: 5 * (steps + 1), rz.DENSE: 2 * (steps + 1),
+                rz.BINNED: 1}
+        for name, n in want.items():
+            if launches.get(name, 0) != n:
+                fail(f"chunked latent-paint launched {name} "
+                     f"{launches.get(name, 0)} times, expected {n}")
+        if not list((Path(tmp) / "paint" / "results").iterdir()):
+            fail("chunked latent-paint wrote no eval frames")
+        steady_graph_vs_eager(trainer, "latent-paint")
+        trainer.graph = None
+        refine_paint(cfg, guidance, trainer, tmp)
+        del trainer, app
+    return launches
+
+
+def refine_paint(cfg, guidance, trainer, tmp: str) -> None:
+    """(d) latent-paint's refine: the run's latent checkpoint loaded in RGB
+    mode (`render.nerf_type rgb`, `optim.ckpt`), which decodes its latent
+    texture, resized to the texture resolution, into the finetune texture
+    (equal bit for bit to the decode and resize done here), then 8 RGB
+    steps in chunks of 4 replays and the 5-frame eval orbit: launches
+    exactly 9 steps' worth (8 replays, the warm-up step) and the eval
+    chunk's binned selection."""
+    import dataclasses
+    import torch
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.kernels import texture as texk
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.training.trainer import Trainer
+
+    trainer.save_checkpoint(True)
+    trainer.ckpts.flush()
+    ckpt = trainer.ckpt_dir / f"step_{trainer.train_step_idx:06d}.ckpt"
+    rcfg = dataclasses.replace(
+        cfg, render=dataclasses.replace(cfg.render, nerf_type="rgb"),
+        optim=dataclasses.replace(cfg.optim, ckpt=ckpt, iters=8),
+        log=dataclasses.replace(cfg.log, exp_name="paint_refine",
+                                save_mesh=False))
+    app = LatentPaintApp.create(
+        rcfg, guidance=dataclasses.replace(guidance, latent_mode=False),
+        device="cuda")
+    rtrainer = Trainer(rcfg, app, device="cuda")
+    scene = app.scene
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+    R = scene.texture_resolution
+    want = texk.resize_bilinear(guidance.decode_latents(
+        saved["texture_img"].cuda()), R, R)
+    got = scene.texture_img_rgb_finetune.detach().clone()
+    print(f"latent-paint refine load of {ckpt.name}: finetune texture "
+          f"{tuple(got.shape)} in [{got.min().item():.3f}, "
+          f"{got.max().item():.3f}], the checkpoint's was all zero: "
+          f"{saved['texture_img_rgb_finetune'].abs().max().item() == 0}; "
+          f"equal to the decode and resize: {torch.equal(got, want)}")
+    if not (torch.equal(got, want) and got.abs().max().item() > 0):
+        fail("the latent-paint refine did not migrate the texture")
+    chunks, _, launches = timed_chunks(rtrainer)
+    per_step = sorted(t / k for _, k, t in chunks)
+    results = sorted(p.name for p in (Path(tmp) / "paint_refine"
+                                      / "results").iterdir())
+    print(f"latent-paint refine (RGB, 8 steps, train_chunk 4): chunks "
+          f"{[k for _, k, _ in chunks]}, {1e3 * per_step[0]:.3f} .. "
+          f"{1e3 * per_step[-1]:.3f} ms a step; results {results}; launches "
+          f"{json.dumps(launches)}")
+    if (torch.equal(got, scene.texture_img_rgb_finetune.detach())
+            or not results):
+        fail("the latent-paint refine did not train or write its frames")
+    # 8 replays and the warm-up step, and the eval chunk's binned selection
+    want = {name: 9 * n for name, n in rtrainer.graph.launches.items()}
+    want[rz.BINNED] = 1
+    if (rtrainer.graph.launches != {at.ATTN: 5, rz.DENSE: 2}
+            or any(launches.get(n, 0) != c for n, c in want.items())):
+        fail(f"the latent-paint refine launched {launches}, expected {want}")
+
+
 def _mesh_cfg(tmp: str, name: str, seed: int, mode: int, steps: int,
               n_eval: int, extra=()):
     from tpunerf_torch.core.config import parse
@@ -2818,9 +2971,11 @@ def breakdown(app, trainer, steps: int = 5) -> None:
     profile_steps(trainer, "latent-NeRF", steps)
 
 
-def profile_steps(trainer, label: str, steps: int = 5) -> None:
-    """The profiler's device time by kernel over `steps` train steps and
-    the device's idle share of their wall time."""
+def profile_steps(trainer, label: str, steps: int = 5, step_fn=None
+                  ) -> float:
+    """The profiler's device time by kernel over `steps` train steps (or
+    calls of `step_fn`, such as a graph's replay) and the device's idle
+    share of their wall time. Returns the device's busy ms a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2830,7 +2985,7 @@ def profile_steps(trainer, label: str, steps: int = 5) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            trainer.train_step()
+            (step_fn or trainer.train_step)()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
@@ -2863,6 +3018,540 @@ def profile_steps(trainer, label: str, steps: int = 5) -> None:
           f" launches/step {sum(e.count for e in sel.values()) / steps:.1f}: "
           + ", ".join(f"{name} {dev_us(e) / 1e3 / steps:.4f}"
                       for name, e in sel.items()))
+    return busy_ms
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the graphed step, the chunked trainer, the refine stage, traces
+# ---------------------------------------------------------------------------
+
+# launch counter name: (the kernel's symbol in a trace, its number)
+TRACE_KERNELS = {"hashgrid_fwd": ("hashgrid_fwd_kernel", "#1"),
+                 "hashgrid_bwd": ("hashgrid_bwd_kernel", "#2"),
+                 "occgrid_lookup": ("occgrid_lookup_kernel", "#3"),
+                 "attention_fwd": ("attention_fwd_bf16_kernel", "#4")}
+
+
+def _free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_graphed_steps(seed: int, guidance) -> None:
+    """(a) One full-width step captured and replayed against the same step
+    run eagerly twice from the same state and generator state
+    (`graphed_against_eager`): stage 1 at sand_castle.yaml's defaults and
+    the refine stage (an RGB field), both on step 1, which carries the
+    occupancy refresh (its draws follow the replay's), and latent-paint.
+    The loss and the generator must be equal bit for bit. Where the two
+    eager runs agree on everything, so must the replay. Where they differ,
+    the step is judged once more, captured and run under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, which names
+    the operations that have no deterministic form: where it names none
+    (the refine step), all three runs must be equal bit for bit; else
+    (latent-paint) `graph_agreement` judges it: bit for bit on a group where
+    the eager runs agree, elsewhere each tensor within 4x its own eager
+    runs' difference or `graph_check.TOL` of its own largest value. The
+    first run's differences are printed, not judged: under cuDNN's default
+    algorithms two eager runs do not bound a tensor's spread."""
+    import dataclasses
+    import tempfile
+    import warnings
+    import torch
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.scripts.graph_check import (TOL, graph_agreement,
+                                                   graphed_against_eager)
+    from tpunerf_torch.training.trainer import Trainer
+
+    rgb_guidance = dataclasses.replace(guidance, latent_mode=False)
+    quiet = ["--log.eval_size", "0", "--log.full_eval_size", "0",
+             "--log.save_mesh", "false", "--log.log_images", "false",
+             "--optim.train_chunk", "8", "--optim.seed", str(seed)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        cases = {
+            "stage 1 (latent-NeRF) step 1 with its refresh": (
+                LatentNeRFApp, guidance, parse(
+                    TrainConfig, quiet + ["--log.exp_root", tmp],
+                    config_path=SAND_CASTLE)),
+            "refine (RGB latent-NeRF) step 1 with its refresh": (
+                LatentNeRFApp, rgb_guidance, parse(
+                    TrainConfig, quiet + ["--log.exp_root", tmp,
+                                          "--render.nerf_type", "rgb"],
+                    config_path=SAND_CASTLE)),
+            "latent-paint step 1": (
+                LatentPaintApp, guidance, parse(TrainConfig, quiet + [
+                    "--log.exp_root", tmp, "--guide.text", "a goldfish",
+                    "--guide.shape_path", "sphere"])),
+        }
+
+        def compare(label, app_cls, g, cfg):
+            trainer = Trainer(cfg, app_cls.create(cfg, guidance=g,
+                                                  device="cuda"),
+                              device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches = trainer.capture().launches
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            d = graphed_against_eager(trainer)
+            verdict = graph_agreement(d)
+            print(f"graphed step (a), {label}: warm-up and capture "
+                  f"{capture_s:.2f} s, launches a replay "
+                  f"{json.dumps(launches)}")
+            for group, v in verdict.items():
+                print(f"  {group}: {v['equal']}/{v['tensors']} tensors equal "
+                      f"bit for bit to the eager step; largest |replay - "
+                      f"eager| {v['replay']:.3e}; two eager runs differ by "
+                      f"{v['eager']:.3e}; largest |value| {v['scale']:.3e}; "
+                      f"largest share of a tensor's allowance (4x its eager "
+                      f"difference or {TOL:g} of its largest |value|) "
+                      f"{v['worst']:.3g}; agreed {v['ok']}")
+            del trainer
+            _free_card()
+            return d, verdict
+
+        for label, (app_cls, g, cfg) in cases.items():
+            d, verdict = compare(label, app_cls, g, cfg)
+            if not (d["replay"]["loss"] == 0.0
+                    and d["replay"]["generator"] == 0.0):
+                fail(f"the graphed step differs from the eager one ({label})")
+            if all(v == 0.0 for v in d["eager"].values()):
+                if not all(v["ok"] for v in verdict.values()):
+                    fail(f"the graphed step differs from the eager one "
+                         f"({label})")
+                continue
+            # not deterministic: two eager runs do not bound a tensor's
+            # spread from run to run, so the judge is the step under
+            # deterministic algorithms, which also names the cause
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    d2, verdict2 = compare(
+                        f"{label}, deterministic algorithms", app_cls, g,
+                        cfg)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            named = sorted({str(w.message).split(" does not have")[0][:80]
+                            for w in caught
+                            if "deterministic" in str(w.message)})
+            print(f"  the eager runs differ; operations without a "
+                  f"deterministic form in this step: {named}; under "
+                  f"deterministic algorithms the eager runs differ by "
+                  f"{max(d2['eager'].values()):.3e}, the replay by "
+                  f"{max(d2['replay'].values()):.3e}")
+            if not all(v["ok"] for v in verdict2.values()):
+                fail(f"the graphed step differs from the eager one ({label},"
+                     f" deterministic algorithms)")
+            if not named and max(max(d2["replay"].values()),
+                                 max(d2["eager"].values())) != 0.0:
+                fail(f"under deterministic algorithms the graphed step is "
+                     f"not the eager one bit for bit ({label})")
+
+
+def timed_chunks(trainer):
+    """`trainer.train()` with each chunk timed between synchronisations.
+    Returns ([(first step, steps, seconds)], losses, launch counts of the
+    run)."""
+    import torch
+    from tpunerf_torch.kernels import _build
+    chunks, losses = [], []
+    real = trainer.run_chunk
+
+    def run_chunk(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(k)
+        torch.cuda.synchronize()
+        chunks.append((trainer.train_step_idx - k + 1, k,
+                       time.perf_counter() - t))
+        return out
+
+    trainer.run_chunk = run_chunk
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    try:
+        trainer.train(on_step=lambda step, loss: losses.append(loss))
+    finally:
+        del trainer.run_chunk
+    losses = [float(v) for v in losses]
+    print("chunks (first step, steps, ms a step): " + ", ".join(
+        f"({s}, {k}, {1e3 * t / k:.2f})" for s, k, t in chunks))
+    print("losses: " + " ".join(f"{v:+.4e}" for v in losses))
+    if (len(losses) != trainer.cfg.optim.iters
+            or not all(math.isfinite(v) for v in losses)):
+        fail("chunked training produced a non-finite loss or missed steps")
+    return chunks, losses, dict(_build.LAUNCHES)
+
+
+def steady_graph_vs_eager(trainer, label: str, n: int = 10, rounds: int = 2):
+    """The step body eager and replayed, `n` each in turns (eager, graph,
+    graph, eager, …), each step between synchronisations: the median and
+    spread of each (the state trains on; no refresh runs)."""
+    import torch
+    graph = trainer.capture()
+    opt = trainer.optimizer
+    times = {"eager": [], "graph": []}
+
+    def eager():
+        opt.zero_grad(set_to_none=True)
+        trainer.step_body()
+
+    order = ["eager", "graph", "graph", "eager"] * rounds
+    for kind in order:
+        fn = eager if kind == "eager" else graph.replay
+        for _ in range(n // 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t)
+    out = {}
+    for kind, ts in times.items():
+        ts = sorted(ts)
+        out[kind] = dict(median_ms=1e3 * ts[len(ts) // 2],
+                         min_ms=1e3 * ts[0], max_ms=1e3 * ts[-1],
+                         p90_ms=1e3 * ts[int(0.9 * (len(ts) - 1))],
+                         n=len(ts))
+    e, g = out["eager"], out["graph"]
+    print(f"{label} steady step, in turns: graphed median "
+          f"{g['median_ms']:.3f} ms (min {g['min_ms']:.3f}, p90 "
+          f"{g['p90_ms']:.3f}, max {g['max_ms']:.3f}; {g['n']} steps), eager "
+          f"median {e['median_ms']:.3f} ms (min {e['min_ms']:.3f}, p90 "
+          f"{e['p90_ms']:.3f}, max {e['max_ms']:.3f}; {e['n']} steps); "
+          f"eager / graphed {e['median_ms'] / g['median_ms']:.2f}")
+    return out
+
+
+def train_chunked_full_width(steps: int, seed: int, guidance):
+    """(b) and (e): stage 1, sand_castle.yaml's defaults cut as the eager
+    run, with `--optim.train_chunk 8` and `--log.trace_steps 5,9`: chunks of
+    8 and 4 (clipped at the checkpoints of steps 12 and 24), the refreshes
+    of steps 1 and 16 eager between replays, the 10-frame evals and the
+    images as in the eager run, the final orbit cut to 10 frames
+    (`log.full_eval_size 10`); the trace holds #1-#4's kernels. Then the
+    steady step graphed beside eager, the profiler's idle share of graphed
+    steps and the launches a replay. Returns the run's launches, the
+    trainer and its step-24 checkpoint."""
+    import shutil
+    from collections import Counter
+    import torch
+    from tpunerf_torch import profiling
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+    from tpunerf_torch.training.trainer import Trainer
+
+    cfg = parse(TrainConfig, _nerf_argv(
+        steps, seed, "--optim.train_chunk", "8", "--log.trace_steps", "5,9",
+        "--log.full_eval_size", "10", "--log.exp_name",
+        "sand_castle_chunked"), config_path=SAND_CASTLE)
+    exp = Path(cfg.log.exp_dir)
+    shutil.rmtree(exp, ignore_errors=True)
+    app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
+    trainer = Trainer(cfg, app, device="cuda")
+    # the eager launches of each refresh and eval, and the launch counts
+    # where the trace window opens and closes
+    refreshed, evals_launched, window = {}, Counter(), []
+
+    def launched(fn, into):
+        def run(*args, **kwargs):
+            before = dict(_build.LAUNCHES)
+            out = fn(*args, **kwargs)
+            into.update({n: c - before.get(n, 0)
+                         for n, c in _build.LAUNCHES.items()})
+            return out
+        return run
+
+    def refresh(**kw):
+        refreshed[trainer.train_step_idx] = Counter()
+        return launched(real_refresh, refreshed[trainer.train_step_idx])(
+            **kw)
+
+    def at_window(fn):
+        def run(*args, **kwargs):
+            window.append((trainer.train_step_idx, dict(_build.LAUNCHES)))
+            return fn(*args, **kwargs)
+        return run
+
+    real_refresh = app.scene.update_occupancy
+    app.scene.update_occupancy = refresh
+    trainer.evaluate = launched(trainer.evaluate, evals_launched)
+    real_trace = (profiling.start_trace, profiling.stop_trace)
+    profiling.start_trace = at_window(profiling.start_trace)
+    profiling.stop_trace = at_window(profiling.stop_trace)
+    try:
+        chunks, _, launches = timed_chunks(trainer)
+    finally:
+        profiling.start_trace, profiling.stop_trace = real_trace
+        del app.scene.update_occupancy, trainer.evaluate
+    lengths = [k for _, k, _ in chunks]
+    ckpts = [p.name for p in trainer.ckpts.existing()]
+    evals = sorted(p.name for p in (exp / "vis" / "eval").iterdir())
+    images = sorted(p.name for p in (exp / "vis" / "train").iterdir())
+    per_replay = trainer.graph.launches
+    print(f"stage 1 chunked (train_chunk 8): chunk lengths {lengths}; "
+          f"refreshes after steps {list(refreshed)}; checkpoints {ckpts}; "
+          f"eval frames {len(evals)}; train images {images}; launches a "
+          f"replay {json.dumps(per_replay)}; launches in the run "
+          f"{json.dumps(launches)}; of them eager in the evals "
+          f"{json.dumps(evals_launched)} and the refreshes "
+          f"{json.dumps(refreshed)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if not (lengths == [8, 4, 8, 4] and list(refreshed) == [1, 16]
+            and ckpts == ["step_000012.ckpt", "step_000024.ckpt"]
+            and len(evals) == 3 * cfg.log.eval_size):
+        fail("the chunked stage-1 run broke the eager cadence")
+    # every launch accounted for: the replays and the capture's warm-up
+    # step (one eager step, so what one replay records), and the evals and
+    # refreshes run eagerly between
+    for name in launches:
+        eager = (evals_launched[name]
+                 + sum(c[name] for c in refreshed.values()))
+        want = (steps + 1) * per_replay.get(name, 0) + eager
+        if launches[name] != want:
+            fail(f"{name}: {launches[name]} launches in the chunked run, "
+                 f"not {steps} replays and the warm-up step x "
+                 f"{per_replay.get(name, 0)} and {eager} eager")
+    # (e) the trace of steps 5-8 (the chunks holding them: 1-8, 9-12): each
+    # of #1-#4 as many times in it as the window's replays times a replay's
+    # launches and the refreshes inside the window launched
+    trace = exp / "trace" / "trace.json"
+    if not trace.exists() or len(window) != 2:
+        fail("log.trace_steps wrote no trace")
+    (first, opened), (last, closed) = window
+    inside = Counter()
+    for step, c in refreshed.items():
+        if first < step <= last:
+            inside.update(c)
+    events = json.loads(trace.read_text())["traceEvents"]
+    counts = {tag: sum(1 for e in events if e.get("cat") == "kernel"
+                       and symbol in str(e.get("name")))
+              for name, (symbol, tag) in TRACE_KERNELS.items()}
+    want = {tag: (last - first) * per_replay.get(name, 0) + inside[name]
+            for name, (symbol, tag) in TRACE_KERNELS.items()}
+    counted = {tag: closed.get(name, 0) - opened.get(name, 0)
+               for name, (symbol, tag) in TRACE_KERNELS.items()}
+    print(f"trace_steps 5,9: {trace.stat().st_size} bytes, "
+          f"{len(events)} events, steps {first + 1}-{last}; kernels of "
+          f"#1-#4 executed in it: {json.dumps(counts)}; replays x a "
+          f"replay's launches + the refreshes in the window: "
+          f"{json.dumps(want)}; counted launches in the window: "
+          f"{json.dumps(counted)}")
+    if not (all(counts.values()) and counts == want == counted):
+        fail("the trace's kernels of #1-#4 are not the window's replays "
+             "and refreshes")
+    steady = steady_graph_vs_eager(trainer, "stage 1 (latent-NeRF)")
+    busy = profile_steps(trainer, "stage 1 graphed", steps=5,
+                         step_fn=trainer.graph.replay)
+    # the profiler slows the replays down; against the unprofiled median
+    med = steady["graph"]["median_ms"]
+    print(f"stage 1 graphed: device busy {busy:.3f} ms (profiled) of the "
+          f"unprofiled median {med:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy / med):.3f}")
+    return launches, trainer, exp / "checkpoints" / "step_000024.ckpt", \
+        steady
+
+
+def rgb_eval_kernels(cap, rows) -> None:
+    """#1 and #3 on the inputs of one RGB eval chunk (one pose at 512²: K
+    = 64 and S = 128 samples a ray): eager and graphed against their
+    bounds by bytes, #1 against its plain version over slices of 2^21
+    points (the plain version's time is the sum over the slices), #3
+    exactly (`occgrid_case`)."""
+    import torch
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    if "eval_x" not in cap or "eval_occ" not in cap:
+        fail("no RGB eval chunk reached kernels #1 and #3")
+    x, table, cfg = cap["eval_x"], cap["eval_table"], cap["eval_cfg"]
+    L, F = cfg.n_levels, cfg.n_features_per_level
+    n = x.shape[0]
+    new = lambda: hg.hash_encode_cuda(x, table, cfg)  # noqa: E731
+    out = new()
+    err, plain_ms, ref_max = 0.0, 0.0, 0.0
+    step = 1 << 21
+    for lo in range(0, n, step):
+        xs = x[lo:lo + step]
+        plain_ms += cuda_ms(lambda: hg.hash_encode_plain(xs, table, cfg), 1,
+                            warmup=0)
+        ref = hg.hash_encode_plain(xs, table, cfg)
+        err = max(err, (out[lo:lo + step] - ref).abs().max().item())
+        ref_max = max(ref_max, ref.abs().max().item())
+    del out
+    b_ms, b_by = bound(4 * (x.numel() + table.numel() + n * L * F),
+                       n * L * 8 * (2 + 2 * F), "f32")
+    ms = cuda_ms(new, 10)
+    graph, _ = ex.graph_ms(new, 10)
+    print(f"{hg.FWD} on the RGB eval chunk's x (N={n}): max_abs_err "
+          f"{err:.3e} (tol {1e-5 * ref_max:.3e}); eager {ms:.4f} ms, graph "
+          f"{graph:.4f} ms; plain {plain_ms:.3f} ms (slices of 2^21); bound "
+          f"{b_ms:.4f} ms ({b_by}), share {b_ms / graph:.3f} (graph)")
+    if err > 1e-5 * ref_max:
+        fail("#1 disagrees with its plain version on the RGB eval chunk")
+    rows[hg.FWD]["rgb_eval_inputs"] = dict(
+        n=n, max_abs_err=err, ms=ms, graph_ms=graph, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / graph)
+    torch.cuda.empty_cache()
+    rows[og.LOOKUP]["rgb_eval_inputs"] = occgrid_case(
+        *cap["eval_occ"], "the RGB eval chunk's samples", iters=10)
+
+
+def refine_full_width(seed: int, guidance, ckpt: Path, rows):
+    """(c) The refine stage from stage 1's step-24 checkpoint: first its
+    load, as the CLI makes it (migrated heads of 3 channels, the hash table
+    and sigma_mlp the checkpoint's), the refine step's split (render fwd+bwd;
+    resize + f32 VAE encode fwd+bwd; UNet CFG pass), the step graphed
+    beside eager, one RGB eval chunk (one pose at 512²: its time and peak
+    memory) and #1, #3 on its inputs; then the CLI itself, `--render.nerf_type
+    rgb --optim.ckpt <ckpt> --optim.train_chunk 8`, 16 steps with the
+    10-frame RGB eval before step 1 and after the step-16 checkpoint and a
+    10-frame final orbit (`log.full_eval_size 10`, cut from 100). Returns
+    the CLI run's launches."""
+    import dataclasses
+    import shutil
+    import torch
+    from tpunerf_torch import train_latent_nerf
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import circle_poses, rand_poses
+    from tpunerf_torch.guidance import sds as sds_lib
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import texture as texk
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import (
+        LatentNeRFApp, select_text_embeddings)
+    from tpunerf_torch.training.trainer import Trainer
+
+    steps = 16
+    argv = _nerf_argv(steps, seed, "--render.nerf_type", "rgb",
+                      "--optim.ckpt", str(ckpt), "--optim.train_chunk", "8",
+                      "--log.save_interval", str(steps),
+                      "--log.full_eval_size", "10",
+                      "--log.exp_name", "sand_castle_refine")
+    cfg = parse(TrainConfig, argv, config_path=SAND_CASTLE)
+    rgb_guidance = dataclasses.replace(guidance, latent_mode=False)
+    app = LatentNeRFApp.create(cfg, guidance=rgb_guidance, device="cuda")
+    trainer = Trainer(cfg, app, device="cuda")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+    got = app.state_dict()
+    heads = {k: tuple(got[k].shape) for k in got
+             if k.startswith(("field.color_mlp.layers.",
+                              "field.bg_mlp.layers."))
+             and got[k].shape[0] == 3}
+    kept = [k for k in saved if k not in heads]
+    same = all(torch.equal(got[k].cpu(), saved[k]) for k in kept)
+    geometry = [k for k in saved if k.startswith(("field.hash_table",
+                                                  "field.sigma_mlp"))]
+    print(f"refine load of {ckpt.name}: migrated heads {json.dumps(heads)} "
+          f"(checkpoint's {[tuple(saved[k].shape) for k in heads]}); the "
+          f"other {len(kept)} tensors, hash table and sigma_mlp among them "
+          f"({geometry}), equal to the checkpoint's: {same}")
+    if not (len(heads) == 2 and same and geometry
+            and all(saved[k].shape[0] == 4 for k in heads)):
+        fail("the refine stage's checkpoint migration is wrong")
+
+    # the refine step's split
+    dev, gen, scene = trainer.device, trainer.generator, app.scene
+    views = rand_poses(1, trainer.view_cfg, dev, generator=gen)
+    text_z = select_text_embeddings(app.text_z, views.dirs)
+    img = torch.rand((1, 64, 64, 3), device=dev, generator=gen)
+    t = torch.tensor(500, device=dev)
+
+    def render_fwd_bwd():
+        out = scene.render_train(views, generator=gen)
+        (out["image"].square().mean() + out["sparsity_loss"]).backward()
+
+    def encode_fwd_bwd():
+        x = img.clone().requires_grad_(True)
+        rgb = texk.resize_bilinear(x, 512, 512)
+        rgb_guidance.encode_imgs(rgb, generator=gen).square().mean(
+        ).backward()
+
+    lat = torch.randn((1, 64, 64, 4), device=dev, generator=gen)
+
+    def unet_cfg_pass():
+        sds_lib.score_gradient(rgb_guidance.unet_apply, rgb_guidance.sched,
+                               lat, text_z, 100.0, t=t, generator=gen)
+
+    for name, fn in {
+            "render fwd+bwd at 64² (RGB field)": render_fwd_bwd,
+            "resize 64->512 + f32 VAE encode fwd+bwd": encode_fwd_bwd,
+            "UNet CFG pass (batch 2, 64x64, no grad)": unet_cfg_pass}.items():
+        print(f"refine layer {name}: {cuda_ms(fn, 5, warmup=1):.4f} ms")
+    steady = steady_graph_vs_eager(trainer, "refine (RGB latent-NeRF)", n=6,
+                                   rounds=1)
+    per_replay = dict(trainer.graph.launches)
+    print(f"refine launches a replay: {json.dumps(per_replay)}")
+    trainer.graph = None
+    _free_card()
+
+    # one RGB eval chunk: its time, its peak memory, #1 and #3 on its inputs
+    dims = (cfg.render.eval_grid_size,) * 2
+    orbit = circle_poses(cfg.log.eval_size, trainer.view_cfg, dev)
+    chunk = app.max_eval_batch(dims)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with capture_hash_inputs(0) as cap:
+        out = app.eval_render(orbit[torch.arange(chunk, device=dev)], dims)
+    frame, mask = out["image"], out["mask"]
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    chunk_ms = cuda_ms(lambda: app.eval_render(
+        orbit[torch.arange(chunk, device=dev)], dims), 3, warmup=0)
+    print(f"RGB eval chunk ({chunk} pose a chunk at {dims[0]}², "
+          f"{dims[0] * dims[1] * scene.march.num_samples} samples, "
+          f"{dims[0] * dims[1] * scene.march.num_compacted} field points): "
+          f"{chunk_ms:.3f} ms, peak memory above the resident "
+          f"{peak:.3f} GiB; frame {tuple(frame.shape)} in "
+          f"[{frame.min().item():.3f}, {frame.max().item():.3f}], opacity "
+          f"(weights_sum) mean {mask.mean().item():.3e}, max "
+          f"{mask.max().item():.3e}")
+    if not (torch.isfinite(frame).all() and torch.isfinite(mask).all()):
+        fail("the RGB eval chunk is not finite")
+    del frame, mask, out
+    rgb_eval_kernels(cap, rows)
+    del cap, app, trainer
+    _free_card()
+
+    # the CLI
+    exp = Path(cfg.log.exp_dir)
+    shutil.rmtree(exp, ignore_errors=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    train_latent_nerf.main(["--config_path", str(SAND_CASTLE), *argv,
+                            "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    evals = sorted(p.name for p in (exp / "vis" / "eval").iterdir())
+    results = sorted(p.name for p in (exp / "results").iterdir())
+    ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    log = (exp / "log.txt").read_text()
+    print(f"refine CLI (guidance built anew, {steps} steps in chunks of 8, "
+          f"3 orbits of 10 frames at 512²): {wall:.2f} s; checkpoints "
+          f"{ckpts}; eval frames {len(evals)} (steps "
+          f"{sorted({int(e[5:11]) for e in evals})}); results {len(results)} "
+          f"files; launches {json.dumps(launches)}")
+    if not (ckpts == [f"step_{steps:06d}.ckpt"] and len(evals) == 20
+            and results and "Restored checkpoint (step 24, model_only=True)"
+            in log):
+        fail("the refine CLI did not load, train or write its frames")
+    # #2 and #4 run in training steps only: 16 replays and the warm-up step
+    for name in (hg.BWD, at.ATTN):
+        if launches.get(name, 0) != (steps + 1) * per_replay.get(name, 0):
+            fail(f"the refine CLI launched {name} {launches.get(name, 0)} "
+                 f"times, not {steps + 1} x {per_replay.get(name, 0)}")
+    return launches, steady
 
 
 def main() -> int:
@@ -2916,10 +3605,11 @@ def main() -> int:
     split_row, variant_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
-    launches, app, trainer, captured = train_full_width(STEPS, args.seed,
-                                                        guidance)
-    missing = [n for n, r in rows.items()
-               if r.get("main_path") is not False and launches.get(n, 0) <= 0]
+    check_graphed_steps(args.seed, guidance)
+    eager_launches, app, trainer, captured = train_full_width(
+        STEPS, args.seed, guidance)
+    main_path = [n for n, r in rows.items() if r.get("main_path") is not False]
+    missing = [n for n in main_path if eager_launches.get(n, 0) <= 0]
     if missing:
         fail(f"latent-NeRF path never launched {missing}")
     check_hash_step_inputs(captured, rows)
@@ -2927,11 +3617,26 @@ def main() -> int:
     resume_and_eval_only(STEPS, args.seed, guidance, trainer)
     breakdown(app, trainer)
     del app, trainer
+    _free_card()
+    launches, ctrainer, ckpt, _ = train_chunked_full_width(STEPS, args.seed,
+                                                           guidance)
+    del ctrainer
+    _free_card()
+    refine_launches, _ = refine_full_width(args.seed, guidance, ckpt, rows)
+    for label, counts in (("chunked stage-1", launches),
+                          ("refine", refine_launches)):
+        missing = [n for n in main_path if counts.get(n, 0) <= 0]
+        if missing:
+            fail(f"the {label} path never launched {missing}")
+    _free_card()
     paint_launches, papp, ptrainer = train_paint_full_width(
         STEPS, args.seed, guidance)
     paint_breakdown(papp, ptrainer)
     profile_steps(ptrainer, "latent-paint")
     del papp, ptrainer
+    _free_card()
+    paint_chunked_launches = train_paint_chunked(STEPS, args.seed, guidance)
+    _free_card()
     mesh_launches, mapp, mtrainer, mode1 = train_mesh_full_width(
         STEPS, args.seed, guidance)
     sil_launches, sil_inputs, sil_dense = silhouette_phase(mapp, mtrainer,
@@ -2958,19 +3663,23 @@ def main() -> int:
     if mode1 is not None:
         profile_steps(mode1[1], "latent-paint-mesh mode 1", steps=2)
     # each kernel's count comes from the run of the path that was checked
-    # for it: the latent-NeRF run for the first four (the attention kernel
-    # is on both paths; train_paint_full_width holds its count there too),
-    # the latent-paint run for the two selection kernels (the all-pairs designs of
-    # them, on no path, with the launches of their check), the
+    # for it: the chunked latent-NeRF run for the first four (the attention
+    # kernel is on every path; both latent-paint runs hold its count there
+    # too), the eager latent-paint run for the two selection kernels (the
+    # chunked run beside it; the all-pairs designs of them, on no path,
+    # with the launches of their check), the
     # latent-paint-mesh run for the soft forwards (the binned one from its
     # eval chunk or, where those bins overflow, from mode 1's 512² steps),
     # the silhouette phase for the soft backwards, the experiment's run for
     # the cost-split variants
 
-    def counted(rows_, counts):
+    def counted(rows_, counts, by_path=None):
         # the kept first designs, on no path, carry their checks' launches
         return [row if row.get("main_path") is False
-                else dict(row, launches=counts.get(name, 0))
+                else dict(row, launches=counts.get(name, 0),
+                          **({"launches_by_path": {
+                              k: c.get(name, 0) for k, c in by_path.items()}}
+                             if by_path else {}))
                 for name, row in rows_.items()]
 
     soft_counts = {
@@ -2979,7 +3688,14 @@ def main() -> int:
         or (mode1[2].get(rz.SOFT_FWD_BINNED, 0) if mode1 else 0),
         rz.SOFT_BWD_DENSE: sil_launches.get(rz.SOFT_BWD_DENSE, 0),
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
-    kernels = (counted(rows, launches) + counted(paint_rows, paint_launches)
+    # #1-#4: the chunked stage-1 run (config #4's stage 1 as its recipe
+    # runs it: replays counted), beside the other paths that run them
+    paint_paths = {"latent-paint eager": paint_launches,
+                   "latent-paint chunked": paint_chunked_launches}
+    by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
+               "refine CLI (chunked)": refine_launches, **paint_paths}
+    kernels = (counted(rows, launches, by_path)
+               + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts))
     # launches from the experiment's own runs
     kernels += [split_row, variant_row]

@@ -1286,3 +1286,147 @@ def test_async_save_of_card_tensors_holds_the_values_of_the_save(tmp_path):
     params, opt, _ = mgr.load()
     assert torch.equal(params["w"], want_w)
     assert torch.equal(opt["state"][0]["exp_avg"], want_m)
+
+
+def _tiny_trainer(tmp_path, app_kind, nerf_type, dev, *extra):
+    """A tiny app and its chunked trainer on `dev`."""
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.training.trainer import Trainer
+    argv = ["--guide.tiny_diffusion", "true", "--guide.unet_dtype",
+            "float32", "--render.nerf_type", nerf_type,
+            "--optim.train_chunk", "4", "--log.exp_root", str(tmp_path),
+            "--log.exp_name", f"{app_kind}_{nerf_type}_{dev.type}",
+            "--log.eval_size", "0", "--log.full_eval_size", "0",
+            "--log.save_mesh", "false", "--log.log_images", "false",
+            "--log.save_interval", "100", *extra]
+    if app_kind == "nerf":
+        cfg = parse(TrainConfig, argv + [
+            "--render.train_grid_size", "16", "--render.mlp_dtype",
+            "float32"])
+        app = LatentNeRFApp.create(cfg, device=dev)
+    else:
+        cfg = parse(TrainConfig, argv + [
+            "--guide.shape_path", "sphere", "--guide.texture_resolution",
+            "32", "--render.train_grid_size", "24"])
+        app = LatentPaintApp.create(cfg, device=dev)
+    return Trainer(cfg, app, device=dev)
+
+
+@pytest.mark.parametrize("app_kind, nerf_type, deterministic", [
+    ("nerf", "latent", False), ("nerf", "rgb", True),
+    ("paint", "latent", True)],
+    ids=["latent-NeRF", "refine-deterministic", "latent-paint-deterministic"])
+def test_tiny_graphed_step_equals_the_eager_step(tmp_path, app_kind,
+                                                 nerf_type, deterministic):
+    """Step 1 (with its occupancy refresh) from one state, eager twice and
+    replayed: latent-NeRF equal bit for bit throughout, and so the refine
+    step under deterministic algorithms (cuDNN's default backward
+    algorithms of the VAE encoder add in another order each run, so that
+    two eager runs do not bound the spread without them); latent-paint
+    under deterministic algorithms within `graph_agreement`'s bound, each
+    tensor against its own eager runs' difference (grid_sample's backward
+    adds with atomics and has no deterministic form), the loss and the
+    generator bit for bit. Then four replays in a chunk launch the kernels
+    a replay records four times, and nothing else but the refreshes
+    between them."""
+    import collections
+    import warnings
+    from tpunerf_torch.scripts.graph_check import (graph_agreement,
+                                                   graphed_against_eager)
+    dev = _card()
+    trainer = _tiny_trainer(tmp_path, app_kind, nerf_type, dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            d = graphed_against_eager(trainer)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert d["replay"]["loss"] == 0.0 and d["eager"]["loss"] == 0.0
+    assert d["replay"]["generator"] == 0.0
+    if app_kind == "nerf":
+        assert max(d["replay"].values()) == max(d["eager"].values()) == 0.0
+    for group, verdict in graph_agreement(d).items():
+        assert verdict["ok"], (group, verdict)
+    # the chunked run replays the graph and counts its launches a replay
+    eager = collections.Counter()
+    post = trainer.post_step
+
+    def counted_post_step():
+        before = dict(_build.LAUNCHES)
+        post()
+        eager.update({n: c - before.get(n, 0)
+                      for n, c in _build.LAUNCHES.items()})
+
+    trainer.post_step = counted_post_step
+    _build.reset_launches()
+    trainer.cfg.optim.iters = trainer.train_step_idx + 4
+    trainer.train()
+    for name, n in trainer.graph.launches.items():
+        assert _build.LAUNCHES[name] == 4 * n + eager[name], name
+
+
+def test_tiny_refine_step_on_the_card_equals_the_cpu(tmp_path, monkeypatch):
+    """An RGB (refine) latent-NeRF step, the same weights and draws on the
+    card and the CPU, f32: the loss and the field's gradients within 1e-4
+    of the largest (the VAE encoder and the UNet sum in other orders)."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from tpunerf_torch.core.views import ViewSamplerConfig, rand_poses
+    cpu = torch.device("cpu")
+    tr = {d: _tiny_trainer(tmp_path, "nerf", "rgb", d) for d in (cpu, dev)}
+    for name in ("unet", "text_encoder", "vae"):
+        getattr(tr[dev].app.guidance, name).load_state_dict(
+            getattr(tr[cpu].app.guidance, name).state_dict())
+    tr[dev].app.text_z.copy_(tr[cpu].app.text_z)
+    tr[dev].app.load_state_dict(tr[cpu].app.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    views = rand_poses(1, ViewSamplerConfig(), cpu, generator=gen)
+    draws = dict(u=torch.rand((1, 256, 128), generator=gen),
+                 vae_noise=torch.randn((1, 16, 16, 4), generator=gen),
+                 t=torch.tensor(600),
+                 noise=torch.randn((1, 16, 16, 4), generator=gen))
+    out = {}
+    for d, t in tr.items():
+        loss, _ = t.app.loss_fn(views.to(d), **{k: v.to(d)
+                                                for k, v in draws.items()})
+        loss.backward()
+        out[d] = (loss.detach().cpu(),
+                  [p.grad.cpu() for p in t.app.scene.field.parameters()])
+    _close_to_max(out[dev][0], out[cpu][0], 1e-4, "loss")
+    for g, ref in zip(out[dev][1], out[cpu][1]):
+        _close_to_max(g, ref, 1e-4, "field gradient")
+
+
+def test_hash_and_occupancy_kernels_at_the_rgb_eval_chunks_size():
+    """#1 on 16,777,216 points (a 512² pose's K = 64 samples) and #3 on
+    33,554,432 (its S = 128), against their plain versions in slices of
+    2^21 (#1 within 1e-5 of the largest, as at 70,001 points; #3
+    exactly): 64-bit offsets throughout."""
+    dev = _card()
+    cfg = HashGridConfig()
+    n = 512 * 512 * 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((n, 3), generator=gen, device=dev)
+    table = (torch.rand((cfg.n_levels, cfg.table_size,
+                         cfg.n_features_per_level), generator=gen,
+                        device=dev) * 2 - 1) * 1e-2
+    out = hg.hash_encode_cuda(x, table, cfg)
+    for lo in range(0, n, 1 << 21):
+        _close_to_max(out[lo:lo + (1 << 21)],
+                      hg.hash_encode_plain(x[lo:lo + (1 << 21)], table, cfg),
+                      1e-5, f"#1 points {lo}..")
+    del out
+    G, bnd = 128, 1.0
+    packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (G ** 3 // 32,),
+                           generator=gen, device=dev, dtype=torch.int32)
+    xs = (torch.rand((1, 512 * 512, 128, 3), generator=gen, device=dev)
+          * 2 - 1) * bnd
+    got = og.occupancy_lookup_cuda(xs, packed, G, bnd)
+    flat, ref_flat = got.reshape(-1), xs.reshape(-1, 3)
+    for lo in range(0, flat.numel(), 1 << 21):
+        assert torch.equal(flat[lo:lo + (1 << 21)], og.occupancy_lookup_plain(
+            ref_flat[lo:lo + (1 << 21)], packed, G, bnd)), lo

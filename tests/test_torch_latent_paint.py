@@ -276,9 +276,14 @@ def test_unported_options_are_refused_naming_their_slice(apps):
     assert scene.head_camera is not None and scene.soft_mask_sigma == 1e-4
     assert tapp.scene.head_camera is None and tapp.scene.laplacian is None
     # a latent-mode scene loads a checkpoint as it is; the latent→RGB
-    # finetune is ROADMAP.md item A.2
+    # finetune (ROADMAP.md item A.2, landed) decodes the latent texture
+    # into the params it returns (tests/test_torch_refine.py holds it to
+    # JAX)
     params = tapp.state_dict()
     assert tapp.migrate_params(params) is params
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tapp.scene.migrate_latent_to_rgb(tapp.guidance.decode_latents)
+    out = tapp.scene.migrate_latent_to_rgb(params,
+                                           tapp.guidance.decode_latents)
+    assert out["texture_img_rgb_finetune"].shape == \
+        params["texture_img_rgb_finetune"].shape
+    assert out["texture_img_rgb_finetune"].abs().max() > 0
     assert not TR.uses_bins(24, 24, tapp.scene.mesh.num_faces)

@@ -125,6 +125,10 @@ def test_guidance_sizes_and_rgb_mode_refusal(pair):
     assert (g.latent_size, g.image_size) == (jg.latent_size, jg.image_size)
     import dataclasses
     rgb = dataclasses.replace(g, latent_mode=False)
-    with pytest.raises(NotImplementedError, match="RGB-mode"):
-        rgb.train_step_loss(torch.zeros((2, 4, 32)),
-                            torch.zeros((1, 16, 16, 3)))
+    # RGB mode, refused until ROADMAP.md item A.2 landed: the render goes
+    # through the VAE encoder (tests/test_torch_refine.py holds it to JAX)
+    render = torch.zeros((1, 16, 16, 3), requires_grad=True)
+    loss = rgb.train_step_loss(torch.zeros((2, 4, 32)), render,
+                               generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    assert torch.isfinite(loss) and render.grad.shape == render.shape

@@ -55,14 +55,22 @@ class NoiseSchedule:
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
                   t: torch.Tensor) -> torch.Tensor:
         """x_t = √ᾱ_t·x₀ + √(1−ᾱ_t)·ε."""
-        a = self.alphas_cumprod[t]
+        a = self._alpha_bar(t)
         a = a.reshape(a.shape + (1,) * (sample.ndim - a.ndim))
         return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
 
     def sds_weight(self, t: torch.Tensor) -> torch.Tensor:
         """SDS weight w(t) = √ᾱ_t·(1−ᾱ_t)."""
-        a = self.alphas_cumprod[t]
+        a = self._alpha_bar(t)
         return torch.sqrt(a) * (1.0 - a)
+
+    def _alpha_bar(self, t) -> torch.Tensor:
+        """ᾱ_t, shaped as t, by a gather on the device: indexing by a 0-dim
+        tensor would read t back to the host (which a CUDA graph's capture
+        refuses)."""
+        t = torch.as_tensor(t, device=self.alphas_cumprod.device)
+        return self.alphas_cumprod.index_select(0, t.reshape(-1)).reshape(
+            t.shape)
 
 
 def ddim_timesteps(num_inference_steps: int,

@@ -2,10 +2,11 @@
 
 Holds the UNet, the VAE, the CLIP text tower, the tokenizer and the noise
 schedule: CFG text embeddings (`get_text_embeds`), the SDS loss on rendered
-latents (`train_step_loss`), VAE encode/decode with the 0.18215 latent
-scaling, and the fixed latent→RGB preview matrix. RGB-mode SDS, the DDIM
-sampling loops, inversion and pretrained-weight loading come with later
-slices of the port.
+latents or, in RGB mode, on renders encoded through the VAE
+(`train_step_loss`), VAE encode/decode with the 0.18215 latent scaling,
+and the fixed latent→RGB preview matrix. The DDIM sampling loops,
+inversion and pretrained-weight loading come with later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from tpunerf_torch.guidance.clip_text import (CLIPTextConfig, CLIPTextModel,
                                               make_tokenizer)
 from tpunerf_torch.guidance.schedulers import NoiseSchedule
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
+from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.utils import (init_like_flax_, resolve_device,
                                  resolve_dtype)
 
@@ -150,16 +152,25 @@ class StableDiffusionGuidance:
                         inputs: torch.Tensor, guidance_scale: float = 100.0,
                         t: Optional[torch.Tensor] = None,
                         noise: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        vae_noise: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-        """SDS loss on rendered latents (B, H, W, 4): its gradient w.r.t.
-        `inputs` is w·(ε̂ − ε). `t` and `noise` are drawn from `generator`
-        unless given."""
-        if not self.latent_mode:
-            raise NotImplementedError(
-                "RGB-mode SDS (encode the render through the VAE) is not "
-                "ported yet: ROADMAP.md item A.2")
-        return sds_lib.sds_loss(self.unet_apply, self.sched, inputs,
+        """SDS loss on rendered latents (B, H, W, 4), or in RGB mode on
+        renders (B, H, W, 3) in [0, 1]: those are resized bilinearly to
+        `image_size` and encoded through the VAE (a sample of the posterior,
+        differentiable to the render) first. The gradient w.r.t. the latents
+        is w·(ε̂ − ε). The draws — in RGB mode the posterior's standard
+        normal `vae_noise` (B, image_size/8, image_size/8, 4), then `t` and
+        `noise` — are taken from `generator` unless given, in that
+        order."""
+        if self.latent_mode:
+            latents = inputs
+        else:
+            rgb = texk.resize_bilinear(inputs, self.image_size,
+                                       self.image_size)
+            latents = self.encode_imgs(rgb, noise=vae_noise,
+                                       generator=generator)
+        return sds_lib.sds_loss(self.unet_apply, self.sched, latents,
                                 text_embeddings, guidance_scale,
                                 self.min_step, self.max_step, t=t,
                                 noise=noise, generator=generator)

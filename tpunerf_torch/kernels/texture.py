@@ -5,12 +5,16 @@ The JAX package's module is XLA gathers, not a TPU kernel, written to be
 conversion and `F.interpolate(mode='bicubic')` (Keys' cubic convolution,
 a = −0.75); the port calls those two directly. The latent-NeRF eval render
 resizes with `jax.image.resize(method='bicubic')` instead, which is another
-filter: `resize_cubic_jax` builds its weights. Textures and images are
+filter: `resize_cubic_jax` builds its weights, and `resize_bilinear` the
+weights of `jax.image.resize(method='bilinear')`. Both resize by two
+matrix products, whose backward (unlike `F.interpolate`'s on the card,
+which adds with atomics) is deterministic. Textures and images are
 NHWC; uv ∈ [0,1]² with v flipped (texture row 0 is v = 1). The gradient
 flows to the texture (and, except in nearest mode, to the uv coordinates).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,16 +47,6 @@ def resize_bicubic(image: torch.Tensor, height: int, width: int
     return out.permute(0, 2, 3, 1)
 
 
-def resize_bilinear(image: torch.Tensor, height: int, width: int
-                    ) -> torch.Tensor:
-    """NHWC bilinear resize with half-pixel centres; a triangle filter
-    widened by the scale when shrinking (antialiased), as the JAX package's
-    `jax.image.resize(method='bilinear')` is."""
-    out = F.interpolate(image.permute(0, 3, 1, 2), size=(height, width),
-                        mode="bilinear", align_corners=False, antialias=True)
-    return out.permute(0, 2, 3, 1)
-
-
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     """Keys' cubic convolution kernel with a = −0.5 at |offsets| x."""
     out = ((1.5 * x - 2.5) * x) * x + 1.0
@@ -60,10 +54,15 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _cubic_weights(n_in: int, n_out: int, device: torch.device
-                   ) -> torch.Tensor:
-    """(n_in, n_out) f32 weights of one axis of `jax.image.resize(method=
-    'bicubic')` (its `compute_weight_mat` with the Keys kernel): half-pixel
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear (tent) kernel max(0, 1 − x) at |offsets| x."""
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel, device: torch.device
+                    ) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of one axis of `jax.image.resize` (its
+    `compute_weight_mat` with `kernel`, Keys' cubic or the tent): half-pixel
     centres, the kernel widened by n_in/n_out when shrinking (antialiased),
     each column renormalised over the taps inside the image, and columns
     whose sample lies outside the image zeroed.
@@ -74,12 +73,12 @@ def _cubic_weights(n_in: int, n_out: int, device: torch.device
     weight by as much); offsets are f32 as JAX's, the kernel and its
     normalisation float64, rounded to f32 at the end."""
     f32, f64 = torch.float32, torch.float64
-    inv = torch.tensor(1.0 / (n_out / n_in), dtype=f32).item()
+    inv = float(np.float32(1.0 / (n_out / n_in)))
     sample = ((torch.arange(n_out, dtype=f64, device=device) + 0.5) * inv
               - 0.5).to(f32)
     x = (sample[None, :] - torch.arange(n_in, dtype=f32, device=device)[
         :, None]).abs() / max(inv, 1.0)
-    w = _keys_cubic(x.to(f64))
+    w = kernel(x.to(f64))
     total = w.sum(dim=0, keepdim=True)
     eps = torch.finfo(f32).eps
     w = torch.where(total.abs() > 1000.0 * eps,
@@ -89,19 +88,34 @@ def _cubic_weights(n_in: int, n_out: int, device: torch.device
     return torch.where(inside[None, :], w, torch.zeros_like(w)).to(f32)
 
 
+def _resize_jax(image: torch.Tensor, height: int, width: int, kernel
+                ) -> torch.Tensor:
+    """out = W_yᵀ · image · W_x per channel, each product only on an axis
+    that changes size."""
+    B, H, W, C = image.shape
+    out = image
+    if H != height:
+        wy = _resize_weights(H, height, kernel, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,hy->bywc", out, wy)
+    if W != width:
+        wx = _resize_weights(W, width, kernel, image.device).to(image.dtype)
+        out = torch.einsum("bhwc,wx->bhxc", out, wx)
+    return out
+
+
 def resize_cubic_jax(image: torch.Tensor, height: int, width: int
                      ) -> torch.Tensor:
     """NHWC resize equal to `jax.image.resize(image, (B, height, width, C),
     method='bicubic')`: Keys' kernel with a = −0.5, antialiased when
     shrinking, the weights renormalised at the borders (not
-    `resize_bicubic`'s a = −0.75 with clamped indices). Two products, one
-    an axis that changes size: out = W_yᵀ · image · W_x per channel."""
-    B, H, W, C = image.shape
-    out = image
-    if H != height:
-        wy = _cubic_weights(H, height, image.device).to(image.dtype)
-        out = torch.einsum("bhwc,hy->bywc", out, wy)
-    if W != width:
-        wx = _cubic_weights(W, width, image.device).to(image.dtype)
-        out = torch.einsum("bhwc,wx->bhxc", out, wx)
-    return out
+    `resize_bicubic`'s a = −0.75 with clamped indices)."""
+    return _resize_jax(image, height, width, _keys_cubic)
+
+
+def resize_bilinear(image: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """NHWC resize equal to `jax.image.resize(image, (B, height, width, C),
+    method='bilinear')`: the tent with half-pixel centres, widened by the
+    scale when shrinking (antialiased), renormalised at the borders (which
+    replicates the edge pixel when enlarging, as `F.interpolate` clamps)."""
+    return _resize_jax(image, height, width, _triangle)

@@ -78,6 +78,9 @@ class TexturedMeshScene(nn.Module):
         self.texture_img = nn.Parameter(torch.zeros((1, R, R, 4), device=dev))
         self.texture_img_rgb_finetune = nn.Parameter(
             torch.zeros((1, R, R, 3), device=dev))
+        # on the device once: a copy from the host inside a step would
+        # synchronise (and a CUDA graph's capture refuses it)
+        self.rgb_estimator = LINEAR_RGB_ESTIMATOR.to(dev)
 
     @property
     def device(self) -> torch.device:
@@ -179,7 +182,7 @@ class TexturedMeshScene(nn.Module):
     def _background_colors(self) -> torch.Tensor:
         bg = self.background_sphere_colors
         if not self.latent_mode:
-            bg = bg @ LINEAR_RGB_ESTIMATOR.to(bg.device)
+            bg = bg @ self.rgb_estimator
         return bg
 
     def _displacement(self) -> Optional[torch.Tensor]:
@@ -304,7 +307,15 @@ class TexturedMeshScene(nn.Module):
                           self.mesh.faces.cpu().numpy(), vt, ft,
                           colors.cpu().numpy())
 
-    def migrate_latent_to_rgb(self, decode_fn: Callable) -> None:
-        raise NotImplementedError(
-            "the latent→RGB finetune stage is not ported yet: ROADMAP.md "
-            "item A.2")
+    @torch.no_grad()
+    def migrate_latent_to_rgb(self, params: Dict[str, torch.Tensor],
+                              decode_fn: Callable
+                              ) -> Dict[str, torch.Tensor]:
+        """The latent→RGB finetune's load: `params` with its latent
+        `texture_img` decoded, resized (bilinear, antialiased) to the
+        texture resolution and put in `texture_img_rgb_finetune`."""
+        rgb = decode_fn(params["texture_img"].to(self.device))
+        out = dict(params)
+        out["texture_img_rgb_finetune"] = texk.resize_bilinear(
+            rgb, self.texture_resolution, self.texture_resolution)
+        return out

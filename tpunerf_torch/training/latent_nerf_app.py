@@ -2,9 +2,12 @@
 
 A hash-grid latent-NeRF field optimized by text-conditioned SDS, with
 occupancy-grid pruning and sparsity regularization, and its eval orbit: the
-field rendered at the latent grid and decoded by the VAE. Sketch-shape
-guidance and mesh extraction are ROADMAP.md item A.7, the latent→RGB
-refine stage item A.2.
+field rendered at the latent grid and decoded by the VAE. With
+`render.nerf_type rgb` it is the refine stage of the two-stage recipe: an
+RGB field trained through the VAE encoder, which loads a latent run's
+checkpoint (`optim.ckpt`) with fresh colour heads (`migrate_params`) and
+renders its eval orbit at the eval grid. Sketch-shape guidance and mesh
+extraction are ROADMAP.md item A.7.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from tpunerf_torch.core.camera import VIEW_DIRECTION_SUFFIXES
 from tpunerf_torch.core.obj_io import save_obj_with_mtl
 from tpunerf_torch.core.views import ViewBatch
+from tpunerf_torch.fields.latent_nerf import LatentNeRFField
 from tpunerf_torch.fields.scene import LatentNeRFScene
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.meshrep import uv_unwrap
@@ -95,16 +99,18 @@ class LatentNeRFApp:
     def loss_fn(self, views: ViewBatch, u: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                vae_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Render → SDS (+ regularizers). The draws — stratified jitter `u`
-        (B, P, S), SDS timestep `t` and noise (B, H, W, 4) — are taken from
+        (B, P, S), in RGB mode the VAE posterior's `vae_noise` (B, 64, 64,
+        4), then SDS timestep `t` and noise (B, 64, 64, 4) — are taken from
         `generator` unless given, in that order."""
         out = self.scene.render_train(views, u=u, generator=generator)
         text_z = select_text_embeddings(self.text_z, views.dirs)
         loss = self.guidance.train_step_loss(
             text_z, out["image"], guidance_scale=self.cfg.guide.guidance_scale,
-            t=t, noise=noise, generator=generator)
+            t=t, noise=noise, generator=generator, vae_noise=vae_noise)
         loss = loss + self.cfg.optim.lambda_sparsity * out["sparsity_loss"]
         if self.cfg.optim.lambda_opacity:
             loss = loss + self.cfg.optim.lambda_opacity * out["opacity_loss"]
@@ -171,20 +177,25 @@ class LatentNeRFApp:
 
     def migrate_params(self, params: Dict[str, torch.Tensor]
                        ) -> Dict[str, torch.Tensor]:
-        """A checkpoint whose colour heads are as wide as this field's
-        loads unchanged. Loading a latent (4-channel) checkpoint into an
-        RGB field re-initialises the last layers of `color_mlp` and
-        `bg_mlp`: ROADMAP.md item A.2."""
+        """The refine stage's load: a checkpoint whose colour heads are as
+        wide as this field's loads unchanged; from a latent (4-channel)
+        checkpoint into an RGB field, the last layers of `color_mlp` and
+        `bg_mlp` come from a fresh initialisation of the field by a
+        generator seeded 0 (the JAX package takes them from its init at
+        key 0), and every other tensor (hash table, `sigma_mlp`, the other
+        layers, the occupancy grid and bitfield) is the checkpoint's."""
         own = self.scene.state_dict()
+        out, fresh = dict(params), None
         for head in ("color_mlp", "bg_mlp"):
             keys = sorted((k for k in own
                            if k.startswith(f"field.{head}.layers.")),
                           key=lambda k: int(k.split(".")[3]))
             last = keys[-1]
             if last in params and params[last].shape != own[last].shape:
-                raise NotImplementedError(
-                    f"{last}: a checkpoint with {params[last].shape[0]} "
-                    f"output channels into a field with "
-                    f"{own[last].shape[0]} (the latent→RGB refine stage) "
-                    f"is ROADMAP.md item A.2")
-        return params
+                if fresh is None:
+                    dev = self.scene.occ_grid.device
+                    fresh = LatentNeRFField(
+                        self.scene.field.config, dev,
+                        make_generator(0, dev)).state_dict()
+                out[last] = fresh[last[len("field."):]]
+        return out

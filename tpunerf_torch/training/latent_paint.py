@@ -2,9 +2,10 @@
 
 Optimizes a 4-channel latent UV texture (and the colours of the background
 dome) through the hard rasterizer under text-conditioned SDS. The eval
-render decodes the latent texture through the VAE. Resuming a latent run in
-RGB mode (`migrate_params`, the latent→RGB finetune) is ROADMAP.md item
-A.2.
+render decodes the latent texture through the VAE. In RGB mode
+(`render.nerf_type rgb`) it trains the RGB finetune texture through the
+VAE encoder, and loading a latent run's checkpoint decodes its latent
+texture as the finetune's start (`migrate_params`).
 """
 from __future__ import annotations
 
@@ -73,17 +74,19 @@ class LatentPaintApp:
 
     def loss_fn(self, views: ViewBatch, t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                vae_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Render → SDS. The draws — the SDS timestep `t` and the noise
-        (B, H, W, 4) — are taken from `generator` unless given, in that
+        """Render → SDS. The draws — in RGB mode the VAE posterior's
+        `vae_noise` (B, 64, 64, 4), then the SDS timestep `t` and the noise
+        (B, 64, 64, 4) — are taken from `generator` unless given, in that
         order."""
         render = self.scene.render_train(views)
         text_z = select_text_embeddings(self.text_z, views.dirs)
         loss = self.guidance.train_step_loss(
             text_z, render["image"],
             guidance_scale=self.cfg.guide.guidance_scale, t=t, noise=noise,
-            generator=generator)
+            generator=generator, vae_noise=vae_noise)
         return loss, {"image": render["image"].detach()}
 
     @torch.no_grad()
@@ -116,10 +119,11 @@ class LatentPaintApp:
                        ) -> Dict[str, torch.Tensor]:
         """A latent-mode scene loads a checkpoint unchanged, as does an RGB
         one whose finetune texture is not all zero. A latent checkpoint
-        into RGB mode (finetune texture all zero) would decode the latent
-        texture as the finetune's start: ROADMAP.md item A.2."""
+        into RGB mode (finetune texture all zero) gets the checkpoint's
+        latent texture decoded as the finetune's start."""
         rgb = params.get("texture_img_rgb_finetune")
         if (not self.scene.latent_mode and rgb is not None
-                and rgb.abs().max() == 0):
-            self.scene.migrate_latent_to_rgb(self.guidance.decode_latents)
+                and not bool(rgb.abs().max() != 0)):
+            return self.scene.migrate_latent_to_rgb(
+                params, self.guidance.decode_latents)
         return params

@@ -15,7 +15,8 @@ backend, Paint-by-Example, the CLIP image losses and a texture seeded from
 a sampled image are not ported yet (ROADMAP.md item A.6) and are refused
 by name.
 The texture and the dome colours train at `optim.lr`, the displacement and
-the lights at `optim.disp_lr`.
+the lights at `optim.disp_lr`. The chunked trainer (`optim.train_chunk >
+1`) is refused by name (`chunk_refusal`, ROADMAP.md item A.12).
 
 Every random draw can be passed in through `draws` (see `loss_fn`).
 """
@@ -42,6 +43,12 @@ from tpunerf_torch.utils import make_generator, resolve_device
 ROADMAP_A6 = "is not ported yet: ROADMAP.md item A.6"
 SOFT_MASK_SIGMA = 1e-4
 SDEDIT_STEP_INDEX = 40       # mode 2 renoises at this DDIM step
+CHUNK_REFUSAL = (
+    "optim.train_chunk > 1 (a CUDA-graph step) for latent-paint-mesh comes "
+    "with ROADMAP.md item A.12: mode 1's 512² renders read a bin-overflow "
+    "count on the host (face selection and the soft silhouette's forward, "
+    "kernels/rasterize.py), and modes 0 and 2 have not been tried under "
+    "capture")
 
 
 def unported_guidance_settings(cfg: TrainConfig) -> list:
@@ -68,6 +75,7 @@ class LatentPaintMeshApp:
     cfg: TrainConfig
     scene: TexturedMeshScene
     guidance: StableDiffusionGuidance
+    chunk_refusal = CHUNK_REFUSAL
     text_z: torch.Tensor                 # body prompts (D, 2, L, E)
     text_z_head: torch.Tensor            # head prompts (D, 2, L, E)
 

@@ -1,4 +1,5 @@
-"""Trainer — the eager step loop and the work around it.
+"""Trainer — the step loop (eager, or replays of a CUDA graph) and the work
+around it.
 
 The app supplies `loss_fn(views, generator=…)`; each step draws poses,
 renders, runs guidance, back-propagates, takes an Adam step and calls the
@@ -31,22 +32,42 @@ Around the step, as the JAX package's trainer does (`<exp_dir>/` below):
   `numpy.random.default_rng(optim.seed + 1)` as the JAX package draws (so
   on the same steps); PNG where the JAX package writes JPEG, because the
   port writes images with the standard library only;
-* `optim.check_nan`: the parameters are copied before each step, and a
-  non-finite loss saves the copy as `checkpoints/nan_debug.ckpt` and
-  raises FloatingPointError.
+* `optim.check_nan`: the parameters are copied before each step (each
+  chunk), and a non-finite loss saves the copy as
+  `checkpoints/nan_debug.ckpt` and raises FloatingPointError naming the
+  step;
+* `optim.train_chunk` k > 1, the chunked trainer: the loop runs chunks of
+  min(k, steps to the next `log.save_interval` boundary, steps to
+  `optim.iters`) steps, as the JAX package's does, so that checkpoints,
+  evals and metric rows land on the same steps as its chunked trainer's;
+  metric rows come after the chunk that crosses a multiple of 50, the NaN
+  guard reads the chunk's losses at its end, and a train image (drawn once
+  a chunk) is the chunk's last step's. On a card one training step
+  (poses, render, guidance, backward, Adam) is captured once in a CUDA
+  graph after a warm-up, with the trainer's generator registered, and a
+  chunk is k replays with no host synchronisation between them, the
+  app's `post_step` (the occupancy refresh) running eagerly between
+  replays; a card that cannot capture raises, the trainer never falls
+  back to eager steps there. On the CPU a chunk is k eager steps;
+* `log.trace_steps` [a, b): a `torch.profiler` trace of those steps into
+  `<exp_dir>/trace/trace.json`, started and stopped at chunk granularity
+  in a chunked run, and stopped as well at the end of the run (an upper
+  bound past `optim.iters`) and when a step raises.
+
+On a card Adam is `capturable` (its step count a device tensor), in eager
+steps too, so that an eager and a replayed step compute alike.
 
 Image files are written by a pool of two threads. Every write is joined
 before a failure is raised, and the pool is shut down, with the checkpoint
 writer joined, at the end of `train()` and of `full_eval()`, and by
-`close()`, which a run that raises reaches too. The chunked trainer
-(`optim.train_chunk > 1`) and profiler traces (`log.trace_steps`) are
-ROADMAP.md item A.4 and text-token optimisation (`optim.use_opt_txt`) item
-A.6: a config that asks for one is refused at construction.
+`close()`, which a run that raises reaches too. Text-token optimisation
+(`optim.use_opt_txt`) is ROADMAP.md item A.6, and an app with a
+`chunk_refusal` refuses `optim.train_chunk > 1`: such a config is refused
+at construction.
 """
 from __future__ import annotations
 
 import concurrent.futures
-import math
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -54,9 +75,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpunerf_torch import profiling
 from tpunerf_torch.core.config import dump_yaml
 from tpunerf_torch.core.views import (ViewSamplerConfig, circle_poses,
                                       rand_poses)
+from tpunerf_torch.kernels import _build
 from tpunerf_torch.training.checkpoints import CheckpointManager
 from tpunerf_torch.training.config import TrainConfig
 from tpunerf_torch.utils import (MetricsWriter, init_logger, make_generator,
@@ -68,15 +91,12 @@ METRIC_INTERVAL = 50
 
 def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
     """The settings of `cfg` that need what the port does not have yet,
-    each with the ROADMAP.md item that brings it, and the eval settings
-    where the app has no `eval_render`."""
+    each with the ROADMAP.md item that brings it (an app's `chunk_refusal`
+    for `optim.train_chunk > 1`), and the eval settings where the app has
+    no `eval_render`."""
     log, optim = cfg.log, cfg.optim
     no_eval = not hasattr(app, "eval_render")
     asks = {
-        "log.trace_steps (profiler traces) comes with ROADMAP.md item A.4":
-            log.trace_steps is not None,
-        "optim.train_chunk > 1 (the chunked trainer) comes with ROADMAP.md "
-        "item A.4": optim.train_chunk > 1,
         "optim.use_opt_txt (text-token optimisation) comes with ROADMAP.md "
         "item A.6": optim.use_opt_txt,
         "log.eval_size != 0 (eval frames) needs an app with an eval_render":
@@ -86,6 +106,9 @@ def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
         "log.save_mesh (the mesh export) needs an app with an eval_render":
             log.save_mesh and no_eval,
     }
+    refusal = getattr(app, "chunk_refusal", None)
+    if refusal is not None:
+        asks[refusal] = optim.train_chunk > 1
     return [k for k, v in asks.items() if v]
 
 
@@ -116,6 +139,7 @@ class Trainer:
         self.optimizer = app.make_optimizer()
         self.params = [p for g in self.optimizer.param_groups
                        for p in g["params"]]
+        self._set_capturable()
         n_params = sum(p.numel() for p in self.params)
         self.logger.info(f"Scene has {n_params} learnable parameters")
         self.train_step_idx = 0
@@ -125,6 +149,8 @@ class Trainer:
         # PNG writes overlap the next steps; created at the first write
         self._io_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._io_futures: List[concurrent.futures.Future] = []
+        self.graph: Optional[GraphedStep] = None
+        self._trace: Optional[torch.profiler.profile] = None
         if cfg.optim.resume or cfg.optim.ckpt:
             self._load_checkpoint(cfg.optim.ckpt,
                                   model_only=cfg.optim.ckpt is not None)
@@ -139,28 +165,118 @@ class Trainer:
             angle_front=cfg.render.angle_front,
             body_prob=cfg.render.body_prob)
 
+    def _set_capturable(self) -> None:
+        """Adam capturable on a card (the graph needs it; eager steps take
+        the same arithmetic), not on the CPU (where PyTorch refuses it); a
+        loaded state's step counts moved where that puts them."""
+        on = self.device.type == "cuda"
+        self.optimizer.defaults["capturable"] = on
+        for group in self.optimizer.param_groups:
+            group["capturable"] = on
+        for p, state in self.optimizer.state.items():
+            step = state.get("step")
+            if torch.is_tensor(step):
+                state["step"] = step.to(p.device if on else "cpu",
+                                        torch.float32)
+
     # ------------------------------------------------------------------ #
-    def train_step(self) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """One step: poses → loss → backward → Adam → post-step hook."""
-        self.train_step_idx += 1
+    def step_body(self) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """A step as a CUDA graph captures it: poses → loss → backward →
+        Adam. The gradients must be unset (`zero_grad(set_to_none=True)`)
+        before. Returns the loss and the app's aux, as device tensors."""
         gen = self.generator
         views = rand_poses(self.cfg.render.batch_size, self.view_cfg,
                            self.device, generator=gen)
-        self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.app.loss_fn(views, generator=gen)
         loss.backward()
         self.optimizer.step()
-        post = getattr(self.app, "post_step", None)
-        if post is not None:
-            post(self.train_step_idx, generator=gen)
         return loss.detach(), aux
 
-    def grad_norm(self) -> float:
+    def post_step(self) -> None:
+        """The app's post-step hook (the occupancy refresh) after step
+        `train_step_idx`."""
+        post = getattr(self.app, "post_step", None)
+        if post is not None:
+            post(self.train_step_idx, generator=self.generator)
+
+    def train_step(self) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One eager step: poses → loss → backward → Adam → post-step
+        hook."""
+        self.train_step_idx += 1
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.step_body()
+        self.post_step()
+        return loss, aux
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Copies of what a step and its post-step hook change: the app's
+        parameters and buffers, Adam's state and the generator's state."""
+        return {"app": {n: v.detach().clone()
+                        for n, v in self.app.state_dict().items()},
+                "adam": {p: {n: v.clone() for n, v in st.items()
+                             if torch.is_tensor(v)}
+                         for p, st in self.optimizer.state.items()},
+                "generator": self.generator.get_state()}
+
+    @torch.no_grad()
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Put a `snapshot` back in place (a captured graph reads these
+        storages). Adam state made since the snapshot is zeroed, which is
+        the state a fresh Adam starts a parameter with."""
+        for n, v in self.app.state_dict().items():
+            v.copy_(snap["app"][n])
+        for p, st in self.optimizer.state.items():
+            old = snap["adam"].get(p, {})
+            for n, v in st.items():
+                if torch.is_tensor(v):
+                    if n in old:
+                        v.copy_(old[n])
+                    else:
+                        v.zero_()
+        self.generator.set_state(snap["generator"])
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the gradients the parameters hold (the last
+        eager step's), a device tensor."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if not grads:
-            return 0.0
-        return torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads])).item()
+            return torch.zeros((), device=self.device)
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+
+    def graphed(self) -> bool:
+        """Whether chunks replay a CUDA graph: on a card with
+        `optim.train_chunk > 1`."""
+        return self.device.type == "cuda" and self.cfg.optim.train_chunk > 1
+
+    def capture(self) -> "GraphedStep":
+        """The captured step (captured at the first call)."""
+        if self.graph is None:
+            self.graph = GraphedStep(self)
+        return self.graph
+
+    def run_chunk(self, k: int) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Steps `train_step_idx + 1 … + k`: k replays of the captured step
+        where `graphed()`, else k eager steps, the post-step hook after
+        each. Returns the k losses (a device tensor) and the last step's
+        aux, cloned out of the graph's static output."""
+        losses = torch.empty(k, device=self.device)
+        if self.graphed():
+            graph = self.capture()
+            for i in range(k):
+                self.train_step_idx += 1
+                graph.replay()
+                losses[i].copy_(graph.loss)
+                self.post_step()
+            graph.count_launches(k)
+            aux = {n: v.clone() if torch.is_tensor(v) else v
+                   for n, v in graph.aux.items()}
+            return losses, aux
+        aux: Dict[str, Any] = {}
+        for i in range(k):
+            loss, aux = self.train_step()
+            losses[i].copy_(loss)
+        return losses, aux
 
     def _timed(self, fn: Callable, *args) -> float:
         """Run `fn(*args)` between two device synchronisations; its wall
@@ -175,44 +291,77 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _chunk_len(self) -> int:
+        """The next chunk's steps: `optim.train_chunk`, clipped at the next
+        `log.save_interval` boundary and at `optim.iters`."""
+        cfg, step = self.cfg, self.train_step_idx
+        boundary = (step // cfg.log.save_interval + 1) * cfg.log.save_interval
+        return max(1, min(cfg.optim.train_chunk, cfg.optim.iters - step,
+                          boundary - step))
+
+    def _start_trace(self, k: int) -> None:
+        """Open the `log.trace_steps` window [a, b) before the chunk that
+        holds step a."""
+        ts = self.cfg.log.trace_steps
+        if (ts and self._trace is None
+                and self.train_step_idx < ts[0] <= self.train_step_idx + k):
+            self._trace = profiling.start_trace()
+
+    def _stop_trace(self, end: bool = False) -> None:
+        """Close the window once the next step is b (eager) or after the
+        chunk that reaches b (chunked), or with `end`."""
+        ts = self.cfg.log.trace_steps
+        if self._trace is None:
+            return
+        last = self.train_step_idx + (self.cfg.optim.train_chunk <= 1)
+        if end or last >= ts[1]:
+            prof, self._trace = self._trace, None
+            path = profiling.stop_trace(prof, self.exp_dir / "trace")
+            self.logger.info(f"profiler trace written to {path}")
+
     def train(self, on_step: Optional[Callable[[int, torch.Tensor], None]]
               = None) -> None:
-        """Run to `optim.iters`, then the full eval. `on_step(step, loss)`
-        is called after each step (the loss is a device tensor), before
-        that step's checkpoint, eval and image: their time falls into the
-        next step's interval."""
+        """Run to `optim.iters` in chunks (of one step unless
+        `optim.train_chunk` > 1), then the full eval. `on_step(step, loss)`
+        is called after each step (the loss is a device tensor; in a
+        chunked run after the chunk), before that step's checkpoint, eval
+        and image: their time falls into the next step's interval."""
         cfg = self.cfg
         try:
             self.evaluate(self.train_step_idx, size=cfg.log.eval_size)
+            if self.graphed():
+                self.capture()
             rng = np.random.default_rng(cfg.optim.seed + 1)
             last_time, last_step = time.perf_counter(), self.train_step_idx
             aside = 0.0       # seconds of checkpoints, evals and images
             while self.train_step_idx < cfg.optim.iters:
-                # kept so that a non-finite step can save the last good
-                # parameters: the step updates them in place
-                prev = ({k: v.detach().clone()
-                         for k, v in self.app.state_dict().items()}
+                k = self._chunk_len()
+                self._start_trace(k)
+                step0 = self.train_step_idx
+                # kept so that a non-finite step can save the parameters of
+                # the chunk's start: the steps update them in place
+                prev = ({n: v.detach().clone()
+                         for n, v in self.app.state_dict().items()}
                         if cfg.optim.check_nan else None)
-                loss, aux = self.train_step()
+                losses, aux = self.run_chunk(k)
                 step = self.train_step_idx
-                if cfg.optim.check_nan and not math.isfinite(loss.item()):
-                    # under a name outside rolling retention: a poisoned
-                    # step_*.ckpt could evict the last good one and then be
-                    # what optim.resume loads
-                    path, failed = self.ckpts.save_debug("nan_debug",
-                                                         step - 1, prev)
-                    raise FloatingPointError(
-                        f"non-finite loss at step {step} (last-good params "
-                        f"saved to {path})") from failed
+                self._stop_trace()
+                if cfg.optim.check_nan:
+                    self._nan_guard(losses, step0, prev)
                 if on_step is not None:
-                    on_step(step, loss)
-                if step % METRIC_INTERVAL == 0:
-                    loss_f = loss.item()       # synchronises the device
+                    for i in range(k):
+                        on_step(step0 + i + 1, losses[i])
+                if step // METRIC_INTERVAL > step0 // METRIC_INTERVAL:
+                    loss_f = losses[-1].item()   # synchronises the device
+                    # the last step's: each replay computes it, an eager
+                    # step's is computed here from the gradients it left
+                    gnorm = (self.graph.grad_norm if self.graphed()
+                             else self.grad_norm())
                     now = time.perf_counter()
                     dt = now - last_time - aside
                     steps = step - last_step
                     self.metrics.write(
-                        step, loss=loss_f, grad_norm=self.grad_norm(),
+                        step, loss=loss_f, grad_norm=gnorm.item(),
                         steps_per_s=steps / dt,
                         rays_per_s=steps * cfg.render.batch_size
                         * cfg.render.train_grid_size ** 2 / dt,
@@ -226,12 +375,35 @@ class Trainer:
                 if (cfg.log.log_images and "image" in aux
                         and rng.random() < cfg.log.vis_train_prob):
                     aside += self._timed(self._log_train_render, aux)
+            self._stop_trace(end=True)
             self.logger.info("Finished Training ^_^")
             self.logger.info("Evaluating the last model...")
             self.full_eval()
             self.logger.info("\tDone!")
         finally:
+            self._stop_trace(end=True)
             self.close()
+
+    def _nan_guard(self, losses: torch.Tensor, step0: int,
+                   prev: Dict[str, torch.Tensor]) -> None:
+        """Raise FloatingPointError at the chunk's first non-finite loss,
+        after saving `prev` (the parameters before step `step0 + 1`) as
+        `nan_debug`, under a name outside rolling retention: a poisoned
+        step_*.ckpt could evict the last good one and then be what
+        optim.resume loads."""
+        finite = torch.isfinite(losses).cpu()
+        if bool(finite.all()):
+            return
+        bad = step0 + 1 + int(torch.argmin(finite.to(torch.int8)))
+        path, failed = self.ckpts.save_debug("nan_debug", step0, prev)
+        if len(losses) == 1:
+            msg = f"last-good params saved to {path}"
+        else:
+            msg = (f"chunk-start params saved to {path}; rerun with "
+                   f"--optim.train_chunk 1 to localize with step-granular "
+                   f"last-good params")
+        raise FloatingPointError(
+            f"non-finite loss at step {bad} ({msg})") from failed
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -382,6 +554,7 @@ class Trainer:
             self.train_step_idx = next_step - 1
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
+                self._set_capturable()
         self.logger.info(f"Restored checkpoint (step {next_step - 1}, "
                          f"model_only={model_only})")
 
@@ -395,3 +568,63 @@ class Trainer:
         return {"peak_mem_mb": torch.cuda.max_memory_allocated(self.device)
                 / 2 ** 20,
                 "mem_mb": torch.cuda.memory_allocated(self.device) / 2 ** 20}
+
+
+class GraphedStep:
+    """One training step of a trainer (`Trainer.step_body`: poses, render,
+    guidance, backward, Adam) captured in a CUDA graph.
+
+    Whole-network capture as PyTorch's recipe has it: one warm-up step on a
+    side stream (lazy state: Adam's moments, cuBLAS and cuDNN handles, the
+    kernels' occupancy queries), undone in place afterwards, so that
+    capturing changes no state and draws nothing; the gradients unset, so
+    that the captured backward writes them into the graph's own memory;
+    then the capture, with the trainer's generator registered, so that each
+    replay draws from the generator's offset at that moment and moves it on
+    as an eager step would. Everything the graph reads (parameters, Adam's
+    state, the occupancy buffers, the text embeddings) must only be updated
+    in place from then on. `loss`, `grad_norm` (the gradients' global
+    norm, which only the graph computes every step) and `aux` are the step's
+    static outputs, which the next replay overwrites. `launches` counts the
+    repo's kernels one replay runs (`_build.CAPTURED` during the capture):
+    `count_launches(k)` adds k replays' worth to `_build.LAUNCHES`."""
+
+    def __init__(self, trainer: "Trainer"):
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator "
+                f"with a CUDA graph (CUDAGraph.register_generator_state), "
+                f"which optim.train_chunk > 1 needs on a card: run with "
+                f"--optim.train_chunk 1")
+        dev, opt = trainer.device, trainer.optimizer
+        saved = trainer.snapshot()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            opt.zero_grad(set_to_none=True)
+            trainer.step_body()
+            trainer.grad_norm()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        trainer.restore(saved)
+        del saved
+        opt.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(trainer.generator)
+        before = dict(_build.CAPTURED)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.loss, self.aux = trainer.step_body()
+            self.grad_norm = trainer.grad_norm()
+        # the static gradients: an eager step between replays unsets the
+        # parameters' .grad, the graph goes on writing these
+        self.grads = [p.grad for p in trainer.params]
+        self.launches = {n: c - before.get(n, 0)
+                         for n, c in _build.CAPTURED.items()
+                         if c > before.get(n, 0)}
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def count_launches(self, replays: int) -> None:
+        for name, n in self.launches.items():
+            _build.count_launch(name, n * replays)
+
