@@ -52,7 +52,8 @@
    (`hashgrid_bwd_split`: full, gmax, addr, accum, reduce at 0.5x ... 4x
    the resident blocks, `full` at 1x equal to #2), each timed in a CUDA
    graph and held against its plain version (the split's bit for bit).
-4. Checks a tiny step of each app, the soft silhouette's gradient to the
+4. Checks a tiny step of each app (and of config #5's depth-guided
+   latent-paint-mesh at B = 2), the soft silhouette's gradient to the
    displacement and a tiny latent-NeRF eval chunk on the card against the
    same on the CPU.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
@@ -118,6 +119,19 @@
        (its launches exactly 25 steps' worth and the eval's, graphed beside
        eager after it) and its latent checkpoint is refined in RGB mode
        (the texture decoded into the finetune texture), 8 steps.
+10. Eval config #5 end to end, after 8 (the SD-v1 stack's phases): its own
+    depth-conditioned stack (5-channel UNet with a 1024-wide context in
+    bf16, the 1024-wide 23-layer text tower and the VAE in f32, the
+    9-channel inpainting UNet), `nascar_depth.yaml` on the sphere through
+    the Trainer (mode 0, B = 2, 24 eager steps, the 5-frame eval orbit at
+    512² before step 1 and after the checkpoint at 24, the final orbit and
+    the export), its setup time, steady step median, p90 and max, peak
+    memory and launches of #4-#8; the profiler's device busy time and idle
+    share of its eager step; the depth UNet's CFG pass (batch 4), the
+    eval chunk and its VAE decode; one masked img2img walk through the
+    inpaint window and one txt2img, timed and checked finite; then #4 at
+    its (4, 8, 4096, 40) against plain, beside SDPA. The stack is freed
+    after the phase.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -1994,6 +2008,8 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
                 fail("the soft silhouette's gradient on the card disagrees "
                      "with the CPU")
 
+    check_small_depth_step(seed, gpu)
+
     # the eval chunk: 5 poses at the 16² latent grid, the tiny VAE's 64²
     # frames resized to 96² as jax.image.resize resizes
     from tpunerf_torch.core.views import circle_poses
@@ -2007,6 +2023,32 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
           f"1e-4)")
     if not (frames[gpu].shape == (5, 96, 96, 3) and e_ev <= 1e-4):
         fail("the tiny eval chunk on the card disagrees with the CPU's")
+
+
+def check_small_depth_step(seed: int, gpu) -> None:
+    """Config #5's step at the tiny size, card against CPU
+    (`scripts.depth_step`): depth-guided latent-paint-mesh, B = 2 views
+    (body and head camera), mode 0, the same weights and draws, f32; the
+    loss on the scale of its summed terms and every gradient within
+    paint-mesh's tolerances."""
+    from tpunerf_torch.scripts import depth_step
+
+    (l_cpu, g_cpu), (l_gpu, g_gpu), scale = depth_step.tiny_depth_steps(
+        gpu, seed)
+    want = {"background_sphere_colors", "displacement", "texture_img"}
+    if set(g_cpu) != want or set(g_gpu) != want:
+        fail(f"the tiny config #5 step has gradients of {sorted(g_cpu)} on "
+             f"the CPU and {sorted(g_gpu)} on the card, not {sorted(want)}")
+    rel_summed = abs(l_gpu - l_cpu) / scale
+    g_err = _rel_grad_err(g_gpu, g_cpu)
+    print(f"tiny config #5 step (depth SD, B = 2, mode 0), card vs CPU: loss "
+          f"{l_gpu:+.6e} vs {l_cpu:+.6e}, |diff| / sum|terms| "
+          f"{rel_summed:.2e} (tol {depth_step.LOSS_TOL:.0e}; sum|terms| "
+          f"{scale:.4e}); max grad err / max|grad| {g_err:.2e} (tol "
+          f"{depth_step.GRAD_TOL:.0e}) over {sorted(g_cpu)}")
+    if not (rel_summed <= depth_step.LOSS_TOL
+            and g_err <= depth_step.GRAD_TOL):
+        fail("the tiny config #5 step on the card disagrees with the CPU step")
 
 
 def build_guidance(seed: int):
@@ -2058,6 +2100,8 @@ def timed_train(trainer, steps: int):
 
 
 SAND_CASTLE = ROOT / "demo_configs" / "latent_nerf" / "sand_castle.yaml"
+NASCAR_DEPTH = ROOT / "demo_configs" / "latent_paint_mesh" / \
+    "nascar_depth.yaml"
 
 
 def _nerf_argv(steps: int, seed: int, *extra: str):
@@ -2753,6 +2797,339 @@ def train_mesh_full_width(steps: int, seed: int, guidance):
             else:
                 del mapp, mtrainer
     return launches, app, trainer, mode1
+
+
+def attention_at_depth_batch(gen) -> dict:
+    """#4 at the depth UNet's 64² self-attention with CFG at B = 2: q, k, v
+    (4, 8, 4096, 40) bf16 (views of (B, N, H, D) projections, as the UNet
+    passes them) against the plain version, eager and in a CUDA graph
+    beside SDPA, with its bound."""
+    import torch
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+
+    B, H, S, D = 4, 8, 4096, 40
+    scale = D ** -0.5
+    q, k, v = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(3))
+    o = at.attention_cuda(q, k, v, scale)
+    r = at.attention_plain(q, k, v, scale)
+    err = (o.float() - r.float()).abs().max().item()
+    tol = 2e-2 * r.float().abs().max().item()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = cuda_ms(lambda: at.attention_cuda(q, k, v, scale), 20)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+    graph_ms, out = ex.graph_ms(lambda: at.attention_cuda(q, k, v, scale), 20)
+    lib_graph_ms, _ = ex.graph_ms(lambda: sdpa(q, k, v, scale=scale), 20)
+    plain_ms = cuda_ms(lambda: at.attention_plain(q, k, v, scale), 5)
+    mhz = max_sm_mhz()
+    nbytes, flops, ex2 = 4 * B * H * S * D * 2, 4 * B * H * S * S * D, \
+        B * H * S * S
+    b_ms, b_by = bound(nbytes, flops, "bf16", ex2, mhz)
+    print(f"attention_fwd bf16 {(B, H, S, D)} (config #5's UNet, CFG at "
+          f"B = 2): max_abs_err {err:.3e} (tol {tol:.3e}); kernel {ms:.4f} ms "
+          f"eager, {graph_ms:.4f} graph; SDPA {lib_ms:.4f} eager, "
+          f"{lib_graph_ms:.4f} graph; plain {plain_ms:.4f}; bound "
+          f"{b_ms:.4f} ms ({b_by}), share graph {b_ms / graph_ms:.3f}")
+    if not (err <= tol and torch.equal(out, o)):
+        fail("attention kernel at (4, 8, 4096, 40) disagrees with its plain "
+             "version, or its graph replay with its eager call")
+    return dict(shape=[B, H, S, D], max_abs_err=err, ms=ms,
+                graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                library_graph_ms=lib_graph_ms)
+
+
+def check_step_raster_kernels(render_fn, batch: int, label: str):
+    """#5 and #7 on the very inputs one training render gives them
+    (recorded as `render_fn` calls their wrappers, B = `batch` views in one
+    launch), each held against its plain version on those inputs: the
+    selection bit for bit, the soft forward to 5e-6 absolute. Fails unless
+    every view of every call covers pixels and the soft forward has rim
+    pixels. Returns (render_fn's result, {kernel: case})."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+
+    FWD_TOL = 5e-6    # check_soft_kernels' tolerance
+    calls = {rz.DENSE: [], rz.SOFT_FWD_DENSE: []}
+    select, soft = rz.select_faces_dense_cuda, rz.soft_prod_dense_cuda
+
+    def rec_select(rows, pix, width=0):
+        calls[rz.DENSE].append((rows.clone(), pix.clone(), width))
+        return select(rows, pix, width)
+
+    def rec_soft(rows, pix, sigma, width=0):
+        calls[rz.SOFT_FWD_DENSE].append((rows.clone(), pix.clone(), sigma,
+                                         width))
+        return soft(rows, pix, sigma, width)
+
+    rz.select_faces_dense_cuda, rz.soft_prod_dense_cuda = rec_select, rec_soft
+    try:
+        with torch.no_grad():
+            out = render_fn()
+    finally:
+        rz.select_faces_dense_cuda, rz.soft_prod_dense_cuda = select, soft
+    mism, sel_shapes, covered = 0, [], []
+    for rows, pix, width in calls[rz.DENSE]:
+        got = select(rows, pix, width)
+        ref = rz.select_faces_dense_plain(rows, pix)
+        mism += int((got != ref).sum().item())
+        sel_shapes.append(tuple(rows.shape))
+        covered.append([int((ref[b] >= 0).sum().item())
+                        for b in range(ref.shape[0])])
+    err, soft_shapes, rim = 0.0, [], []
+    for rows, pix, sigma, width in calls[rz.SOFT_FWD_DENSE]:
+        got = soft(rows, pix, sigma, width)
+        ref = rz.soft_prod_dense_plain(rows, pix, sigma)
+        err = max(err, (got - ref).abs().max().item())
+        soft_shapes.append(tuple(rows.shape))
+        rim.append([int(((ref[b] > 0.01) & (ref[b] < 0.99)).sum().item())
+                    for b in range(ref.shape[0])])
+    torch.cuda.synchronize()
+    P = calls[rz.DENSE][0][1].shape[0] if calls[rz.DENSE] else 0
+    print(f"{label}: the step's #5 calls, rows {sel_shapes} over P = {P}: "
+          f"mismatches vs plain {mism} (tol 0, exact), covered pixels per "
+          f"view {covered}; its #7 calls, rows {soft_shapes}: max_abs_err "
+          f"{err:.3e} (tol {FWD_TOL:.0e}), rim pixels per view {rim}")
+    if not (sel_shapes and soft_shapes
+            and all(sh[0] == batch for sh in sel_shapes + soft_shapes)
+            and all(min(c) > 0 for c in covered)
+            and all(min(r) > 0 for r in rim)):
+        fail(f"{label}: the step did not give #5 and #7 {batch} covered "
+             f"views in one launch")
+    if mism or err > FWD_TOL:
+        fail(f"{label}: #5 or #7 disagrees with its plain version at the "
+             f"step's B = {batch} shapes")
+    return out, {rz.DENSE: dict(rows=sel_shapes, P=P, mismatches=mism),
+                 rz.SOFT_FWD_DENSE: dict(rows=soft_shapes, P=P,
+                                         max_abs_err=err)}
+
+
+def train_depth_full_width(steps: int, seed: int):
+    """Eval config #5 at full width: `nascar_depth.yaml` (mode 0,
+    `render.batch_size` 2, `body_prob` 1: the one wide camera) on the
+    sphere through the port's Trainer with the depth-conditioned stack
+    (5-channel UNet with a 1024-wide context in bf16, the 1024-wide 23-layer
+    text tower and the VAE in f32, and the 9-channel inpainting UNet for
+    img2img; random from the seed): `steps` eager steps, the eval orbit (5
+    frames at 512²) before step 1 and after the checkpoint at `steps`, the
+    final orbit and the mesh export; then 5 profiled steps, the depth UNet's
+    CFG pass (batch 4), the eval chunk with its VAE decode, one masked img2img walk (10
+    steps at strength 0.8 with an update and a check mask, the inpaint
+    window entered) and one txt2img, each timed and checked. #5 and #7 are
+    held against their plain versions on a training render's B = 2 inputs
+    first. Returns the run's launch counts and those two cases."""
+    import tempfile
+    import numpy as np
+    import torch
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import circle_poses, rand_poses
+    from tpunerf_torch.guidance.depth import (StableDiffusionDepthGuidance,
+                                              normalize_depth)
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+    from tpunerf_torch.training.trainer import Trainer
+    from tpunerf_torch.utils import make_generator
+
+    n_eval = 5
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_depth_") as tmp:
+        cfg = parse(TrainConfig, [
+            "--config_path", str(NASCAR_DEPTH), "--guide.shape_path",
+            "sphere", "--optim.iters", str(steps), "--optim.seed", str(seed),
+            "--log.exp_root", tmp, "--log.eval_size", str(n_eval),
+            "--log.full_eval_size", str(n_eval), "--log.eval_batch",
+            str(n_eval), "--log.log_images", "false", "--log.save_interval",
+            str(steps)])
+        t0 = time.perf_counter()
+        dg = StableDiffusionDepthGuidance.create(
+            min_step=cfg.optim.min_step, max_step=cfg.optim.max_step,
+            use_inpaint=True, unet_dtype=cfg.guide.unet_dtype, device=dev,
+            generator=make_generator(seed, dev))
+        torch.cuda.synchronize()
+        t_stack = time.perf_counter() - t0
+        app = LatentPaintMeshApp.create(cfg, device=dev, depth_guidance=dg)
+        trainer = Trainer(cfg, app, device=dev)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        scene = app.scene
+        counts = {name: (sum(p.numel() for p in m.parameters()),
+                         next(m.parameters()).dtype)
+                  for name, m in (("depth UNet", dg.unet),
+                                  ("inpainting UNet", dg.inpaint_unet),
+                                  ("text tower", dg.text_encoder),
+                                  ("VAE", dg.vae))}
+        print(f"config #5 setup: {t_setup:.2f} s (depth stack {t_stack:.2f} "
+              f"s: " + ", ".join(f"{k} {n} {dt}" for k, (n, dt)
+                                 in counts.items())
+              + f"); {dg.unet.config.in_channels}-channel UNet, context "
+              f"{dg.unet.config.cross_attention_dim}, text hidden "
+              f"{dg.text_encoder.config.hidden_size} x "
+              f"{dg.text_encoder.config.num_layers} layers; B = "
+              f"{cfg.render.batch_size}, mode {cfg.optim.mode}, body_prob "
+              f"{cfg.render.body_prob}, train grid "
+              f"{cfg.render.train_grid_size}, latent {scene.latent_size}, "
+              f"texture {scene.texture_resolution}; "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+        if not (app.guidance is dg
+                and cfg.render.batch_size == 2 and cfg.optim.mode == 0
+                and dg.unet.config.in_channels == 5
+                and dg.text_encoder.config.hidden_size == 1024
+                and dg.unet.conv_in.weight.dtype == torch.bfloat16):
+            fail("config #5 did not build the depth stack it names")
+        # the normalised depth the SDS term reads, on two sampled poses
+        views = rand_poses(2, trainer.view_cfg, dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+        # the step's render: #5 (mesh and dome) and #7 (mesh) at B = 2
+        render, b2 = check_step_raster_kernels(
+            lambda: scene.render_train(views), 2, "config #5")
+        nd = normalize_depth(render["depth"], render["mask"])
+        inside = render["mask"] > 0
+        lo = [float(nd[b][inside[b]].min()) for b in range(2)]
+        hi = [float(nd[b][inside[b]].max()) for b in range(2)]
+        print(f"config #5 normalised depth on 2 sampled poses: mask pixels "
+              f"{[int(m.sum()) for m in inside]} of {inside[0].numel()}, "
+              f"range in the mask {lo} .. {hi}")
+        if not (all(abs(v + 1) < 1e-5 for v in lo)
+                and all(abs(v - 1) < 1e-5 for v in hi)):
+            fail("normalize_depth does not span [-1, 1] inside the mask")
+        # which eval chunks overflow their soft bins (one camera)
+        ev = circle_poses(n_eval, trainer.view_cfg, dev)
+        size = cfg.render.eval_grid_size
+        with torch.no_grad():
+            fv_img = mrender._project(scene.mesh.vertices, scene.mesh.faces,
+                                      ev.theta, ev.phi, ev.radius,
+                                      scene.camera)[1]
+            over = int(int(rz._soft_bins(fv_img, size, size,
+                                         scene.soft_mask_sigma,
+                                         rz._SOFT_BIN_K)[1]) > rz._SOFT_BIN_K)
+        chunks = []
+        eval_render = app.eval_render
+        app.eval_render = lambda v, dims: (chunks.append(dims),
+                                           eval_render(v, dims))[1]
+        before = {k: v.detach().clone() for k, v in scene.named_parameters()}
+        try:
+            _, times, tail_s, launches = timed_train(trainer, steps)
+        finally:
+            app.eval_render = eval_render
+        train_peak = torch.cuda.max_memory_allocated()
+        steady = sorted(times[1:])
+        pct = lambda q: steady[min(len(steady) - 1,  # noqa: E731
+                                   int(q * len(steady)))]
+        print(f"config #5 steady step (eager, B = 2): median "
+              f"{1e3 * pct(0.5):.3f} ms, p90 {1e3 * pct(0.9):.3f}, max "
+              f"{1e3 * steady[-1]:.3f} over {len(steady)} steps; first step "
+              f"{1e3 * times[0]:.1f} ms (with the step-0 eval); checkpoint, "
+              f"eval, final orbit and export {tail_s:.3f} s; peak memory "
+              f"{train_peak / 2 ** 30:.3f} GiB ({resident / 2 ** 30:.3f} "
+              f"GiB resident before the phase)")
+        for k in ("texture_img", "displacement"):
+            if torch.equal(before[k], getattr(scene, k).detach()):
+                fail(f"config #5 training left {k} unchanged")
+        n = lambda name: launches.get(name, 0)  # noqa: E731
+        n_chunks = len(chunks)
+        print(f"config #5 launches ({steps} steps, {n_chunks} eval chunks of "
+              f"{n_eval} at {size}², {over} soft-bin overflow a chunk): "
+              f"#4 {n(at.ATTN)}, #5 {n(rz.DENSE)}, #6 {n(rz.BINNED)}, #7 "
+              f"{n(rz.SOFT_FWD_DENSE)}, #8 {n(rz.SOFT_FWD_BINNED)}; "
+              + json.dumps(launches))
+        # a step: one UNet pass (5 long self-attentions over the batch of
+        # 4), the mesh and the dome selections, the mesh's soft forward;
+        # an eval chunk: the mesh's selection and soft forward at 512²
+        if not (n(at.ATTN) == 5 * steps
+                and n(rz.DENSE) + n(rz.BINNED) == 2 * steps + n_chunks
+                and n(rz.DENSE) >= 2 * steps and n(rz.BINNED) > 0
+                and n(rz.SOFT_FWD_DENSE) == steps + over * n_chunks
+                and n(rz.SOFT_FWD_BINNED) == (1 - over) * n_chunks
+                and n(rz.SOFT_BWD_DENSE) == n(rz.SOFT_BWD_BINNED) == 0
+                and n_chunks == 3):
+            fail("config #5 launched its kernels an unexpected number of "
+                 "times")
+        exp = Path(tmp) / cfg.log.exp_name
+        ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+        mesh_files = sorted(p.name for p in (exp / "mesh").iterdir())
+        evals = len(list((exp / "vis" / "eval").glob("*_rgb.png")))
+        print(f"config #5 artifacts: checkpoints {ckpts}, eval frames "
+              f"{evals}, results {sorted(p.name for p in (exp / 'results').iterdir())}"
+              f", mesh {mesh_files}")
+        if (f"step_{steps:06d}.ckpt" not in ckpts or evals != 2 * n_eval
+                or mesh_files != ["albedo.png", "mesh.mtl", "mesh.obj"]):
+            fail("config #5 did not write its checkpoint, evals or export")
+
+        # the layers: the depth UNet's CFG pass, the eval chunk, its decode
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        emb = app._select_text(views)
+        lat = torch.randn((2, 64, 64, 4), generator=gen, device=dev)
+        t = torch.tensor(500, device=dev)
+        unet_ms = cuda_ms(lambda: dg._cfg_eps_depth(lat, nd, t, emb, 100.0),
+                          10)
+        chunk_ms = cuda_ms(lambda: app.eval_render(ev, (size, size)), 3,
+                           warmup=1)
+        decode_ms = cuda_ms(lambda: dg.decode_latents(scene.texture_img), 3)
+        profile_steps(trainer, "config #5 (depth, B = 2)")
+        print(f"config #5 layers: depth UNet CFG pass (batch 4 = 2 views x "
+              f"[uncond; cond], {tuple(emb.shape)} context) {unet_ms:.3f} ms; "
+              f"eval chunk ({n_eval} views at {size}²) {chunk_ms:.3f} ms, of "
+              f"which the VAE decode of the {scene.texture_resolution}² "
+              f"texture {decode_ms:.3f} ms")
+
+        # img2img: 10 steps at strength 0.8 (8 walked), the check mask for
+        # the first 4, the inpaint window 2 < i < 5 on the 9-channel UNet
+        upd = torch.zeros((2, 64, 64, 1), device=dev)
+        upd[:, :, :32] = 1.0
+        chk = torch.zeros_like(upd)
+        chk[:, :, :16] = 1.0
+        imgs = torch.rand((2, 512, 512, 3), generator=gen, device=dev)
+        passes = {"depth": 0, "inpaint": 0}
+        cfg_depth, cfg_inpaint = dg._cfg_eps_depth, dg._cfg_eps_inpaint
+
+        def counted(kind, fn):
+            def call(*args):
+                passes[kind] += 1
+                return fn(*args)
+            return call
+
+        dg._cfg_eps_depth = counted("depth", cfg_depth)
+        dg._cfg_eps_inpaint = counted("inpaint", cfg_inpaint)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masked = dg.encode_masked_inputs(imgs, upd, generator=gen)
+            out = dg.img2img_step(
+                emb, render["image"], nd, upd, chk, num_inference_steps=10, strength=0.8, inpaint_lo=2,
+                inpaint_hi=5, masked_latents=masked, generator=gen)
+            torch.cuda.synchronize()
+            i2i_s = time.perf_counter() - t0
+        finally:
+            dg._cfg_eps_depth, dg._cfg_eps_inpaint = cfg_depth, cfg_inpaint
+        print(f"config #5 img2img (10 steps at strength 0.8: "
+              f"{passes['depth']} depth and {passes['inpaint']} inpainting "
+              f"UNet passes, masked encode at 512²): {i2i_s:.3f} s; output "
+              f"{tuple(out.shape)}, |max| {out.abs().max().item():.3f}")
+        if not (passes == {"depth": 6, "inpaint": 2}
+                and out.shape == (2, 64, 64, 4)
+                and bool(torch.isfinite(out).all())):
+            fail("config #5 img2img did not walk its window or is not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = dg.prompt_to_img([cfg.guide.text], nd[:1],
+                               num_inference_steps=10, generator=gen)
+        torch.cuda.synchronize()
+        t2i_s = time.perf_counter() - t0
+        phase_peak = torch.cuda.max_memory_allocated()
+        print(f"config #5 txt2img (10 steps, depth of a training render): "
+              f"{t2i_s:.3f} s, image {tuple(img.shape)} in "
+              f"[{img.min().item():.3f}, {img.max().item():.3f}]; the "
+              f"phase's peak memory {phase_peak / 2 ** 30:.3f} GiB")
+        if not (img.shape == (1, 512, 512, 3)
+                and bool(torch.isfinite(img).all())):
+            fail("config #5 txt2img gave no finite 512² image")
+    return launches, b2
 
 
 def silhouette_phase(app, trainer, guidance):
@@ -3662,6 +4039,20 @@ def main() -> int:
     profile_steps(mtrainer, "latent-paint-mesh mode 0")
     if mode1 is not None:
         profile_steps(mode1[1], "latent-paint-mesh mode 1", steps=2)
+    mode1_launches = mode1[2] if mode1 is not None else {}
+    del mapp, mtrainer, mode1
+    _free_card()
+    # config #5: depth-conditioned SD, B = 2 (its own stack, freed after)
+    depth_launches, b2 = train_depth_full_width(STEPS, args.seed)
+    paint_rows[rz.DENSE]["config5"] = b2[rz.DENSE]
+    soft_rows[rz.SOFT_FWD_DENSE]["config5"] = b2[rz.SOFT_FWD_DENSE]
+    soft_rows[rz.SOFT_FWD_DENSE]["max_abs_err"] = max(
+        soft_rows[rz.SOFT_FWD_DENSE]["max_abs_err"],
+        b2[rz.SOFT_FWD_DENSE]["max_abs_err"])
+    _free_card()
+    from tpunerf_torch.kernels import attention as at
+    rows[at.ATTN]["config5"] = attention_at_depth_batch(
+        torch.Generator(device="cuda").manual_seed(args.seed))
     # each kernel's count comes from the run of the path that was checked
     # for it: the chunked latent-NeRF run for the first four (the attention
     # kernel is on every path; both latent-paint runs hold its count there
@@ -3685,18 +4076,22 @@ def main() -> int:
     soft_counts = {
         rz.SOFT_FWD_DENSE: mesh_launches.get(rz.SOFT_FWD_DENSE, 0),
         rz.SOFT_FWD_BINNED: mesh_launches.get(rz.SOFT_FWD_BINNED, 0)
-        or (mode1[2].get(rz.SOFT_FWD_BINNED, 0) if mode1 else 0),
+        or mode1_launches.get(rz.SOFT_FWD_BINNED, 0),
         rz.SOFT_BWD_DENSE: sil_launches.get(rz.SOFT_BWD_DENSE, 0),
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
     # #1-#4: the chunked stage-1 run (config #4's stage 1 as its recipe
     # runs it: replays counted), beside the other paths that run them
+    depth_path = {"config #5 (depth, B = 2)": depth_launches}
     paint_paths = {"latent-paint eager": paint_launches,
-                   "latent-paint chunked": paint_chunked_launches}
+                   "latent-paint chunked": paint_chunked_launches,
+                   **depth_path}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
                "refine CLI (chunked)": refine_launches, **paint_paths}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
-               + counted(soft_rows, soft_counts))
+               + counted(soft_rows, soft_counts,
+                         {"latent-paint-mesh mode 0": mesh_launches,
+                          **depth_path}))
     # launches from the experiment's own runs
     kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):

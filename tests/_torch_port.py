@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -38,3 +39,34 @@ def port_guidance(jax_guidance):
                      "clip_text")
     g.min_step, g.max_step = jax_guidance.min_step, jax_guidance.max_step
     return g
+
+
+def port_depth_guidance(jax_depth):
+    """The port's tiny StableDiffusionDepthGuidance (f32, CPU, with the
+    inpainting UNet) holding the JAX depth stack's weights: both UNets, the
+    text tower and the VAE."""
+    from tpunerf_torch.guidance.depth import StableDiffusionDepthGuidance
+    from tpunerf_torch.weights import load_flax_params
+    g = StableDiffusionDepthGuidance.create(
+        tiny=True, use_inpaint=jax_depth.inpaint_unet is not None,
+        unet_dtype="float32", device=torch.device("cpu"))
+    load_flax_params(g.unet, np_tree(jax_depth.unet_params), "unet")
+    if g.inpaint_unet is not None:
+        load_flax_params(g.inpaint_unet,
+                         np_tree(jax_depth.inpaint_unet_params), "unet")
+    load_flax_params(g.text_encoder, np_tree(jax_depth.text_params),
+                     "clip_text")
+    load_flax_params(g.vae, np_tree(jax_depth.vae_params), "vae")
+    g.min_step, g.max_step = jax_depth.min_step, jax_depth.max_step
+    return g
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread for a module: the test workers share the host's
+    cores, and a pool of a thread a core in each worker oversubscribes
+    them (a case of 1 s alone then takes 100 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

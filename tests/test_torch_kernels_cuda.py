@@ -379,6 +379,19 @@ def test_attention_kernel_matches_plain(dtype):
                   "attention")
 
 
+def test_attention_kernel_matches_plain_at_the_depth_unets_cfg_batch():
+    """Config #5's UNet: CFG over B = 2 views gives q, k, v (4, 8, 4096,
+    40) bf16 at its 64² self-attention."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((4, 4096, 8, 40), generator=gen, device=dev)
+               .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(3))
+    out = _launched(at.ATTN, lambda: at.attention_cuda(q, k, v, 40 ** -0.5))
+    assert out.dtype == torch.bfloat16 and out.shape == (4, 8, 4096, 40)
+    _close_to_max(out, at.attention_plain(q, k, v, 40 ** -0.5), 2e-2,
+                  "attention at B = 4")
+
+
 def _bf16_qkv(dev, B, H, N, D, layout, seed):
     """bf16 q, k, v (B, H, N, D): views of (B, N, H, D) projections, as the
     UNet passes them, or contiguous."""
@@ -1430,3 +1443,25 @@ def test_hash_and_occupancy_kernels_at_the_rgb_eval_chunks_size():
     for lo in range(0, flat.numel(), 1 << 21):
         assert torch.equal(flat[lo:lo + (1 << 21)], og.occupancy_lookup_plain(
             ref_flat[lo:lo + (1 << 21)], packed, G, bnd)), lo
+
+
+def test_tiny_depth_app_step_on_the_card_equals_the_cpu(monkeypatch):
+    """Config #5's step at the tiny size (`scripts.depth_step`):
+    depth-guided latent-paint-mesh, B = 2 (body and head camera), mode 0,
+    the same weights and draws on the card and the CPU, f32: the loss within
+    1e-4 of its summed terms, the gradients within 2e-4 of the largest
+    (paint-mesh's tolerances), through #5 and #7 (the tiny UNet's 256 tokens
+    take the plain attention, not #4)."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from tpunerf_torch.scripts import depth_step
+    _build.reset_launches()
+    (l_cpu, g_cpu), (l_dev, g_dev), scale = depth_step.tiny_depth_steps(
+        dev, 6)
+    for name in (rz.DENSE, rz.SOFT_FWD_DENSE):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert abs(l_dev - l_cpu) <= 1e-4 * scale, (l_dev, l_cpu, scale)
+    assert set(g_dev) == set(g_cpu) == {"background_sphere_colors",
+                                        "displacement", "texture_img"}
+    for k, ref in g_cpu.items():
+        _close_to_max(g_dev[k], ref, 2e-4, k)

@@ -18,11 +18,14 @@ import pytest
 import torch
 
 import tpunerf.kernels.rasterize as JR
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from tpunerf.core import camera as jcam
 from tpunerf.meshrep.shapes import uv_sphere
 from tpunerf_torch.kernels import rasterize as TR
 
 CPU = torch.device("cpu")
+# the large CPU maps of this file on one torch thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 INF, NAN = float("inf"), float("nan")
 
 

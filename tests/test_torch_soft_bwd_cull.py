@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import tpunerf.kernels.rasterize as JR
+from _torch_port import one_torch_thread  # noqa: F401  (a fixture)
 from tpunerf.core import camera as jcam
 from tpunerf.meshrep.shapes import uv_sphere
 from tpunerf_torch.kernels import rasterize as TR
@@ -33,6 +34,8 @@ K = 128
 # the sums over pixels in another order, prod / (1 - p) near an edge: the
 # tolerance tests/test_torch_soft_silhouette.py holds the binned VJP to
 BWD_REL = 2e-5
+# the large CPU maps of this file on one torch thread
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _sphere(theta, phi, r=1.3):

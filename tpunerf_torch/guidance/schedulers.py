@@ -1,13 +1,14 @@
-"""Diffusion noise schedule: the DDPM tables SDS needs, and the DDIM step.
+"""Diffusion noise schedules: the DDPM tables SDS needs, the DDIM step,
+the PNDM (PLMS) step and img2img's strength truncation.
 
 Tables from the Stable-Diffusion config (scaled_linear β ∈ [0.00085,
-0.012], 1000 train steps). The DDIM-inverse and PNDM samplers of the JAX
-package are not ported yet: ROADMAP.md item A.6.
+0.012], 1000 train steps). The DDIM-inverse sampler of the JAX package is
+not ported yet: ROADMAP.md item A.6.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,10 +60,23 @@ class NoiseSchedule:
         a = a.reshape(a.shape + (1,) * (sample.ndim - a.ndim))
         return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
 
-    def sds_weight(self, t: torch.Tensor) -> torch.Tensor:
-        """SDS weight w(t) = √ᾱ_t·(1−ᾱ_t)."""
+    def sds_weight(self, t: torch.Tensor, form: str = "sqrt"
+                   ) -> torch.Tensor:
+        """SDS weight w(t): "sqrt" √ᾱ_t·(1−ᾱ_t) (text-guided SD), "sigma2"
+        1−ᾱ_t (depth-conditioned SD)."""
         a = self._alpha_bar(t)
-        return torch.sqrt(a) * (1.0 - a)
+        if form == "sqrt":
+            return torch.sqrt(a) * (1.0 - a)
+        if form == "sigma2":
+            return 1.0 - a
+        raise ValueError(form)
+
+    def pred_x0_from_eps(self, x_t: torch.Tensor, eps: torch.Tensor,
+                         t: torch.Tensor) -> torch.Tensor:
+        """x̂₀ = (x_t − √(1−ᾱ_t)·ε) / √ᾱ_t."""
+        a = self._alpha_bar(t)
+        a = a.reshape(a.shape + (1,) * (x_t.ndim - a.ndim))
+        return (x_t - torch.sqrt(1.0 - a) * eps) / torch.sqrt(a)
 
     def _alpha_bar(self, t) -> torch.Tensor:
         """ᾱ_t, shaped as t, by a gather on the device: indexing by a 0-dim
@@ -105,3 +119,76 @@ def ddim_step(sched: NoiseSchedule, eps: torch.Tensor, t: torch.Tensor,
     pred_x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
     prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * eps
     return DDIMStepOutput(prev_sample=prev, pred_x0=pred_x0)
+
+
+# PNDM as SD pipelines run it (skip_prk_steps): the first step uses ε as it
+# is, later ones the linear multistep combination of the stored ε's.
+
+class PNDMState(NamedTuple):
+    ets: torch.Tensor        # (4, *sample_shape) past ε, newest first
+    counter: torch.Tensor    # int64, steps completed
+    cur_sample: torch.Tensor
+
+
+def pndm_init(sample_shape: Tuple[int, ...],
+              device: Optional[torch.device] = None) -> PNDMState:
+    """An empty PNDM state on `device` (CUDA unless the caller names
+    another)."""
+    device = resolve_device(device)
+    return PNDMState(
+        ets=torch.zeros((4, *sample_shape), dtype=torch.float32,
+                        device=device),
+        counter=torch.zeros((), dtype=torch.int64, device=device),
+        cur_sample=torch.zeros(sample_shape, dtype=torch.float32,
+                               device=device))
+
+
+def _pndm_prev_sample(sched: NoiseSchedule, sample: torch.Tensor,
+                      t: torch.Tensor, prev_t: torch.Tensor,
+                      eps: torch.Tensor) -> torch.Tensor:
+    """diffusers' PNDM closed form x_t → x_{t−Δ}."""
+    a_t = sched._alpha_bar(torch.as_tensor(t).clamp(min=0))
+    prev_t = torch.as_tensor(prev_t, device=a_t.device)
+    a_prev = torch.where(prev_t >= 0,
+                         sched._alpha_bar(prev_t.clamp(min=0)),
+                         sched.final_alpha_cumprod)
+    shape = (1,) * sample.ndim
+    a_t, a_prev = a_t.reshape(shape), a_prev.reshape(shape)
+    sample_coeff = torch.sqrt(a_prev / a_t)
+    denom = (a_t * torch.sqrt(1.0 - a_prev)
+             + torch.sqrt(a_t * a_prev * (1.0 - a_t)))
+    return sample_coeff * sample - (a_prev - a_t) * eps / denom
+
+
+def pndm_step(sched: NoiseSchedule, state: PNDMState, eps: torch.Tensor,
+              t: torch.Tensor, sample: torch.Tensor,
+              num_inference_steps: int) -> Tuple[torch.Tensor, PNDMState]:
+    """One PLMS step: ε joins the ring of past ε's, whose combination
+    (1, 2, 3 or 4 terms by the steps done) gives x_{t−Δ}."""
+    step = sched.num_train_timesteps // num_inference_steps
+    t = torch.as_tensor(t, device=sample.device)
+    prev_t = t - step
+    c = state.counter
+    ets = torch.cat([eps[None], state.ets[:-1]])
+    e1, e2, e3, e4 = ets
+    eps_prime = torch.where(
+        c == 0, e1,
+        torch.where(c == 1, (e1 + e2) / 2.0,
+                    torch.where(c == 2, (23 * e1 - 16 * e2 + 5 * e3) / 12.0,
+                                (55 * e1 - 59 * e2 + 37 * e3 - 9 * e4)
+                                / 24.0)))
+    prev = _pndm_prev_sample(sched, sample, t, prev_t, eps_prime)
+    return prev, PNDMState(ets=ets, counter=c + 1, cur_sample=sample)
+
+
+def strength_timesteps(num_inference_steps: int, strength: float,
+                       num_train_timesteps: int = NUM_TRAIN_TIMESTEPS,
+                       device: Optional[torch.device] = None
+                       ) -> Tuple[torch.Tensor, int]:
+    """img2img's truncation: the last `strength` fraction of the DDIM grid,
+    and the index it starts at."""
+    ts = ddim_timesteps(num_inference_steps, num_train_timesteps, device)
+    init_timestep = min(int(num_inference_steps * strength),
+                        num_inference_steps)
+    t_start = max(num_inference_steps - init_timestep, 0)
+    return ts[t_start:], t_start

@@ -59,6 +59,12 @@ def score_gradient(unet_apply: Callable, sched: NoiseSchedule,
         return w * (eps_hat - noise), t
 
 
+def nan_guard(grad: torch.Tensor) -> torch.Tensor:
+    """NaN → 0, ±inf → the dtype's largest finite values (the depth
+    backend's guard on its SDS gradient)."""
+    return torch.nan_to_num(grad)
+
+
 def sds_loss(unet_apply: Callable, sched: NoiseSchedule,
              latents: torch.Tensor, text_embeddings: torch.Tensor,
              guidance_scale: float = 100.0, min_step: int = 20,

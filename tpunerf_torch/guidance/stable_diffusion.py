@@ -54,6 +54,10 @@ def rgb_to_latent_init(rgb: torch.Tensor, regularizer: float = 1e-2
     return rgb @ M.T
 
 
+ROADMAP_A8 = ("the loaders of pretrained SD weights are not ported yet: "
+              "ROADMAP.md item A.8")
+
+
 def _build(module_cls, cfg, device: torch.device,
            generator: Optional[torch.Generator]) -> torch.nn.Module:
     """Construct without PyTorch's own init (meta device), allocate on
@@ -65,65 +69,31 @@ def _build(module_cls, cfg, device: torch.device,
     return init_like_flax_(module, generator).requires_grad_(False).eval()
 
 
+def init_text_positions_(text: CLIPTextModel,
+                         generator: Optional[torch.Generator]
+                         ) -> CLIPTextModel:
+    """flax's N(0, 0.01²) position table, drawn after the rest."""
+    with torch.no_grad():
+        text.embeddings.position_embedding.weight.normal_(
+            0.0, 0.01, generator=generator)
+    return text
+
+
 @dataclasses.dataclass
-class StableDiffusionGuidance:
+class SDStack:
+    """The frozen parts both SD backends hold (this one and the
+    depth-conditioned one): the UNet, the VAE, the text tower, its
+    tokenizer and the noise schedule, with the text tower's CFG pair and
+    the VAE's decode and encode."""
     unet: UNet2DCondition
     vae: vae_lib.AutoencoderKL
     text_encoder: CLIPTextModel
     tokenizer: object
     sched: NoiseSchedule
-    latent_mode: bool = True
-    min_step: int = 20            # int(1000·0.02)
-    max_step: int = 980           # int(1000·0.98)
-    latent_size: int = 64
-    image_size: int = 512
 
     @property
     def device(self) -> torch.device:
         return self.unet.conv_in.weight.device
-
-    @classmethod
-    def create(cls, tiny: bool = False, model_dir: Optional[Path] = None,
-               latent_mode: bool = True,
-               min_step: float = 0.02, max_step: float = 0.98,
-               unet_dtype: str = "float32",
-               device: Optional[torch.device] = None,
-               generator: Optional[torch.Generator] = None
-               ) -> "StableDiffusionGuidance":
-        """Build the UNet, the text tower and the VAE on `device` (CUDA
-        unless the caller names another), random-initialised like flax from
-        `generator`, in that order. `unet_dtype` is the weight/compute
-        dtype of the frozen UNet ("auto" = bf16 on CUDA, f32 on the CPU);
-        the VAE and the text tower stay f32."""
-        if model_dir is not None:
-            raise NotImplementedError(
-                "guide.model_dir: the loaders of pretrained SD weights are "
-                "not ported yet: ROADMAP.md item A.8")
-        device = resolve_device(device)
-        ucfg = UNetConfig.tiny() if tiny else UNetConfig.sd_v1()
-        vcfg = vae_lib.VAEConfig.tiny() if tiny else vae_lib.VAEConfig.sd_v1()
-        tcfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig.vit_l_14()
-        latent_size, image_size = (16, 64) if tiny else (64, 512)
-        unet = _build(UNet2DCondition, ucfg, device, generator)
-        unet = unet.to(resolve_dtype(unet_dtype, device))
-        text = _build(CLIPTextModel, tcfg, device, generator)
-        with torch.no_grad():   # flax: normal(0.01) position table
-            text.embeddings.position_embedding.weight.normal_(
-                0.0, 0.01, generator=generator)
-        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
-        tokenizer = make_tokenizer(model_dir, vocab_size=tcfg.vocab_size,
-                                   max_length=tcfg.max_length)
-        sched = NoiseSchedule.scaled_linear(device=device)
-        return cls(unet=unet, vae=vae, text_encoder=text,
-                   tokenizer=tokenizer, sched=sched, latent_mode=latent_mode,
-                   min_step=int(sched.num_train_timesteps * min_step),
-                   max_step=int(sched.num_train_timesteps * max_step),
-                   latent_size=latent_size, image_size=image_size)
-
-    # ------------------------------------------------------------------ #
-    def unet_apply(self, latents: torch.Tensor, t: torch.Tensor,
-                   context: torch.Tensor) -> torch.Tensor:
-        return self.unet(latents, t, context)
 
     @torch.no_grad()
     def encode_text_ids(self, input_ids) -> torch.Tensor:
@@ -146,6 +116,73 @@ class StableDiffusionGuidance:
         cond = self.encode_text_ids(self.tokenizer(list(prompts)))
         uncond = self.encode_text_ids(self.tokenizer(list(negative_prompts)))
         return torch.cat([uncond, cond], dim=0)
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
+        return vae_lib.decode_latents(self.vae, latents)
+
+    def encode_imgs(self, imgs01: torch.Tensor,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """[0, 1] images (B, 8h, 8w, 3) → scaled latents, a sample of the
+        posterior; differentiable to the images (the weights are
+        frozen)."""
+        return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
+                                   generator=generator)
+
+    @torch.no_grad()
+    def encode_imgs_mode(self, imgs01: torch.Tensor) -> torch.Tensor:
+        return vae_lib.encode_imgs_mode(self.vae, imgs01)
+
+
+@dataclasses.dataclass
+class StableDiffusionGuidance(SDStack):
+    latent_mode: bool = True
+    min_step: int = 20            # int(1000·0.02)
+    max_step: int = 980           # int(1000·0.98)
+    latent_size: int = 64
+    image_size: int = 512
+
+    @classmethod
+    def create(cls, tiny: bool = False, model_dir: Optional[Path] = None,
+               latent_mode: bool = True,
+               min_step: float = 0.02, max_step: float = 0.98,
+               unet_dtype: str = "float32",
+               device: Optional[torch.device] = None,
+               generator: Optional[torch.Generator] = None
+               ) -> "StableDiffusionGuidance":
+        """Build the UNet, the text tower and the VAE on `device` (CUDA
+        unless the caller names another), random-initialised like flax from
+        `generator`, in that order. `unet_dtype` is the weight/compute
+        dtype of the frozen UNet ("auto" = bf16 on CUDA, f32 on the CPU);
+        the VAE and the text tower stay f32."""
+        if model_dir is not None:
+            raise NotImplementedError(f"guide.model_dir: {ROADMAP_A8}")
+        device = resolve_device(device)
+        ucfg = UNetConfig.tiny() if tiny else UNetConfig.sd_v1()
+        vcfg = vae_lib.VAEConfig.tiny() if tiny else vae_lib.VAEConfig.sd_v1()
+        tcfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig.vit_l_14()
+        latent_size, image_size = (16, 64) if tiny else (64, 512)
+        unet = _build(UNet2DCondition, ucfg, device, generator)
+        unet = unet.to(resolve_dtype(unet_dtype, device))
+        text = init_text_positions_(
+            _build(CLIPTextModel, tcfg, device, generator), generator)
+        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
+        tokenizer = make_tokenizer(model_dir, vocab_size=tcfg.vocab_size,
+                                   max_length=tcfg.max_length)
+        sched = NoiseSchedule.scaled_linear(device=device)
+        return cls(unet=unet, vae=vae, text_encoder=text,
+                   tokenizer=tokenizer, sched=sched, latent_mode=latent_mode,
+                   min_step=int(sched.num_train_timesteps * min_step),
+                   max_step=int(sched.num_train_timesteps * max_step),
+                   latent_size=latent_size, image_size=image_size)
+
+    # ------------------------------------------------------------------ #
+    def unet_apply(self, latents: torch.Tensor, t: torch.Tensor,
+                   context: torch.Tensor) -> torch.Tensor:
+        return self.unet(latents, t, context)
 
     # ------------------------------------------------------------------ #
     def train_step_loss(self, text_embeddings: torch.Tensor,
@@ -174,23 +211,3 @@ class StableDiffusionGuidance:
                                 text_embeddings, guidance_scale,
                                 self.min_step, self.max_step, t=t,
                                 noise=noise, generator=generator)
-
-    # ------------------------------------------------------------------ #
-    @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
-        return vae_lib.decode_latents(self.vae, latents)
-
-    def encode_imgs(self, imgs01: torch.Tensor,
-                    noise: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-        """[0, 1] images (B, 8h, 8w, 3) → scaled latents, a sample of the
-        posterior; differentiable to the images (the weights are
-        frozen)."""
-        return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
-                                   generator=generator)
-
-    @torch.no_grad()
-    def encode_imgs_mode(self, imgs01: torch.Tensor) -> torch.Tensor:
-        return vae_lib.encode_imgs_mode(self.vae, imgs01)

@@ -35,13 +35,18 @@ class UNetConfig:
     up_block_has_attn: Tuple[bool, ...] = (False, True, True, True)
 
     @classmethod
-    def sd_v1(cls) -> "UNetConfig":
-        return cls()
+    def sd_v1(cls, in_channels: int = 4, out_channels: int = 4
+              ) -> "UNetConfig":
+        """in_channels 4: SD v1; 5: depth-conditioned ([latent, depth]); 9:
+        inpainting ([latent, mask, masked latent])."""
+        return cls(in_channels=in_channels, out_channels=out_channels)
 
     @classmethod
-    def tiny(cls) -> "UNetConfig":
+    def tiny(cls, in_channels: int = 4, out_channels: int = 4
+             ) -> "UNetConfig":
         """A structurally identical miniature for tests."""
-        return cls(block_out_channels=(32, 64), layers_per_block=1,
+        return cls(in_channels=in_channels, out_channels=out_channels,
+                   block_out_channels=(32, 64), layers_per_block=1,
                    cross_attention_dim=32,
                    attention_num_heads=4, norm_num_groups=8,
                    down_block_has_attn=(True, False),

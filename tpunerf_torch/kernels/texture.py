@@ -6,9 +6,10 @@ conversion and `F.interpolate(mode='bicubic')` (Keys' cubic convolution,
 a = −0.75); the port calls those two directly. The latent-NeRF eval render
 resizes with `jax.image.resize(method='bicubic')` instead, which is another
 filter: `resize_cubic_jax` builds its weights, and `resize_bilinear` the
-weights of `jax.image.resize(method='bilinear')`. Both resize by two
-matrix products, whose backward (unlike `F.interpolate`'s on the card,
-which adds with atomics) is deterministic. Textures and images are
+weights of `jax.image.resize(method='bilinear')` (`resize_nearest` is its
+'nearest', two index gathers). Both resize by two matrix products, whose
+backward (unlike `F.interpolate`'s on the card, which adds with atomics)
+is deterministic. Textures and images are
 NHWC; uv ∈ [0,1]² with v flipped (texture row 0 is v = 1). The gradient
 flows to the texture (and, except in nearest mode, to the uv coordinates).
 """
@@ -119,3 +120,19 @@ def resize_bilinear(image: torch.Tensor, height: int, width: int
     scale when shrinking (antialiased), renormalised at the borders (which
     replicates the edge pixel when enlarging, as `F.interpolate` clamps)."""
     return _resize_jax(image, height, width, _triangle)
+
+
+def resize_nearest(image: torch.Tensor, height: int, width: int
+                   ) -> torch.Tensor:
+    """NHWC resize equal to `jax.image.resize(image, (B, height, width, C),
+    method='nearest')`: output pixel i takes input floor((i + ½)·in/out),
+    computed in f32 as JAX computes it; two index gathers."""
+    out = image
+    for dim, n in ((1, height), (2, width)):
+        m = out.shape[dim]
+        if m != n:
+            src = torch.floor((torch.arange(n, dtype=torch.float32,
+                                            device=image.device) + 0.5)
+                              * m / n).long()
+            out = out.index_select(dim, src)
+    return out

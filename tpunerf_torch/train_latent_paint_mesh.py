@@ -8,9 +8,17 @@ Usage:
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
 given. `optim.mode` is 0 (latent SDS at the train grid), 1 (TADA: give
 `--render.train_grid_size 512`) or 2 (SDEdit). `render.body_prob` below 1
-turns on the body and head cameras. Guidance is text-conditioned SD v1;
-depth-conditioned SD, Paint-by-Example, the CLIP losses and
-`guide.sampled_texture` are refused by name (ROADMAP.md item A.6).
+turns on the body and head cameras. Guidance is text-conditioned SD v1, or
+depth-conditioned SD where "depth" is in `guide.diffusion_name` (mode 0
+only), as eval config #5 runs it:
+
+    python -m tpunerf_torch.train_latent_paint_mesh \
+        --config_path demo_configs/latent_paint_mesh/nascar_depth.yaml \
+        --guide.shape_path sphere
+
+(B = 2 views a step; `nascar.obj` is not in the repo, hence the sphere).
+Paint-by-Example, the CLIP losses and `guide.sampled_texture` are refused
+by name (ROADMAP.md item A.6).
 Checkpoints, eval frames, train-render images, the final orbit and the
 export of the displaced mesh land as in `train_latent_nerf`;
 `--optim.resume true` and `--log.eval_only true` work the same way.

@@ -10,8 +10,10 @@ as loss strategies (`optim.mode`):
 * mode 2 — SDEdit: encode the render, renoise at a fixed DDIM step, denoise
   one step, L2 between the rendered and the denoised latents.
 
-Guidance is text-conditioned Stable Diffusion v1. The depth-conditioned
-backend, Paint-by-Example, the CLIP image losses and a texture seeded from
+Guidance is text-conditioned Stable Diffusion v1 or, with "depth" in
+`guide.diffusion_name`, depth-conditioned SD (mode 0 only: its SDS term
+reads the render's normalised depth, and the JAX package has no mode 1 or 2
+with it). Paint-by-Example, the CLIP image losses and a texture seeded from
 a sampled image are not ported yet (ROADMAP.md item A.6) and are refused
 by name.
 The texture and the dome colours train at `optim.lr`, the displacement and
@@ -24,12 +26,14 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
 from tpunerf_torch.core.views import ViewBatch
 from tpunerf_torch.guidance import sds as sds_lib
+from tpunerf_torch.guidance.depth import (StableDiffusionDepthGuidance,
+                                          normalize_depth)
 from tpunerf_torch.guidance.schedulers import ddim_step, ddim_timesteps
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.kernels import texture as texk
@@ -49,6 +53,11 @@ CHUNK_REFUSAL = (
     "count on the host (face selection and the soft silhouette's forward, "
     "kernels/rasterize.py), and modes 0 and 2 have not been tried under "
     "capture")
+DEPTH_MODES_REFUSAL = (
+    "optim.mode {mode} with 'depth' in guide.diffusion_name: the JAX "
+    "package has no such path (its TADA and SDEdit losses use the "
+    "text-guided SD stack, which a depth config does not build); use "
+    "optim.mode 0")
 
 
 def unported_guidance_settings(cfg: TrainConfig) -> list:
@@ -57,8 +66,6 @@ def unported_guidance_settings(cfg: TrainConfig) -> list:
     guide, optim = cfg.guide, cfg.optim
     asks = {
         "guide.use_sd false (Paint-by-Example guidance)": not guide.use_sd,
-        "guide.diffusion_name with 'depth' (depth-conditioned SD)":
-            "depth" in guide.diffusion_name,
         "guide.image (reference image: Paint-by-Example, CLIP losses)":
             guide.image is not None,
         "optim.use_clip (CLIP vision tower)": optim.use_clip,
@@ -74,7 +81,8 @@ def unported_guidance_settings(cfg: TrainConfig) -> list:
 class LatentPaintMeshApp:
     cfg: TrainConfig
     scene: TexturedMeshScene
-    guidance: StableDiffusionGuidance
+    # depth-conditioned where "depth" is in guide.diffusion_name
+    guidance: Union[StableDiffusionGuidance, StableDiffusionDepthGuidance]
     chunk_refusal = CHUNK_REFUSAL
     text_z: torch.Tensor                 # body prompts (D, 2, L, E)
     text_z_head: torch.Tensor            # head prompts (D, 2, L, E)
@@ -83,24 +91,41 @@ class LatentPaintMeshApp:
     def create(cls, cfg: TrainConfig,
                guidance: Optional[StableDiffusionGuidance] = None,
                mesh: Optional[Mesh] = None,
-               device: Optional[torch.device] = None
+               device: Optional[torch.device] = None,
+               depth_guidance: Optional[StableDiffusionDepthGuidance] = None
                ) -> "LatentPaintMeshApp":
-        """Build the guidance stack and the scene on `device` (CUDA unless
-        the caller names another; raises when there is no card). `mesh`
-        overrides `guide.shape_path`."""
+        """Build the guidance stack (depth-conditioned where "depth" is in
+        `guide.diffusion_name`, else text-guided SD; a stack passed in,
+        `depth_guidance` with depth and `guidance` without as in the JAX
+        package, is used as it is) and the scene on `device` (CUDA unless the caller names
+        another; raises when there is no card). `mesh` overrides
+        `guide.shape_path`."""
         missing = unported_guidance_settings(cfg)
         if missing:
             raise NotImplementedError(f"{'; '.join(missing)} {ROADMAP_A6}")
         if cfg.optim.mode not in (0, 1, 2):
             raise ValueError(f"unknown optim.mode {cfg.optim.mode}")
+        use_depth = "depth" in cfg.guide.diffusion_name
+        if use_depth and cfg.optim.mode != 0:
+            raise NotImplementedError(
+                DEPTH_MODES_REFUSAL.format(mode=cfg.optim.mode))
         device = resolve_device(device)
         latent_mode = cfg.optim.mode == 0
-        if guidance is None:
+        if use_depth:
+            guidance = depth_guidance
+            if guidance is None:
+                guidance = StableDiffusionDepthGuidance.create(
+                    tiny=cfg.guide.tiny_diffusion,
+                    model_dir=cfg.guide.model_dir,
+                    min_step=cfg.optim.min_step, max_step=cfg.optim.max_step,
+                    unet_dtype=cfg.guide.unet_dtype, device=device,
+                    generator=make_generator(cfg.optim.seed, device))
+        elif guidance is None:
             guidance = StableDiffusionGuidance.create(
-                tiny=cfg.guide.tiny_diffusion, model_dir=cfg.guide.model_dir,
-                latent_mode=latent_mode, min_step=cfg.optim.min_step,
-                max_step=cfg.optim.max_step, unet_dtype=cfg.guide.unet_dtype,
-                device=device,
+                tiny=cfg.guide.tiny_diffusion,
+                model_dir=cfg.guide.model_dir, latent_mode=latent_mode,
+                min_step=cfg.optim.min_step, max_step=cfg.optim.max_step,
+                unet_dtype=cfg.guide.unet_dtype, device=device,
                 generator=make_generator(cfg.optim.seed, device))
         scene = TexturedMeshScene.create(
             mesh=mesh, shape_path=cfg.guide.shape_path,
@@ -144,7 +169,8 @@ class LatentPaintMeshApp:
         """Render → the mode's guidance loss + the displacement's
         regularisers. Each random draw is taken from `draws` where it is
         there and from `generator` otherwise, in the order listed:
-        mode 0: `t`, `noise` (B, h, w, 4) of the SDS term;
+        mode 0: `t`, `noise` (B, h, w, 4) of the SDS term (with depth
+        too);
         mode 1: `vae_noise_img`, `vae_noise_nrm` (the two encodes'
         posterior samples), `t_img`, `noise_img`, `t_nrm`, `noise_nrm`;
         mode 2: `vae_noise`, `noise`."""
@@ -153,8 +179,13 @@ class LatentPaintMeshApp:
         render = self.scene.render_train(views, with_lighting=mode != 0)
         aux: Dict[str, Any] = {"image": render["image"].detach()}
         if mode == 0:
+            depth = ()           # the depth backend's condition
+            if isinstance(self.guidance, StableDiffusionDepthGuidance):
+                with torch.no_grad():
+                    depth = (normalize_depth(render["depth"],
+                                             render["mask"]),)
             main = self.guidance.train_step_loss(
-                self._select_text(views), render["image"],
+                self._select_text(views), render["image"], *depth,
                 guidance_scale=cfg.guide.guidance_scale, t=draws.get("t"),
                 noise=draws.get("noise"), generator=generator)
         elif mode == 1:

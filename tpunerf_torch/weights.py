@@ -104,11 +104,20 @@ def state_dict_from_flax(tree: Mapping[str, Any], kind: str
         out["occ_grid"] = grid
         out["occ_packed"] = packed_bitfield(grid, OccupancyGridConfig())
         return out
+    return {name: torch.from_numpy(np.array(value))     # writable copies
+            for name, value in flax_entries(tree, kind)}
+
+
+def flax_entries(tree: Mapping[str, Any], kind: str
+                 ) -> Iterator[Tuple[str, np.ndarray]]:
+    """The (port name, numpy view in the port's layout) of each leaf of a
+    module's parameter tree (kinds as `state_dict_from_flax`'s, the scenes
+    excepted), copying nothing: a tree of shapes alone (`jax.eval_shape`
+    leaves as broadcast zeros) is mapped at any width."""
     if kind not in _RENAMES:
         raise ValueError(f"unknown parameter tree kind {kind!r}")
     if set(tree) == {"params"}:
         tree = tree["params"]
-    out = {}
     for path, value in _leaves(tree):
         parts: List[str] = []
         for p in path[:-1]:
@@ -122,8 +131,7 @@ def state_dict_from_flax(tree: Mapping[str, Any], kind: str
         if kind == "unet":
             for old, new in _UNET_FF:
                 name = name.replace(old, new)
-        out[name] = torch.from_numpy(np.array(value))   # a writable copy
-    return out
+        yield name, value
 
 
 def load_flax_params(module: torch.nn.Module, tree: Mapping[str, Any],
