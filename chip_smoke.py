@@ -53,7 +53,8 @@
    the resident blocks, `full` at 1x equal to #2), each timed in a CUDA
    graph and held against its plain version (the split's bit for bit).
 4. Checks a tiny step of each app (and of config #5's depth-guided
-   latent-paint-mesh at B = 2), the soft silhouette's gradient to the
+   latent-paint-mesh at B = 2, and of Paint-by-Example latent-paint-mesh
+   with `use_clip` in both branches), the soft silhouette's gradient to the
    displacement and a tiny latent-NeRF eval chunk on the card against the
    same on the CPU.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
@@ -132,6 +133,19 @@
     inpaint window and one txt2img, timed and checked finite; then #4 at
     its (4, 8, 4096, 40) against plain, beside SDPA. The stack is freed
     after the phase.
+11. The Paint-by-Example cell, after 10 (`train_pbe_full_width`): a 512²
+    exemplar written by `write_png` from the seed and read back by
+    `read_png`, then `--guide.use_sd false --guide.image <it>
+    --optim.use_clip true --guide.shape_path sphere --render.body_prob
+    0.7` through the Trainer with its own stack (the 9-channel UNet in
+    bf16, the VAE and two ViT-L/14 towers in f32): 24 eager steps in both
+    branches (SDS, and the CLIP branch at t <= 400, differentiated through
+    the DDIM step, the f32 VAE decode and the tower), the 5-frame eval
+    orbit before step 1 and after the checkpoint at 24, the final orbit and
+    the export; the steady step by branch, a profiled step of each, the
+    layers (UNet CFG pass, `encode_exemplar`, the decode's and the tower's
+    forward and backward), the eval chunk, peak memory and the launches of
+    #4-#8. The stack is freed after the phase.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -2009,6 +2023,7 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
                      "with the CPU")
 
     check_small_depth_step(seed, gpu)
+    check_small_pbe_step(seed, gpu)
 
     # the eval chunk: 5 poses at the 16² latent grid, the tiny VAE's 64²
     # frames resized to 96² as jax.image.resize resizes
@@ -2049,6 +2064,34 @@ def check_small_depth_step(seed: int, gpu) -> None:
     if not (rel_summed <= depth_step.LOSS_TOL
             and g_err <= depth_step.GRAD_TOL):
         fail("the tiny config #5 step on the card disagrees with the CPU step")
+
+
+def check_small_pbe_step(seed: int, gpu) -> None:
+    """The Paint-by-Example step at the tiny size, card against CPU
+    (`scripts.pbe_step`): an exemplar PNG, `use_clip`, one body view, mode
+    0, the same weights and draws, f32, at t = 250 (the CLIP branch: DDIM
+    step, VAE decode and CLIP tower differentiated) and t = 500 (SDS): the
+    loss on its scale and every gradient within paint-mesh's
+    tolerances."""
+    from tpunerf_torch.scripts import pbe_step
+
+    want = {"background_sphere_colors", "displacement", "texture_img"}
+    for branch, ((l_cpu, g_cpu), (l_gpu, g_gpu), scale) in \
+            pbe_step.tiny_pbe_steps(gpu, seed).items():
+        if set(g_cpu) != want or set(g_gpu) != want:
+            fail(f"the tiny Paint-by-Example {branch} step has gradients of "
+                 f"{sorted(g_cpu)} on the CPU and {sorted(g_gpu)} on the "
+                 f"card, not {sorted(want)}")
+        rel = abs(l_gpu - l_cpu) / scale
+        g_err = _rel_grad_err(g_gpu, g_cpu)
+        print(f"tiny Paint-by-Example step ({branch} branch, t = "
+              f"{pbe_step.BRANCH_T[branch]}), card vs CPU: loss "
+              f"{l_gpu:+.6e} vs {l_cpu:+.6e}, |diff| / scale {rel:.2e} (tol "
+              f"{pbe_step.LOSS_TOL:.0e}; scale {scale:.4e}); max grad err / "
+              f"max|grad| {g_err:.2e} (tol {pbe_step.GRAD_TOL:.0e})")
+        if not (rel <= pbe_step.LOSS_TOL and g_err <= pbe_step.GRAD_TOL):
+            fail(f"the tiny Paint-by-Example {branch} step on the card "
+                 "disagrees with the CPU step")
 
 
 def build_guidance(seed: int):
@@ -3019,10 +3062,9 @@ def train_depth_full_width(steps: int, seed: int):
             app.eval_render = eval_render
         train_peak = torch.cuda.max_memory_allocated()
         steady = sorted(times[1:])
-        pct = lambda q: steady[min(len(steady) - 1,  # noqa: E731
-                                   int(q * len(steady)))]
         print(f"config #5 steady step (eager, B = 2): median "
-              f"{1e3 * pct(0.5):.3f} ms, p90 {1e3 * pct(0.9):.3f}, max "
+              f"{1e3 * _pct(steady, 0.5):.3f} ms, p90 "
+              f"{1e3 * _pct(steady, 0.9):.3f}, max "
               f"{1e3 * steady[-1]:.3f} over {len(steady)} steps; first step "
               f"{1e3 * times[0]:.1f} ms (with the step-0 eval); checkpoint, "
               f"eval, final orbit and export {tail_s:.3f} s; peak memory "
@@ -3130,6 +3172,230 @@ def train_depth_full_width(steps: int, seed: int):
                 and bool(torch.isfinite(img).all())):
             fail("config #5 txt2img gave no finite 512² image")
     return launches, b2
+
+
+def _pct(values, q: float) -> float:
+    """The q-quantile of `values` by rank (the steady-step convention)."""
+    v = sorted(values)
+    return v[min(len(v) - 1, int(q * len(v)))]
+
+
+def train_pbe_full_width(steps: int, seed: int):
+    """The Paint-by-Example cell at full width, by the command
+    `--guide.use_sd false --guide.image <exemplar.png> --optim.use_clip true
+    --guide.shape_path sphere` with `body_prob` 0.7 (mode 0, B = 1, body and
+    head cameras): a 512² exemplar written from the seed by `write_png` and
+    read back by `read_png`; its stack (the 9-channel UNet in bf16, the VAE
+    and two ViT-L/14 towers in f32: the exemplar encoder's and the
+    `use_clip` embedder's; random from the seed) through the Trainer for
+    `steps` eager steps, the eval orbit (5 frames at 512²) before step 1 and
+    after the checkpoint at `steps`, the final orbit and the export. Prints
+    the steady step by branch (SDS and CLIP), one profiled step of each
+    branch, the layers (the UNet's CFG pass, `encode_exemplar`, the CLIP
+    branch's decode and CLIP tower forward and backward), the eval chunk,
+    peak memory and the launches of #4-#8. Returns the run's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import circle_poses
+    from tpunerf_torch.guidance import vae as vae_lib
+    from tpunerf_torch.guidance.clip_vision import img_clip_loss
+    from tpunerf_torch.guidance.paint_by_example import PaintByExampleGuidance
+    from tpunerf_torch.guidance.schedulers import ddim_step
+    from tpunerf_torch.guidance.stable_diffusion import LATENT_GRAY
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.meshrep import render as mrender
+    from tpunerf_torch.scripts import pbe_step
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+    from tpunerf_torch.training.trainer import Trainer
+    from tpunerf_torch.utils import read_png
+
+    n_eval = 5
+    dev = torch.device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pbe_") as tmp:
+        image = Path(tmp) / "exemplar.png"
+        pixels = pbe_step.exemplar_png(image, seed)
+        if not np.array_equal(read_png(image), pixels):
+            fail("read_png does not read back the exemplar write_png wrote")
+        cfg = parse(TrainConfig, [
+            "--guide.use_sd", "false", "--guide.image", str(image),
+            "--optim.use_clip", "true", "--guide.shape_path", "sphere",
+            "--render.body_prob", "0.7", "--optim.iters", str(steps),
+            "--optim.seed", str(seed), "--log.exp_root", tmp,
+            "--log.exp_name", "pbe", "--log.eval_size", str(n_eval),
+            "--log.full_eval_size", str(n_eval), "--log.eval_batch",
+            str(n_eval), "--log.log_images", "false",
+            "--log.save_interval", str(steps)])
+        t0 = time.perf_counter()
+        app = LatentPaintMeshApp.create(cfg, device=dev)
+        trainer = Trainer(cfg, app, device=dev)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        g, scene = app.guidance, app.scene
+        counts = {name: (sum(p.numel() for p in m.parameters()),
+                         next(m.parameters()).dtype)
+                  for name, m in (("9-channel UNet", g.unet),
+                                  ("VAE", g.vae),
+                                  ("exemplar encoder", g.image_encoder),
+                                  ("use_clip tower", app.clip))}
+        print(f"Paint-by-Example setup: {t_setup:.2f} s (" + ", ".join(
+            f"{k} {n} {dt}" for k, (n, dt) in counts.items())
+              + f"); exemplar {tuple(pixels.shape)} read back exactly, "
+              f"embedding {tuple(app.image_embeds.shape)}, t window "
+              f"[{g.min_step}, {g.max_step}], CLIP branch at t <= "
+              f"{4 * g.sched.num_train_timesteps // 10}; mode "
+              f"{cfg.optim.mode}, body_prob {cfg.render.body_prob}, train "
+              f"grid {cfg.render.train_grid_size}, latent "
+              f"{scene.latent_size}, texture {scene.texture_resolution}; "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+        if not (isinstance(g, PaintByExampleGuidance)
+                and g.unet.config.in_channels == 9
+                and g.unet.conv_in.weight.dtype == torch.bfloat16
+                and app.clip is not None
+                and app.clip.config.hidden_size == 1024
+                and app.image_embeds.shape == (2, 1, 768)):
+            fail("the Paint-by-Example cell did not build the stack it "
+                 "names")
+        # which eval chunks overflow their soft bins (both cameras)
+        ev = circle_poses(n_eval, trainer.view_cfg, dev)
+        size = cfg.render.eval_grid_size
+        n_over = 0
+        with torch.no_grad():
+            for spec in (scene.camera, scene.head_camera):
+                fv_img = mrender._project(
+                    scene.mesh.vertices, scene.mesh.faces, ev.theta, ev.phi,
+                    ev.radius, spec)[1]
+                n_over += int(rz._soft_bins(
+                    fv_img, size, size, scene.soft_mask_sigma,
+                    rz._SOFT_BIN_K)[1]) > rz._SOFT_BIN_K
+        branches, chunks = [], []
+        loss_fn, eval_render = app.loss_fn, app.eval_render
+
+        def recorded(views, draws=None, generator=None):
+            loss, aux = loss_fn(views, draws, generator)
+            branches.append(aux["clip_branch"])
+            return loss, aux
+
+        app.loss_fn = recorded
+        app.eval_render = lambda v, dims: (chunks.append(dims),
+                                           eval_render(v, dims))[1]
+        before = {k: v.detach().clone() for k, v in scene.named_parameters()}
+        try:
+            losses, times, tail_s, launches = timed_train(trainer, steps)
+        finally:
+            app.loss_fn, app.eval_render = loss_fn, eval_render
+        train_peak = torch.cuda.max_memory_allocated()
+        by = {b: [t for t, c in zip(times[1:], branches[1:]) if c == b]
+              for b in (False, True)}
+        n_clip = sum(branches)
+        print(f"Paint-by-Example branches over {steps} steps: {n_clip} CLIP "
+              f"(t <= 400), {steps - n_clip} SDS; losses of the CLIP steps "
+              + " ".join(f"{v:+.4f}" for v, c in zip(losses, branches) if c))
+        if not (by[True] and by[False]):
+            fail("the Paint-by-Example run did not take both branches")
+        for b, label in ((False, "SDS"), (True, "CLIP")):
+            print(f"Paint-by-Example steady {label} step (eager): median "
+                  f"{1e3 * _pct(by[b], 0.5):.3f} ms, p90 "
+                  f"{1e3 * _pct(by[b], 0.9):.3f}, max "
+                  f"{1e3 * max(by[b]):.3f} over {len(by[b])} steps")
+        print(f"Paint-by-Example first step {1e3 * times[0]:.1f} ms (with the "
+              f"step-0 eval); checkpoint, eval, final orbit and export "
+              f"{tail_s:.3f} s; peak memory {train_peak / 2 ** 30:.3f} GiB "
+              f"({resident / 2 ** 30:.3f} GiB resident before the phase)")
+        for k in ("texture_img", "background_sphere_colors", "displacement"):
+            if torch.equal(before[k], getattr(scene, k).detach()):
+                fail(f"Paint-by-Example training left {k} unchanged")
+        n = lambda name: launches.get(name, 0)  # noqa: E731
+        n_chunks = len(chunks)
+        print(f"Paint-by-Example launches ({steps} steps, {n_chunks} eval "
+              f"chunks of {n_eval} at {size}², {n_over} camera(s) "
+              f"overflowing the soft bins): #4 {n(at.ATTN)}, #5 "
+              f"{n(rz.DENSE)}, #6 {n(rz.BINNED)}, #7 {n(rz.SOFT_FWD_DENSE)}, "
+              f"#8 {n(rz.SOFT_FWD_BINNED)}; " + json.dumps(launches))
+        # a step: one UNet pass (5 long self-attentions; the CLIP branch's
+        # decode and tower are plain), both cameras' mesh selections and
+        # soft forwards, the dome's selection; an eval chunk: both cameras
+        # at 512²
+        if not (n(at.ATTN) == 5 * steps and n_chunks == 3
+                and n(rz.DENSE) + n(rz.BINNED) == 3 * steps + 2 * n_chunks
+                and n(rz.DENSE) >= 3 * steps and n(rz.BINNED) > 0
+                and n(rz.SOFT_FWD_DENSE) == 2 * steps + n_over * n_chunks
+                and n(rz.SOFT_FWD_BINNED) == (2 - n_over) * n_chunks
+                and n(rz.SOFT_BWD_DENSE) == n(rz.SOFT_BWD_BINNED) == 0):
+            fail("the Paint-by-Example run launched its kernels an "
+                 "unexpected number of times")
+        exp = Path(tmp) / cfg.log.exp_name
+        ckpts = sorted(p.name for p in (exp / "checkpoints").iterdir())
+        mesh_files = sorted(p.name for p in (exp / "mesh").iterdir())
+        evals = len(list((exp / "vis" / "eval").glob("*_rgb.png")))
+        print(f"Paint-by-Example artifacts: checkpoints {ckpts}, eval frames "
+              f"{evals}, mesh {mesh_files}")
+        if (f"step_{steps:06d}.ckpt" not in ckpts or evals != 2 * n_eval
+                or mesh_files != ["albedo.png", "mesh.mtl", "mesh.obj"]):
+            fail("the Paint-by-Example run did not write its checkpoint, "
+                 "evals or export")
+
+        # one profiled step of each branch (t forced through the draws)
+        for label, t in (("SDS", 500), ("CLIP", 250)):
+            forced = torch.tensor(t, device=dev)
+            app.loss_fn = lambda v, draws=None, generator=None: loss_fn(
+                v, {"t": forced}, generator)
+            try:
+                trainer.train_step()        # warm
+                profile_steps(trainer, f"Paint-by-Example {label} (t = {t})",
+                              steps=2)
+            finally:
+                app.loss_fn = loss_fn
+
+        # the layers
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        lat = torch.randn((1, 64, 64, 4), generator=gen, device=dev)
+        mask = (torch.rand((1, 64, 64, 1), generator=gen, device=dev)
+                > 0.5).float()
+        noise = torch.randn_like(lat)
+        t = torch.tensor(250, device=dev)
+        masked = lat * (1 - mask) + LATENT_GRAY.to(dev) * mask
+        unet_ms = cuda_ms(lambda: g._unet_9ch(lat, masked, 1 - mask, t,
+                                              app.image_embeds, 100.0), 10)
+        enc_ms = cuda_ms(lambda: g.encode_exemplar(app.ref_image), 5)
+        eps = g._unet_9ch(lat, masked, 1 - mask, t, app.image_embeds, 100.0)
+        x = lat.clone().requires_grad_(True)
+
+        def decode_fwd_bwd():
+            prev = ddim_step(g.sched, eps, t, g.sched.add_noise(x, noise, t),
+                             g.sched.num_train_timesteps).prev_sample
+            vae_lib.decode_latents(g.vae, prev).sum().backward()
+
+        img = torch.rand((1, 512, 512, 3), generator=gen,
+                         device=dev).requires_grad_(True)
+
+        def clip_fwd_bwd():
+            img_clip_loss(app.clip, img, app.ref_image,
+                          size=app.clip.config.image_size).backward()
+
+        decode_ms = cuda_ms(decode_fwd_bwd, 3, warmup=1)
+        clip_ms = cuda_ms(clip_fwd_bwd, 5)
+        chunk_ms = cuda_ms(lambda: app.eval_render(ev, (size, size)), 3,
+                           warmup=1)
+        print(f"Paint-by-Example layers: 9-channel UNet CFG pass (batch 2, "
+              f"(2, 1, 768) context) {unet_ms:.3f} ms; encode_exemplar "
+              f"(ViT-L/14 at 224² + 5 mapper blocks) {enc_ms:.3f} ms; CLIP "
+              f"branch: noising + DDIM step + f32 VAE decode to 512², "
+              f"forward and backward {decode_ms:.3f} ms, CLIP (resize to "
+              f"224², ViT-L/14 of both images) forward and backward "
+              f"{clip_ms:.3f} ms; eval chunk ({n_eval} views at {size}², "
+              f"both cameras) {chunk_ms:.3f} ms; the phase's peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        if not (bool(torch.isfinite(x.grad).all()) and x.grad.abs().max() > 0
+                and bool(torch.isfinite(img.grad).all())):
+            fail("the CLIP branch's layers gave no finite gradient")
+        trainer.close()
+    return launches
 
 
 def silhouette_phase(app, trainer, guidance):
@@ -4050,6 +4316,9 @@ def main() -> int:
         soft_rows[rz.SOFT_FWD_DENSE]["max_abs_err"],
         b2[rz.SOFT_FWD_DENSE]["max_abs_err"])
     _free_card()
+    # the Paint-by-Example cell (its own stack, freed after)
+    pbe_launches = train_pbe_full_width(STEPS, args.seed)
+    _free_card()
     from tpunerf_torch.kernels import attention as at
     rows[at.ATTN]["config5"] = attention_at_depth_batch(
         torch.Generator(device="cuda").manual_seed(args.seed))
@@ -4081,17 +4350,18 @@ def main() -> int:
         rz.SOFT_BWD_BINNED: sil_launches.get(rz.SOFT_BWD_BINNED, 0)}
     # #1-#4: the chunked stage-1 run (config #4's stage 1 as its recipe
     # runs it: replays counted), beside the other paths that run them
-    depth_path = {"config #5 (depth, B = 2)": depth_launches}
+    own_stacks = {"config #5 (depth, B = 2)": depth_launches,
+                  "Paint-by-Example (use_clip)": pbe_launches}
     paint_paths = {"latent-paint eager": paint_launches,
                    "latent-paint chunked": paint_chunked_launches,
-                   **depth_path}
+                   **own_stacks}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
                "refine CLI (chunked)": refine_launches, **paint_paths}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,
                          {"latent-paint-mesh mode 0": mesh_launches,
-                          **depth_path}))
+                          **own_stacks}))
     # launches from the experiment's own runs
     kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):

@@ -1,7 +1,7 @@
 """Helpers shared by the JAX-vs-port tests of the PyTorch port
 (tests/test_torch_*.py other than test_torch_parity.py): JAX trees as
-numpy, a tolerance check, the tiny guidance stack rebuilt in the port from
-the JAX one's weights."""
+numpy, a tolerance check, the tiny guidance stacks rebuilt in the port from
+the JAX ones' weights."""
 from __future__ import annotations
 
 import jax
@@ -59,6 +59,33 @@ def port_depth_guidance(jax_depth):
     load_flax_params(g.vae, np_tree(jax_depth.vae_params), "vae")
     g.min_step, g.max_step = jax_depth.min_step, jax_depth.max_step
     return g
+
+
+def pbe_stacks(directory):
+    """The tiny Paint-by-Example stack of the port (f32, CPU, random from
+    seed 0) and the JAX package's holding the same weights: the port's
+    state dicts, saved in diffusers' layout under `directory`, loaded by the
+    JAX package's own checkpoint loader (`create(model_dir=...)`), which
+    checks every key and shape. Far cheaper than flax's init of the tiny
+    stack, and the port's names proven to be diffusers'."""
+    from pathlib import Path
+
+    from tpunerf.guidance.paint_by_example import \
+        PaintByExampleGuidance as JPbE
+    from tpunerf_torch.guidance.paint_by_example import \
+        PaintByExampleGuidance
+    g = PaintByExampleGuidance.create(
+        tiny=True, unet_dtype="float32", device=torch.device("cpu"),
+        generator=torch.Generator().manual_seed(0))
+    for sub, module, name in (
+            ("unet", g.unet, "diffusion_pytorch_model"),
+            ("vae", g.vae, "diffusion_pytorch_model"),
+            ("image_encoder", g.image_encoder, "pytorch_model")):
+        (Path(directory) / sub).mkdir(parents=True, exist_ok=True)
+        torch.save(module.state_dict(), Path(directory) / sub / f"{name}.bin")
+    jg = JPbE.create(jax.random.key(0), tiny=True, model_dir=directory)
+    assert (jg.min_step, jg.max_step) == (g.min_step, g.max_step)
+    return jg, g
 
 
 @pytest.fixture(scope="module")

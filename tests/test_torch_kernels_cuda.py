@@ -1465,3 +1465,68 @@ def test_tiny_depth_app_step_on_the_card_equals_the_cpu(monkeypatch):
                                         "displacement", "texture_img"}
     for k, ref in g_cpu.items():
         _close_to_max(g_dev[k], ref, 2e-4, k)
+
+
+def test_tiny_pbe_app_step_on_the_card_equals_the_cpu(monkeypatch):
+    """The Paint-by-Example step at the tiny size (`scripts.pbe_step`):
+    latent-paint-mesh with `use_sd false`, an exemplar PNG and `use_clip`,
+    one body view, mode 0, the same weights and draws on the card and the
+    CPU, f32, in both branches (t = 250: the CLIP branch through the DDIM
+    step, the VAE decode and the CLIP tower; t = 500: SDS): the loss within
+    1e-4 of its scale, the gradients within 2e-4 of the largest, through #4
+    (the tiny UNet's 64² self-attention in the SDS branch, f32), #5 and
+    #7."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    from tpunerf_torch.scripts import pbe_step
+    _build.reset_launches()
+    out = pbe_step.tiny_pbe_steps(dev, 7)
+    for name in (at.ATTN, rz.DENSE, rz.SOFT_FWD_DENSE):
+        assert _build.LAUNCHES.get(name, 0) > 0, name
+    assert set(out) == {"clip", "sds"}
+    for branch, ((l_cpu, g_cpu), (l_dev, g_dev), scale) in out.items():
+        assert abs(l_dev - l_cpu) <= pbe_step.LOSS_TOL * scale, \
+            (branch, l_dev, l_cpu, scale)
+        assert set(g_dev) == set(g_cpu) == {
+            "background_sphere_colors", "displacement", "texture_img"}
+        for k, ref in g_cpu.items():
+            _close_to_max(g_dev[k], ref, pbe_step.GRAD_TOL, f"{branch} {k}")
+
+
+def test_a_512_exemplar_png_loads_onto_the_card(tmp_path):
+    """`read_png` → `load_image` on the card's machine (no Pillow there): a
+    512² exemplar written by `write_png` comes back exactly at 512² and,
+    resized as PIL resizes, at 224², on the card."""
+    dev = _card()
+    from tpunerf_torch.scripts import pbe_step
+    from tpunerf_torch.utils import load_image, read_png, resize_pil_bicubic
+    path = tmp_path / "exemplar.png"
+    img = pbe_step.exemplar_png(path, 3)
+    assert np.array_equal(read_png(path), img)
+    for size in (512, 224):
+        got = load_image(path, size)
+        assert got.device.type == dev.type and got.shape == (1, size, size,
+                                                             3)
+        want = img if size == 512 else resize_pil_bicubic(img, size, size)
+        assert torch.equal(got.cpu()[0], torch.from_numpy(
+            want.astype(np.float32) / 255.0))
+
+
+def test_attention_kernel_refuses_inputs_that_need_a_gradient():
+    """#4 has no backward: with grad mode on and an input that requires a
+    gradient, the wrapper raises (naming the missing backward) instead of
+    returning a tensor with no history; under no_grad it launches."""
+    dev = _card()
+    q, k, v = (torch.randn((1, 2, 2048, 40), device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    _build.reset_launches()
+    for fn in (at.attention, at.attention_cuda):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q, k, v, 40 ** -0.5)
+    assert _build.LAUNCHES.get(at.ATTN, 0) == 0
+    with torch.no_grad():
+        out = at.attention(q, k, v, 40 ** -0.5)
+    assert _build.LAUNCHES.get(at.ATTN, 0) == 1
+    _close_to_max(out, at.attention_plain(q.detach(), k, v, 40 ** -0.5),
+                  2e-2, "attention under no_grad")

@@ -378,29 +378,73 @@ def test_trainer_steps_move_both_parameter_groups(guidances, tmp_path):
     (dict(guide=dict(concept_name="cat-toy")), "concept_name"),
 ])
 def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
+    """Of what slice 4 refused, `guide.concept_name` still is (A.6); depth
+    SD, Paint-by-Example, `guide.image`, the CLIP losses and
+    `guide.sampled_texture` are ported, and what stays refused around them
+    is refused by name."""
     cfg = _cfg(tconfig, tmp_path)
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
+    if word == "concept_name":
+        assert unported_guidance_settings(cfg)
+        with pytest.raises(NotImplementedError, match=word) as err:
+            TApp.create(cfg, device="cpu")
+        assert "A.6" in str(err.value)
+        return
+    assert not unported_guidance_settings(cfg)
     if word == "depth":
         # depth-conditioned SD is ported (mode 0); its modes 1 and 2, which
         # the JAX package lacks, are refused by name
-        assert not unported_guidance_settings(cfg)
         cfg.optim.mode = 1
         with pytest.raises(NotImplementedError, match="depth") as err:
             TApp.create(cfg, device="cpu")
         assert "no such path" in str(err.value)
-        return
-    assert unported_guidance_settings(cfg)
-    with pytest.raises(NotImplementedError, match=word) as err:
-        TApp.create(cfg, device="cpu")
-    assert "A.6" in str(err.value)
+    elif word == "Paint-by-Example":
+        # mode 0 needs the exemplar; modes 1 and 2 have no such path
+        with pytest.raises(ValueError, match=word):
+            TApp.create(cfg, device="cpu")
+        cfg.optim.mode = 1
+        with pytest.raises(NotImplementedError, match=word) as err:
+            TApp.create(cfg, device="cpu")
+        assert "no such path" in str(err.value)
+    elif word in ("guide.image", "CLIP"):
+        # the CLIP tower's pretrained weights wait for A.8
+        cfg.guide.clip_model_dir = "clip"
+        with pytest.raises(NotImplementedError, match="CLIP") as err:
+            TApp.create(cfg, device="cpu")
+        assert "A.8" in str(err.value)
+
+
+def test_sampled_texture_seeds_both_textures_as_jax(guidances, tmp_path):
+    """`guide.sampled_texture` with text-guided SD: a 100² PNG read at
+    max(4·32, 64) = 128² (PIL's resize), its mode encode and the image
+    itself resized bilinearly to the 32² latent and RGB textures."""
+    from tpunerf_torch.utils import write_png
+    jg, tg = guidances
+    tex = tmp_path / "tex.png"
+    write_png(tex, (np.random.default_rng(2).uniform(size=(100, 100, 3))
+                    * 255).astype(np.uint8))
+    jcfg, tcfg = _cfg(jconfig, tmp_path), _cfg(tconfig, tmp_path)
+    jcfg.guide.sampled_texture = tcfg.guide.sampled_texture = tex
+    japp = JApp.create(jcfg, guidance=jg)
+    tapp = TApp.create(tcfg, guidance=tg, device="cpu")
+    params = japp.init_params(jax.random.key(0))
+    tapp.init_params(torch.Generator().manual_seed(0))
+    scene = tapp.scene
+    assert_close_to_max(scene.texture_img_rgb_finetune.detach().numpy(),
+                        np.asarray(params["texture_img_rgb_finetune"]), 1e-6,
+                        "RGB texture")
+    assert_close_to_max(scene.texture_img.detach().numpy(),
+                        np.asarray(params["texture_img"]), 1e-4,
+                        "latent texture")
 
 
 def test_clip_loss_text_token_opt_and_bad_mode_are_refused(guidances,
                                                            tmp_path, rng):
     _, _, tapp = _apps(guidances, tmp_path, 0, rng)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    # clip_loss is ported; without guide.image it has no reference
+    with pytest.raises(ValueError, match="guide.image"):
         tapp.clip_loss(None)
     cfg = _cfg(tconfig, tmp_path)
     cfg.optim.use_opt_txt = True

@@ -175,10 +175,8 @@ def test_depth_mode0_loss_gradients_and_adam_step_match_jax(
     (dict(optim=dict(mode=1)), "no such path"),
     (dict(optim=dict(mode=2)), "no such path"),
     (dict(guide=dict(model_dir="sd2-depth")), "A.8"),
-    (dict(guide=dict(use_sd=False)), "A.6"),
-    (dict(guide=dict(image="ref.png")), "A.6"),
-    (dict(optim=dict(use_clip=True)), "A.6"),
-    (dict(guide=dict(sampled_texture="tex.png")), "A.6"),
+    (dict(guide=dict(clip_model_dir="clip")), "A.8"),
+    (dict(guide=dict(use_sd=False)), "unused"),
     (dict(guide=dict(concept_name="cat-toy")), "A.6"),
 ])
 def test_what_config_5_cannot_run_yet_is_refused_by_name(tmp_path, setting,
@@ -189,6 +187,38 @@ def test_what_config_5_cannot_run_yet_is_refused_by_name(tmp_path, setting,
             setattr(getattr(cfg, section), k, v)
     with pytest.raises(NotImplementedError, match=word):
         TApp.create(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("setting", ["image", "use_clip",
+                                     "sampled_texture"])
+def test_config_5_takes_an_image_the_clip_flag_and_a_sampled_texture(
+        stacks, tmp_path, setting):
+    """As in the JAX package: `guide.image` gives `clip_loss` its reference
+    (read at 512²) and tower; `optim.use_clip` changes nothing without
+    Paint-by-Example; a sampled texture seeds the RGB texture only (the
+    latent one is seeded from text-guided SD's encode alone)."""
+    from tpunerf_torch.utils import write_png
+    cfg = _cfg(tconfig, tmp_path)
+    png = tmp_path / "img.png"
+    write_png(png, np.full((64, 64, 3), 200, np.uint8))
+    if setting == "use_clip":
+        cfg.optim.use_clip = True
+    else:
+        setattr(cfg.guide, setting, png)
+    app = TApp.create(cfg, depth_guidance=stacks[1], device="cpu")
+    app.init_params(torch.Generator().manual_seed(0))
+    assert (app.clip is not None) == (setting == "image")
+    assert (app.ref_image is not None) == (setting == "image")
+    if setting == "image":
+        assert app.ref_image.shape == (1, 512, 512, 3)
+        jv = tviews.ViewBatch(*(_t(a) for a in (
+            [1.2, 0.9], [0.4, 2.5], [1.4, 1.3], [0, 2], [True, False])))
+        assert torch.isfinite(app.clip_loss(jv))
+    rgb = app.scene.texture_img_rgb_finetune.detach()
+    if setting == "sampled_texture":
+        np.testing.assert_allclose(rgb.numpy(), 200 / 255, atol=1e-6)
+    else:
+        assert not rgb.any()
 
 
 def test_chunked_trainer_is_refused_with_depth(stacks, tmp_path):

@@ -46,6 +46,11 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
+    """Multi-head self-attention: q scaled before the product, the softmax
+    in f32 (over the keys `mask` allows, every key without one), the
+    probabilities cast back to v's dtype. `cfg` is the text or the vision
+    tower's config: it reads `hidden_size` and `num_heads`."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         D = cfg.hidden_size
@@ -55,7 +60,8 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(D, D)
         self.out_proj = nn.Linear(D, D)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, D = x.shape
         hd = D // self.num_heads
         q = self.q_proj(x) * (hd ** -0.5)
@@ -67,7 +73,8 @@ class CLIPAttention(nn.Module):
 
         q, k, v = split(q), split(k), split(v)
         attn = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-        attn = torch.where(mask, attn, torch.full_like(attn, -1e9))
+        if mask is not None:
+            attn = torch.where(mask, attn, torch.full_like(attn, -1e9))
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.out_proj(out.transpose(1, 2).reshape(B, N, D))
@@ -84,6 +91,8 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPLayer(nn.Module):
+    """A pre-LN quick-GELU layer of either tower (the text's is causal)."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.self_attn = CLIPAttention(cfg)
@@ -91,7 +100,8 @@ class CLIPLayer(nn.Module):
         self.mlp = CLIPMLP(cfg)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -105,6 +115,9 @@ class CLIPEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
+    """`cfg.num_layers` layers, under transformers' `encoder.layers` name
+    in both towers."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.layers = nn.ModuleList(CLIPLayer(cfg)

@@ -80,16 +80,41 @@ def init_text_positions_(text: CLIPTextModel,
 
 
 @dataclasses.dataclass
-class SDStack:
-    """The frozen parts both SD backends hold (this one and the
-    depth-conditioned one): the UNet, the VAE, the text tower, its
-    tokenizer and the noise schedule, with the text tower's CFG pair and
-    the VAE's decode and encode."""
-    unet: UNet2DCondition
+class VAEStack:
+    """The frozen f32 VAE and the noise schedule every guidance backend
+    holds (text-guided and depth-conditioned SD, Paint-by-Example), with the
+    VAE's decode and encodes."""
     vae: vae_lib.AutoencoderKL
+    sched: NoiseSchedule
+
+    @torch.no_grad()
+    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
+        return vae_lib.decode_latents(self.vae, latents)
+
+    def encode_imgs(self, imgs01: torch.Tensor,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """[0, 1] images (B, 8h, 8w, 3) → scaled latents, a sample of the
+        posterior; differentiable to the images (the weights are
+        frozen)."""
+        return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
+                                   generator=generator)
+
+    @torch.no_grad()
+    def encode_imgs_mode(self, imgs01: torch.Tensor) -> torch.Tensor:
+        return vae_lib.encode_imgs_mode(self.vae, imgs01)
+
+
+@dataclasses.dataclass
+class SDStack(VAEStack):
+    """The frozen parts both SD backends hold (this one and the
+    depth-conditioned one): `VAEStack`'s, the UNet, the text tower and its
+    tokenizer, with the text tower's CFG pair."""
+    unet: UNet2DCondition
     text_encoder: CLIPTextModel
     tokenizer: object
-    sched: NoiseSchedule
 
     @property
     def device(self) -> torch.device:
@@ -116,25 +141,6 @@ class SDStack:
         cond = self.encode_text_ids(self.tokenizer(list(prompts)))
         uncond = self.encode_text_ids(self.tokenizer(list(negative_prompts)))
         return torch.cat([uncond, cond], dim=0)
-
-    @torch.no_grad()
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """Scaled latents (B, h, w, 4) → [0, 1] images (B, 8h, 8w, 3)."""
-        return vae_lib.decode_latents(self.vae, latents)
-
-    def encode_imgs(self, imgs01: torch.Tensor,
-                    noise: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
-        """[0, 1] images (B, 8h, 8w, 3) → scaled latents, a sample of the
-        posterior; differentiable to the images (the weights are
-        frozen)."""
-        return vae_lib.encode_imgs(self.vae, imgs01, noise=noise,
-                                   generator=generator)
-
-    @torch.no_grad()
-    def encode_imgs_mode(self, imgs01: torch.Tensor) -> torch.Tensor:
-        return vae_lib.encode_imgs_mode(self.vae, imgs01)
 
 
 @dataclasses.dataclass

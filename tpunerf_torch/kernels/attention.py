@@ -5,7 +5,9 @@ The UNet's long self-attention calls `attention`. On CUDA tensors it
 launches the kernel; on CPU tensors it runs `attention_plain`, the
 softmax(q·kᵀ·scale)·v of the JAX package's XLA path (guidance/unet.py:
 209-212): f32 logits, f32 softmax, probabilities cast to v's dtype.
-Forward only: the UNet sits under a stop-gradient in SDS.
+Forward only: the UNet sits under a stop-gradient in SDS, and the kernel
+refuses inputs that need a gradient while grad mode is on (its output would
+carry no history, and the gradient would be lost without a word).
 """
 from __future__ import annotations
 
@@ -72,6 +74,12 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     merge of the heads back to (B, N, H·D) is then free. bf16 runs on the
     tensor cores and takes D % 8 == 0, 16-byte aligned inputs and scale > 0;
     f32 takes any D <= 128."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernel (csrc/attention.cu) has no backward: its "
+            "output would carry no autograd history and the gradient to q, "
+            "k and v would be dropped; call it under torch.no_grad() or on "
+            "inputs that need no gradient")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes f32 or bf16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -16,9 +16,17 @@ only), as eval config #5 runs it:
         --config_path demo_configs/latent_paint_mesh/nascar_depth.yaml \
         --guide.shape_path sphere
 
-(B = 2 views a step; `nascar.obj` is not in the repo, hence the sphere).
-Paint-by-Example, the CLIP losses and `guide.sampled_texture` are refused
-by name (ROADMAP.md item A.6).
+(B = 2 views a step; `nascar.obj` is not in the repo, hence the sphere),
+or Paint-by-Example conditioned on an exemplar PNG (mode 0 only), with the
+CLIP branch of `optim.use_clip` at low t:
+
+    python -m tpunerf_torch.train_latent_paint_mesh --guide.use_sd false \\
+        --guide.image exemplar.png --optim.use_clip true \\
+        --guide.shape_path sphere
+
+`guide.sampled_texture` seeds the textures from a PNG. The stacks are
+random-initialised from `optim.seed` (pretrained weights are ROADMAP.md
+item A.8); `guide.concept_name` is refused by name (A.6).
 Checkpoints, eval frames, train-render images, the final orbit and the
 export of the displaced mesh land as in `train_latent_nerf`;
 `--optim.resume true` and `--log.eval_only true` work the same way.

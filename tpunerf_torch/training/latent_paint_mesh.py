@@ -10,21 +10,26 @@ as loss strategies (`optim.mode`):
 * mode 2 — SDEdit: encode the render, renoise at a fixed DDIM step, denoise
   one step, L2 between the rendered and the denoised latents.
 
-Guidance is text-conditioned Stable Diffusion v1 or, with "depth" in
+Guidance is text-conditioned Stable Diffusion v1; with "depth" in
 `guide.diffusion_name`, depth-conditioned SD (mode 0 only: its SDS term
-reads the render's normalised depth, and the JAX package has no mode 1 or 2
-with it). Paint-by-Example, the CLIP image losses and a texture seeded from
-a sampled image are not ported yet (ROADMAP.md item A.6) and are refused
-by name.
+reads the render's normalised depth); with `guide.use_sd false`,
+Paint-by-Example conditioned on the exemplar `guide.image` (mode 0 only:
+the JAX package has no mode 1 or 2 with either), whose SDS term reads the
+render's mask and, with `optim.use_clip`, takes a CLIP image loss against
+the exemplar at low t. `guide.image` also gives `clip_loss` a reference;
+`guide.sampled_texture` seeds the textures from an image. Refused by name:
+`guide.concept_name` (ROADMAP.md item A.6), pretrained weights
+(`guide.model_dir`, `guide.clip_model_dir`: A.8) and the chunked trainer
+(`optim.train_chunk > 1`, `chunk_refusal`: A.12).
 The texture and the dome colours train at `optim.lr`, the displacement and
-the lights at `optim.disp_lr`. The chunked trainer (`optim.train_chunk >
-1`) is refused by name (`chunk_refusal`, ROADMAP.md item A.12).
+the lights at `optim.disp_lr`.
 
 Every random draw can be passed in through `draws` (see `loss_fn`).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
@@ -32,19 +37,24 @@ import torch
 
 from tpunerf_torch.core.views import ViewBatch
 from tpunerf_torch.guidance import sds as sds_lib
+from tpunerf_torch.guidance.clip_vision import (CLIPImageEmbedder,
+                                                CLIPVisionConfig,
+                                                img_clip_loss,
+                                                init_vision_embeddings_)
 from tpunerf_torch.guidance.depth import (StableDiffusionDepthGuidance,
                                           normalize_depth)
+from tpunerf_torch.guidance.paint_by_example import PaintByExampleGuidance
 from tpunerf_torch.guidance.schedulers import ddim_step, ddim_timesteps
-from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
+from tpunerf_torch.guidance.stable_diffusion import (
+    StableDiffusionGuidance, _build, latent_to_rgb_preview)
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.meshrep.mesh import Mesh
 from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
 from tpunerf_torch.training.config import TrainConfig
 from tpunerf_torch.training.latent_nerf_app import (
     directional_text_embeddings, select_text_embeddings)
-from tpunerf_torch.utils import make_generator, resolve_device
+from tpunerf_torch.utils import load_image, make_generator, resolve_device
 
-ROADMAP_A6 = "is not ported yet: ROADMAP.md item A.6"
 SOFT_MASK_SIGMA = 1e-4
 SDEDIT_STEP_INDEX = 40       # mode 2 renoises at this DDIM step
 CHUNK_REFUSAL = (
@@ -58,75 +68,123 @@ DEPTH_MODES_REFUSAL = (
     "package has no such path (its TADA and SDEdit losses use the "
     "text-guided SD stack, which a depth config does not build); use "
     "optim.mode 0")
+PBE_MODES_REFUSAL = (
+    "optim.mode {mode} with guide.use_sd false (Paint-by-Example): the JAX "
+    "package has no such path (its TADA and SDEdit losses use the "
+    "text-guided SD stack, which a Paint-by-Example config does not "
+    "build); use optim.mode 0")
+DEPTH_PBE_REFUSAL = (
+    "guide.use_sd false (Paint-by-Example) with 'depth' in "
+    "guide.diffusion_name: the JAX package then trains with the depth "
+    "backend and builds Paint-by-Example beside it unused; choose one")
+PBE_IMAGE_REFUSAL = (
+    "guide.use_sd false (Paint-by-Example) requires guide.image: the "
+    "exemplar it is conditioned on and, with optim.use_clip, the image the "
+    "CLIP loss compares against")
 
 
 def unported_guidance_settings(cfg: TrainConfig) -> list:
-    """The settings of `cfg` that need a guidance backend or a loss the
-    port does not have yet."""
-    guide, optim = cfg.guide, cfg.optim
+    """The settings of `cfg` that need what the port does not have yet,
+    each with the ROADMAP.md item that brings it."""
+    guide = cfg.guide
     asks = {
-        "guide.use_sd false (Paint-by-Example guidance)": not guide.use_sd,
-        "guide.image (reference image: Paint-by-Example, CLIP losses)":
-            guide.image is not None,
-        "optim.use_clip (CLIP vision tower)": optim.use_clip,
-        "guide.sampled_texture (texture seeded from an image file)":
-            guide.sampled_texture is not None,
-        "guide.concept_name (textual-inversion concepts)":
-            bool(guide.concept_name),
+        "guide.concept_name (textual-inversion concepts) comes with "
+        "ROADMAP.md item A.6": bool(guide.concept_name),
+        "guide.clip_model_dir (pretrained CLIP vision weights) comes with "
+        "ROADMAP.md item A.8": guide.clip_model_dir is not None,
     }
     return [k for k, v in asks.items() if v]
+
+
+def make_clip_embedder(cfg: TrainConfig, device: torch.device
+                       ) -> CLIPImageEmbedder:
+    """The CLIP vision tower of the image losses (ViT-L/14; tiny with
+    `guide.tiny_diffusion`), random-initialised like flax from
+    `optim.seed`: pretrained weights (`guide.clip_model_dir`) are ROADMAP.md
+    item A.8, so at full width its loss is noise guidance and a warning
+    says so."""
+    vcfg = (CLIPVisionConfig.tiny() if cfg.guide.tiny_diffusion
+            else CLIPVisionConfig.vit_l_14())
+    gen = make_generator(cfg.optim.seed, device)
+    embedder = _build(CLIPImageEmbedder, vcfg, device, gen)
+    init_vision_embeddings_(embedder.vision_model, gen)
+    if not cfg.guide.tiny_diffusion:
+        logging.getLogger("tpunerf_torch").warning(
+            "the CLIP tower is RANDOM-INIT (no guide.clip_model_dir): its "
+            "loss is noise guidance, smoke-test only")
+    return embedder
 
 
 @dataclasses.dataclass
 class LatentPaintMeshApp:
     cfg: TrainConfig
     scene: TexturedMeshScene
-    # depth-conditioned where "depth" is in guide.diffusion_name
-    guidance: Union[StableDiffusionGuidance, StableDiffusionDepthGuidance]
+    # depth-conditioned where "depth" is in guide.diffusion_name,
+    # Paint-by-Example with guide.use_sd false
+    guidance: Union[StableDiffusionGuidance, StableDiffusionDepthGuidance,
+                    PaintByExampleGuidance]
     chunk_refusal = CHUNK_REFUSAL
     text_z: torch.Tensor                 # body prompts (D, 2, L, E)
     text_z_head: torch.Tensor            # head prompts (D, 2, L, E)
+    # from guide.image: Paint-by-Example's (2, 1, D) exemplar embedding,
+    # the reference image of the CLIP losses and their tower
+    image_embeds: Optional[torch.Tensor] = None
+    ref_image: Optional[torch.Tensor] = None
+    clip: Optional[CLIPImageEmbedder] = None
 
     @classmethod
     def create(cls, cfg: TrainConfig,
                guidance: Optional[StableDiffusionGuidance] = None,
                mesh: Optional[Mesh] = None,
                device: Optional[torch.device] = None,
-               depth_guidance: Optional[StableDiffusionDepthGuidance] = None
+               depth_guidance: Optional[StableDiffusionDepthGuidance] = None,
+               pbe: Optional[PaintByExampleGuidance] = None
                ) -> "LatentPaintMeshApp":
         """Build the guidance stack (depth-conditioned where "depth" is in
-        `guide.diffusion_name`, else text-guided SD; a stack passed in,
-        `depth_guidance` with depth and `guidance` without as in the JAX
-        package, is used as it is) and the scene on `device` (CUDA unless the caller names
-        another; raises when there is no card). `mesh` overrides
-        `guide.shape_path`."""
+        `guide.diffusion_name`, Paint-by-Example where `guide.use_sd` is
+        false, else text-guided SD; a stack passed in, `depth_guidance`,
+        `pbe` or `guidance` as in the JAX package, is used as it is), what
+        `guide.image` gives (the exemplar embedding, the reference image
+        and, for the CLIP losses, their tower) and the scene on `device`
+        (CUDA unless the caller names another; raises when there is no
+        card). `mesh` overrides `guide.shape_path`."""
         missing = unported_guidance_settings(cfg)
         if missing:
-            raise NotImplementedError(f"{'; '.join(missing)} {ROADMAP_A6}")
-        if cfg.optim.mode not in (0, 1, 2):
-            raise ValueError(f"unknown optim.mode {cfg.optim.mode}")
+            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        mode = cfg.optim.mode
+        if mode not in (0, 1, 2):
+            raise ValueError(f"unknown optim.mode {mode}")
         use_depth = "depth" in cfg.guide.diffusion_name
-        if use_depth and cfg.optim.mode != 0:
-            raise NotImplementedError(
-                DEPTH_MODES_REFUSAL.format(mode=cfg.optim.mode))
+        use_pbe = not cfg.guide.use_sd
+        if use_depth and use_pbe:
+            raise NotImplementedError(DEPTH_PBE_REFUSAL)
+        if use_depth and mode != 0:
+            raise NotImplementedError(DEPTH_MODES_REFUSAL.format(mode=mode))
+        if use_pbe and mode != 0:
+            raise NotImplementedError(PBE_MODES_REFUSAL.format(mode=mode))
+        if use_pbe and cfg.guide.image is None:
+            raise ValueError(PBE_IMAGE_REFUSAL)
         device = resolve_device(device)
-        latent_mode = cfg.optim.mode == 0
+        latent_mode = mode == 0
+        stack = dict(tiny=cfg.guide.tiny_diffusion,
+                     model_dir=cfg.guide.model_dir,
+                     unet_dtype=cfg.guide.unet_dtype, device=device,
+                     generator=make_generator(cfg.optim.seed, device))
         if use_depth:
             guidance = depth_guidance
             if guidance is None:
                 guidance = StableDiffusionDepthGuidance.create(
-                    tiny=cfg.guide.tiny_diffusion,
-                    model_dir=cfg.guide.model_dir,
                     min_step=cfg.optim.min_step, max_step=cfg.optim.max_step,
-                    unet_dtype=cfg.guide.unet_dtype, device=device,
-                    generator=make_generator(cfg.optim.seed, device))
+                    **stack)
+        elif use_pbe:
+            # its own t window, [0.2, 0.6], whatever optim.min_step says
+            guidance = pbe
+            if guidance is None:
+                guidance = PaintByExampleGuidance.create(**stack)
         elif guidance is None:
             guidance = StableDiffusionGuidance.create(
-                tiny=cfg.guide.tiny_diffusion,
-                model_dir=cfg.guide.model_dir, latent_mode=latent_mode,
-                min_step=cfg.optim.min_step, max_step=cfg.optim.max_step,
-                unet_dtype=cfg.guide.unet_dtype, device=device,
-                generator=make_generator(cfg.optim.seed, device))
+                latent_mode=latent_mode, min_step=cfg.optim.min_step,
+                max_step=cfg.optim.max_step, **stack)
         scene = TexturedMeshScene.create(
             mesh=mesh, shape_path=cfg.guide.shape_path,
             shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,
@@ -137,22 +195,52 @@ class LatentPaintMeshApp:
             cache_dir=cfg.log.exp_dir, enable_displacement=True,
             dual_camera=cfg.render.body_prob < 1.0,
             soft_mask_sigma=SOFT_MASK_SIGMA, device=device)
-        scene.latent_size = guidance.latent_size
-
-        # body and head prompt banks
-        neg = cfg.guide.negative_text if cfg.guide.append_neg_text else ""
-        text_z = directional_text_embeddings(
-            guidance, cfg.guide.text, cfg.guide.append_direction, neg)
-        text_z_head = directional_text_embeddings(
-            guidance, f"a close up face of {cfg.guide.text}",
-            cfg.guide.append_direction, neg)
+        image_embeds = ref_image = clip = None
+        if use_pbe:
+            # no text: banks of zeros; the scene keeps its 64² latent grid,
+            # as the JAX package's does
+            text_z = text_z_head = torch.zeros((1, 2, 1, 1), device=device)
+        else:
+            scene.latent_size = guidance.latent_size
+            # body and head prompt banks
+            neg = cfg.guide.negative_text if cfg.guide.append_neg_text \
+                else ""
+            text_z = directional_text_embeddings(
+                guidance, cfg.guide.text, cfg.guide.append_direction, neg)
+            text_z_head = directional_text_embeddings(
+                guidance, f"a close up face of {cfg.guide.text}",
+                cfg.guide.append_direction, neg)
+        if cfg.guide.image is not None:
+            size = guidance.image_size if use_pbe else 512
+            ref_image = load_image(cfg.guide.image, size, device)
+            if use_pbe:
+                image_embeds = guidance.encode_exemplar(ref_image)
+            # the tower of the low-t CLIP branch (Paint-by-Example with
+            # optim.use_clip) or of clip_loss (the SD backends)
+            if cfg.optim.use_clip or not use_pbe:
+                clip = make_clip_embedder(cfg, device)
         return cls(cfg=cfg, scene=scene, guidance=guidance, text_z=text_z,
-                   text_z_head=text_z_head)
+                   text_z_head=text_z_head, image_embeds=image_embeds,
+                   ref_image=ref_image, clip=clip)
 
     # ------------------------------------------------------------------ #
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> None:
-        self.scene.init_params(generator)
+        """The scene's parameters, with `guide.sampled_texture` the RGB
+        texture (and, with text-guided SD, the latent texture: the mode
+        encode) seeded from that image, read at max(4R, 64)² and resized
+        bilinearly to the texture's R²."""
+        path = self.cfg.guide.sampled_texture
+        tex_lat = tex_rgb = None
+        if path is not None:
+            R = self.scene.texture_resolution
+            img = load_image(path, max(4 * R, 64), self.scene.device)
+            if isinstance(self.guidance, StableDiffusionGuidance):
+                tex_lat = texk.resize_bilinear(
+                    self.guidance.encode_imgs_mode(img), R, R)
+            tex_rgb = texk.resize_bilinear(img, R, R)
+        self.scene.init_params(generator, texture_latents=tex_lat,
+                               texture_rgb=tex_rgb)
 
     def _select_text(self, views: ViewBatch) -> torch.Tensor:
         """Body or head prompt bank per view → (2B, L, E)."""
@@ -169,8 +257,9 @@ class LatentPaintMeshApp:
         """Render → the mode's guidance loss + the displacement's
         regularisers. Each random draw is taken from `draws` where it is
         there and from `generator` otherwise, in the order listed:
-        mode 0: `t`, `noise` (B, h, w, 4) of the SDS term (with depth
-        too);
+        mode 0: `t`, `noise` (B, h, w, 4) of the SDS term (with depth and
+        Paint-by-Example too; with Paint-by-Example and `optim.use_clip`,
+        `aux["clip_branch"]` says whether t took the CLIP branch);
         mode 1: `vae_noise_img`, `vae_noise_nrm` (the two encodes'
         posterior samples), `t_img`, `noise_img`, `t_nrm`, `noise_nrm`;
         mode 2: `vae_noise`, `noise`."""
@@ -178,7 +267,9 @@ class LatentPaintMeshApp:
         draws = dict(draws or {})
         render = self.scene.render_train(views, with_lighting=mode != 0)
         aux: Dict[str, Any] = {"image": render["image"].detach()}
-        if mode == 0:
+        if mode == 0 and isinstance(self.guidance, PaintByExampleGuidance):
+            main = self._pbe_loss(render, draws, generator, aux)
+        elif mode == 0:
             depth = ()           # the depth backend's condition
             if isinstance(self.guidance, StableDiffusionDepthGuidance):
                 with torch.no_grad():
@@ -196,6 +287,28 @@ class LatentPaintMeshApp:
                 + cfg.optim.lambda_displacement * render["displacement_norm"])
         aux["laplacian_loss"] = render["laplacian_loss"].detach()
         return loss, aux
+
+    def _pbe_loss(self, render, draws, generator, aux) -> torch.Tensor:
+        """Paint-by-Example's SDS term on the latent render and its
+        detached mask; with `optim.use_clip`, the CLIP branch at low t."""
+        g = self.guidance
+        image = render["image"]
+        t = draws.get("t")
+        if t is None:
+            t = sds_lib.sample_timestep(g.min_step, g.max_step, image.device,
+                                        generator)
+        use_clip = self.cfg.optim.use_clip and self.clip is not None
+        clip_branch = None
+        if use_clip:
+            clip_branch = aux["clip_branch"] = g.takes_clip_branch(t)
+        return g.train_step_loss(
+            image, render["mask"].detach(), self.image_embeds,
+            guidance_scale=self.cfg.guide.guidance_scale, use_clip=use_clip,
+            clip_embed_fn=self.clip, ref_image01=self.ref_image,
+            clip_image_size=(self.clip.config.image_size if use_clip
+                             else 224),
+            t=t, noise=draws.get("noise"), generator=generator,
+            clip_branch=clip_branch)
 
     def _encode_render(self, image01: torch.Tensor,
                        noise: Optional[torch.Tensor],
@@ -249,8 +362,16 @@ class LatentPaintMeshApp:
         return torch.mean((lat - target) ** 2)
 
     def clip_loss(self, views: ViewBatch) -> torch.Tensor:
-        raise NotImplementedError("clip_loss (the CLIP image loss against "
-                                  f"guide.image) {ROADMAP_A6}")
+        """The CLIP image loss of a training render (a latent render through
+        the fixed preview matrix) against `guide.image`."""
+        if self.ref_image is None or self.clip is None:
+            raise ValueError("clip_loss needs guide.image (its reference "
+                             "image and CLIP tower)")
+        image = self.scene.render_train(views)["image"]
+        if image.shape[-1] == 4:
+            image = latent_to_rgb_preview(image)
+        return img_clip_loss(self.clip, image, self.ref_image,
+                             size=self.clip.config.image_size)
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

@@ -57,6 +57,26 @@ _RENAMES = {
         (r"^token_embedding$", r"embeddings.token_embedding"),
     ],
 }
+# the CLIP vision tower's flat flax names → transformers' (both kinds)
+_VISION = [
+    (r"^patch_embedding$", r"embeddings.patch_embedding"),
+    (r"^pre_layernorm$", r"pre_layrnorm"),
+    (r"^layer_(\d+)_ln(\d)$", r"encoder.layers.\1.layer_norm\2"),
+    (r"^layer_(\d+)_attn$", r"encoder.layers.\1.self_attn"),
+    (r"^layer_(\d+)_fc(\d)$", r"encoder.layers.\1.mlp.fc\2"),
+]
+_RENAMES["clip_vision"] = [(r"^vision$", r"vision_model")] + _VISION
+_RENAMES["pbe_image_encoder"] = [
+    (r"^model$", r"model.vision_model"),
+    (r"^block_(\d+)_norm(\d)$", r"mapper.blocks.\1.norm\2"),
+    (r"^block_(\d+)_([qkv])$", r"mapper.blocks.\1.attn1.to_\2"),
+    (r"^block_(\d+)_out$", r"mapper.blocks.\1.attn1.to_out.0"),
+    (r"^block_(\d+)_fc1$", r"mapper.blocks.\1.ff.net.0.proj"),
+    (r"^block_(\d+)_fc2$", r"mapper.blocks.\1.ff.net.2"),
+] + _VISION
+# the tower's bare leaves, under its embeddings
+_VISION_LEAVES = {"class_embedding": "embeddings.class_embedding",
+                  "position_embedding": "embeddings.position_embedding.weight"}
 # GEGLU feed-forward: flax ff.proj / ff.out ↔ diffusers ff.net.0.proj / .2
 _UNET_FF = ((".ff.proj.", ".ff.net.0.proj."), (".ff.out.", ".ff.net.2."))
 
@@ -91,7 +111,9 @@ def state_dict_from_flax(tree: Mapping[str, Any], kind: str
     is derived from the grid); "paint_scene" / "paint_mesh_scene": a
     `TexturedMeshScene`'s three / five params; "displacement_mlp":
     `DisplacementMLP`; "unet": `UNet2DCondition`; "vae": `AutoencoderKL`; "clip_text":
-    `CLIPTextModel`. A leading "params" collection is unwrapped."""
+    `CLIPTextModel`; "clip_vision": `CLIPImageEmbedder`;
+    "pbe_image_encoder": `PaintByExampleImageEncoder`. A leading "params"
+    collection is unwrapped."""
     if kind in ("paint_scene", "paint_mesh_scene"):
         return {k: torch.from_numpy(np.array(v, np.float32))
                 for k, v in tree.items()}
@@ -127,6 +149,9 @@ def flax_entries(tree: Mapping[str, Any], kind: str
         leaf, value = _leaf(path[-1], value)
         if kind == "clip_text" and path == ("position_embedding",):
             parts, leaf = [], "embeddings.position_embedding.weight"
+        elif kind in ("clip_vision", "pbe_image_encoder") and \
+                len(path) == 2 and path[-1] in _VISION_LEAVES:
+            leaf = _VISION_LEAVES[path[-1]]
         name = ".".join(parts + [leaf])
         if kind == "unet":
             for old, new in _UNET_FF:
