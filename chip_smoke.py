@@ -146,6 +146,25 @@
     layers (UNet CFG pass, `encode_exemplar`, the decode's and the tower's
     forward and backward), the eval chunk, peak memory and the launches of
     #4-#8. The stack is freed after the phase.
+12. The attention backward, #12 (dK, dV) and #13 (dQ), after 2: at (2, 8,
+    4096, 40) bf16 (a UNet pass), (4, 8, 4096, 40) (config #5's batch),
+    D = 64 and 128 in bf16 and (1, 1, 4096, 32) f32, each against
+    `attention_bwd_plain` on the forward kernel's own output and
+    log-sum-exp (the LSE against plain too), in bf16 also against f32
+    autograd, two calls bit for bit, eager and in a CUDA graph beside the
+    plain backward and SDPA's backward (a yardstick only), with bounds.
+    Then, after 8, with the SD-v1 stack: text-token optimisation at its
+    defaults (4 DDIM steps through the UNet, the f32 VAE decode and a
+    ViT-L/14 image tower; Adam at 1e-3) cut to 4 of 100 steps, with its
+    losses, step ms, peak and launches (20 forwards and 19 of each backward
+    kernel a step), and one step's gradient through the kernels against
+    the same step through `attention_bwd_plain` (beside that step with a
+    fault planted in one layer's backward) and each of its 19 backward
+    calls against `attention_bwd_plain` on the call's own inputs;
+    null-text inversion at
+    its defaults (`invert` over 50 DDIM steps, `null_optimization` 50 x 10)
+    with its seconds, peak and launches, and the fitted embeddings'
+    retrace; `prompt_to_img` (50 steps) and one DDS step, timed.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -153,7 +172,8 @@ The profiles of the paint, mode-0 and mode-1 steps end with the selection
 kernels' device ms a step.
 Prints the device line, one line per check, a `{"kernels": [...]}` line (the
 eleven kernels, then the kept first designs with "main_path": false and the
-launches of their checks) and, last, `{"ok": true, "device": {...}}`.
+launches of their checks, then #12 and #13 with the text-token run's
+launches) and, last, `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any phase fails.
 
@@ -2842,6 +2862,461 @@ def train_mesh_full_width(steps: int, seed: int, guidance):
     return launches, app, trainer, mode1
 
 
+# #12/#13 against attention_bwd_plain: f32 in another summation order;
+# bf16 also rounds P and dS to bf16 before the products in both, so a score
+# near a rounding boundary may round the other way
+BWD_TOLS = {"float32": 1e-5, "bfloat16": 2e-2}
+# (shape, dtype, what it stands for)
+BWD_SHAPES = [((2, 8, 4096, 40), "bfloat16", "a UNet pass (CFG, B = 1)"),
+              ((4, 8, 4096, 40), "bfloat16", "config #5's batch"),
+              ((1, 8, 4096, 64), "bfloat16", "D = 64"),
+              ((1, 8, 4096, 128), "bfloat16", "D = 128"),
+              ((1, 1, 4096, 32), "float32", "f32, a VAE mid-attention")]
+
+
+def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
+    """#12 and #13 at one shape (q, k, v, dO as views of (B, N, H, D)
+    projections, as the UNet passes them): the forward's LSE against
+    plain, each kernel against `attention_bwd_plain` and, in bf16, against
+    f32 autograd; two calls bit for bit; eager and graph times beside the
+    plain backward's and SDPA's backward (a yardstick, never used); the
+    bounds and their shares."""
+    import torch
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+
+    B, H, N, D = shape
+    dt = getattr(torch, dtype)
+    scale = D ** -0.5
+    q, k, v, do = (torch.randn((B, N, H, D), generator=gen, device="cuda")
+                   .to(dt).permute(0, 2, 1, 3) for _ in range(4))
+    o, lse = at.attention_fwd_cuda(q, k, v, scale, with_lse=True)
+    lse_ref = at.attention_lse_plain(q, k, scale)
+    lse_err = (lse - lse_ref).abs().max().item()
+    delta = torch.sum(o.float() * do.float(), dim=-1)
+
+    def dkv():
+        return at.attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale)
+
+    def dq():
+        return at.attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale)
+
+    dk1, dv1 = dkv()
+    dq1 = dq()
+    dk2, dv2 = dkv()
+    dq2 = dq()
+    same = all(torch.equal(a, b) for a, b in ((dk1, dk2), (dv1, dv2),
+                                              (dq1, dq2)))
+    want = dict(zip(("dq", "dk", "dv"),
+                    at.attention_bwd_plain(q, k, v, o, lse, do, scale)))
+    got = {"dq": dq1, "dk": dk1, "dv": dv1}
+    rel = BWD_TOLS[dtype]
+    errs, ok = {}, lse_err <= 1e-5 * lse_ref.abs().max().item() and same
+    for name, g in got.items():
+        w = want[name].float()
+        errs[name] = (g.float() - w).abs().max().item()
+        ok &= g.shape == q.shape and errs[name] <= rel * w.abs().max().item()
+    vs_f32 = {}
+    if dtype == "bfloat16":
+        qf, kf, vf = (t.detach().float().requires_grad_(True)
+                      for t in (q, k, v))
+        ref = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
+            at.attention_plain(qf, kf, vf, scale), (qf, kf, vf),
+            do.float())))
+        for name, g in got.items():
+            e_k = (g.float() - ref[name]).abs().max().item()
+            e_p = (want[name].float() - ref[name]).abs().max().item()
+            vs_f32[name] = (e_k, e_p)
+            ok &= e_k <= 2 * e_p + 1e-6 * ref[name].abs().max().item()
+        del qf, kf, vf, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qs, ks, vs, scale=scale)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                 retain_graph=True), 10)
+    del qs, ks, vs, out
+    plain_ms = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, do,
+                                                      scale), 2)
+    ms = {"dkv": cuda_ms(dkv, 5), "dq": cuda_ms(dq, 5),
+          "bwd": cuda_ms(lambda: at.attention_bwd_cuda(q, k, v, o, lse, do,
+                                                       scale), 5)}
+    graph = {"dkv": ex.graph_ms(dkv, 5)[0], "dq": ex.graph_ms(dq, 5)[0]}
+    torch.cuda.synchronize()
+    mhz = max_sm_mhz()
+    es = 2 if dtype == "bfloat16" else 4
+    kind = "bf16" if dtype == "bfloat16" else "f32"
+    BH = B * H
+    reads = 4 * BH * N * D * es + 2 * BH * N * 4
+    bounds = {"dkv": bound(reads + 2 * BH * N * D * es, 8 * BH * N * N * D,
+                           kind, BH * N * N, mhz),
+              "dq": bound(reads + BH * N * D * es, 6 * BH * N * N * D, kind,
+                          BH * N * N, mhz)}
+    print(f"attention_bwd {label} {shape} {dtype}: lse err {lse_err:.3e}; "
+          f"max_abs_err vs plain " + ", ".join(
+              f"{n} {e:.3e}" for n, e in errs.items())
+          + f" (tol {rel} of the max); two calls bit for bit: {same}")
+    if vs_f32:
+        print(f"attention_bwd {label} vs f32 autograd: " + ", ".join(
+            f"{n} kernel {a:.3e} / plain bf16 {b:.3e}"
+            for n, (a, b) in vs_f32.items()))
+    for name in ("dkv", "dq"):
+        b_ms, b_by = bounds[name]
+        print(f"attention_bwd_{name} {label} {shape}: {ms[name]:.4f} ms "
+              f"eager, {graph[name]:.4f} graph; bound {b_ms:.4f} ms "
+              f"({b_by}), share graph {b_ms / graph[name]:.4f}")
+    print(f"attention_bwd {label} {shape}: both kernels + delta "
+          f"{ms['bwd']:.4f} ms eager; SDPA backward {lib_ms:.4f} ms "
+          f"eager; plain {plain_ms:.4f} ms")
+    if not ok:
+        fail(f"attention backward kernels disagree with their plain version "
+             f"at {shape} {dtype} (or the LSE, or two calls differ)")
+    return dict(shape=list(shape), dtype=dtype, max_abs_err=errs,
+                lse_err=lse_err, ms=ms, graph_ms=graph, plain_ms=plain_ms,
+                bound_ms={n: b[0] for n, b in bounds.items()},
+                bound_by={n: b[1] for n, b in bounds.items()},
+                library_ms=lib_ms)
+
+
+def check_attention_bwd(seed: int) -> dict:
+    """#12 and #13 at every shape of BWD_SHAPES. Returns their rows (the
+    first shape's numbers, the others under "shapes"), without launches."""
+    import torch
+    from tpunerf_torch.kernels import attention as at
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [attention_bwd_case(*case, gen) for case in BWD_SHAPES]
+    main = cases[0]
+    rows = {}
+    for name, part, line in ((at.ATTN_DKV, "dkv", 941), (at.ATTN_DQ, "dq",
+                                                         1287)):
+        errs = [v for n, v in main["max_abs_err"].items()
+                if (n == "dq") == (part == "dq")]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="tpunerf_torch/csrc/attention_bwd.cu",
+            replaces=("jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                      f"{line}"),
+            max_abs_err=max(errs), ms=main["ms"][part],
+            graph_ms=main["graph_ms"][part],
+            plain_ms=main["plain_ms"], plain_note="the whole backward",
+            bound_ms=main["bound_ms"][part], bound_by=main["bound_by"][part],
+            library_ms=main["library_ms"],
+            library_note="SDPA's backward: dq, dk and dv together",
+            shapes=[dict(shape=c["shape"], dtype=c["dtype"],
+                         ms=c["ms"][part], graph_ms=c["graph_ms"][part],
+                         bound_ms=c["bound_ms"][part],
+                         library_ms=c["library_ms"]) for c in cases[1:]])
+    _free_card()
+    return rows
+
+
+def sd_gradient_phases(seed: int, guidance) -> dict:
+    """The SD-v1 paths that differentiate through the UNet, at full width
+    with `guidance` (bf16 UNet): text-token optimisation, null-text
+    inversion, then txt2img and a DDS step. Returns {path: launches}."""
+    launches = {"text-token optimisation": text_token_phase(seed, guidance),
+                "null-text inversion": null_text_phase(seed, guidance)}
+    sampling_phase(seed, guidance)
+    return launches
+
+
+TT_STEPS = 4   # of optimize_text_token's 100
+# the gradient of a step through the kernels against the same step
+# through attention_bwd_plain, as a share of its largest entry: the
+# forward is the same kernel, and the backward's bf16 roundings of P, dS
+# and the bf16 gradients may fall otherwise in 19 attention layers of a
+# bf16 UNet chain. On an H100 sound steps read 1.35e-3 to 1.6e-3, and a
+# layer's dS left unscaled 7.0e-3 in the middle of the 19 backward calls
+# and 7.8e-2 in the last; in the first (the layer nearest the loss) it
+# reads 1.7e-3, which no limit above the sound steps tells apart, so each
+# layer is also held on its own inputs (TT_LAYER_TOL)
+TT_GRAD_TOL = 5e-3
+# planted faults go into one of a step's 19 backward calls: the first, the
+# middle and the last to run
+TT_FAULT_CALLS = (0, 9, 18)
+# each backward call of a step, the kernels against attention_bwd_plain on
+# the call's own inputs: the kernel checks' bf16 tolerance
+TT_LAYER_TOL = BWD_TOLS["bfloat16"]
+
+
+def _ds_unscaled(q, k, v, o, lse, do, scale):
+    """A planted fault: the plain backward with dS left unscaled (dq and dk
+    too large by 1 / scale)."""
+    from tpunerf_torch.kernels import attention as at
+    dq, dk, dv = at.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    return (dq.float() / scale).to(dq.dtype), (dk.float() / scale).to(
+        dk.dtype), dv
+
+
+def _p_unrounded(q, k, v, o, lse, do, scale):
+    """A planted fault of precision alone: the plain backward in f32, P and
+    dS not rounded to the inputs' dtype before their products."""
+    from tpunerf_torch.kernels import attention as at
+    grads = at.attention_bwd_plain(q.float(), k.float(), v.float(),
+                                   o.float(), lse, do.float(), scale)
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def _planted(fault, at_call: int):
+    """`attention_bwd_plain`, with `fault` in its `at_call`-th call."""
+    from tpunerf_torch.kernels import attention as at
+    calls = [0]
+
+    def backward(*args):
+        calls[0] += 1
+        run = fault if calls[0] - 1 == at_call else at.attention_bwd_plain
+        return run(*args)
+    return backward
+
+
+def text_token_phase(seed: int, guidance) -> dict:
+    """`optimize_text_token` at its defaults (4 DDIM steps through the UNet,
+    the f32 VAE decode and the ViT-L/14 image tower, Adam at 1e-3) cut to
+    TT_STEPS steps: ms a step, peak, losses, launches; then one step's
+    gradient through the kernels against the same step with the attention
+    backward forced through `attention_bwd_plain`, and with a fault
+    planted in one layer's plain backward; each of a step's 19 backward
+    calls against `attention_bwd_plain` on its own inputs, beside the
+    planted faults there; two profiled steps."""
+    import torch
+    from tpunerf_torch.guidance.clip_vision import clip_preprocess
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.training import text_token_opt as tto
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint_mesh import make_clip_embedder
+    from tpunerf_torch.utils import make_generator
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig()
+    cfg.optim.seed = seed
+    # the app's ViT-L/14 image tower (random from the seed, as PbE's)
+    clip = make_clip_embedder(cfg, dev)
+    gen = make_generator(seed, dev)
+    ref = torch.rand((1, 512, 512, 3), generator=gen, device=dev)
+    h, prompt = guidance.latent_size, "a goldfish"
+    latents = torch.randn((TT_STEPS, 1, h, h, 4), generator=gen, device=dev)
+    _free_card()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, stamp = [], [], [time.perf_counter()]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - stamp[0])
+        stamp[0] = now
+        losses.append(loss.item())
+
+    _build.reset_launches()
+    tok, ctx = tto.optimize_text_token(guidance, clip, ref, prompt,
+                                       num_steps=TT_STEPS, latents=latents,
+                                       on_step=on_step)
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"text-token optimisation (4 DDIM steps, through_sampling, "
+          f"{TT_STEPS} of 100 steps): losses "
+          + " ".join(f"{v:+.5e}" for v in losses) + "; step ms "
+          + " ".join(f"{1e3 * v:.1f}" for v in times)
+          + f"; peak {peak:.3f} GiB ({resident:.3f} resident before)")
+    print(f"text-token launches: {json.dumps(counts)}")
+    # the first UNet pass's first self-attention reads nothing that
+    # depends on the tokens: 4 x 5 - 1 backward launches a step
+    want = {at.ATTN: 20 * TT_STEPS, at.ATTN_DKV: 19 * TT_STEPS,
+            at.ATTN_DQ: 19 * TT_STEPS}
+    if not (all(math.isfinite(v) for v in losses)
+            and bool(torch.isfinite(tok).all())
+            and bool(torch.isfinite(ctx).all())
+            and ctx.shape == (2, 77, 768)
+            and all(counts.get(n, 0) == c for n, c in want.items())):
+        fail(f"text-token optimisation: a loss, the tokens or the context "
+             f"is not finite, or its launches are not {want}")
+
+    with torch.no_grad():
+        uncond = guidance.get_text_embeds([""])[0:1]
+        z = clip(clip_preprocess(ref, 224))
+        ref_z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+    tok0 = tto.initial_token_embeddings(guidance, prompt)
+
+    def one_step():
+        t = tok0.clone().requires_grad_(True)
+        with torch.enable_grad():
+            loss = tto.text_token_loss(guidance, clip, ref_z, uncond, t,
+                                       latents[0])
+            (g,) = torch.autograd.grad(loss, t)
+        opt = torch.optim.Adam([t], lr=1e-3)
+        t.grad = g
+        opt.step()
+        return loss.detach(), g, t.detach() - tok0
+
+    kernel_backward = at._backward
+
+    def through(backward):
+        at._backward = backward
+        try:
+            return one_step()
+        finally:
+            at._backward = kernel_backward
+
+    loss_k, g_k, step_k = one_step()
+    loss_p, g_p, step_p = through(at.attention_bwd_plain)
+
+    def share(g):
+        return ((g - g_p).abs().max() / g_p.abs().max()).item()
+
+    g_err = share(g_k)
+    s_err = (step_k - step_p).abs().max().item()
+    flips = int(((step_k * step_p) < 0).sum())
+    print(f"text-token step, kernels vs attention_bwd_plain: loss "
+          f"{loss_k.item():+.6e} / {loss_p.item():+.6e}; gradient max err "
+          f"{g_err:.3e} of its max (tol {TT_GRAD_TOL}); token change max "
+          f"{step_k.abs().max().item():.3e}, difference {s_err:.3e} "
+          f"({flips} of {step_k.numel()} entries change sign)")
+    if not (torch.equal(loss_k, loss_p) and g_err <= TT_GRAD_TOL):
+        fail("the text-token step's gradient through the attention kernels "
+             "disagrees with the same step through attention_bwd_plain")
+    faults = {name: [share(through(_planted(fn, c))[1])
+                     for c in TT_FAULT_CALLS]
+              for name, fn in (("dS unscaled", _ds_unscaled),
+                               ("P and dS unrounded", _p_unrounded))}
+    print(f"text-token step with a fault planted in backward call "
+          f"{' / '.join(map(str, TT_FAULT_CALLS))} of 19, gradient max err "
+          f"of its max against the sound plain step: " + "; ".join(
+              f"{name} " + " / ".join(f"{e:.3e}" for e in errs)
+              for name, errs in faults.items()))
+    # every layer on its own inputs: the kernels, and the two planted
+    # faults, each against attention_bwd_plain
+    layer = {"kernels": [], "dS unscaled": [], "P and dS unrounded": []}
+
+    def held(*args):
+        want = at.attention_bwd_plain(*args)
+        got = kernel_backward(*args)
+        for name, grads in (("kernels", got),
+                            ("dS unscaled", _ds_unscaled(*args)),
+                            ("P and dS unrounded", _p_unrounded(*args))):
+            layer[name].append(max(
+                ((g.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item()
+                for g, w in zip(grads, want)))
+        return got
+
+    through(held)
+    print(f"text-token step, each of its {len(layer['kernels'])} backward "
+          f"calls against attention_bwd_plain on its own inputs, max err of "
+          f"the max (tol {TT_LAYER_TOL}): " + "; ".join(
+              f"{name} {min(v):.3e} .. {max(v):.3e}"
+              for name, v in layer.items()))
+    if not (min(faults["dS unscaled"][1:]) > TT_GRAD_TOL
+            and len(layer["kernels"]) == 19
+            and max(layer["kernels"]) <= TT_LAYER_TOL
+            < min(layer["dS unscaled"])):
+        fail(f"the text-token step's layers disagree with attention_bwd_plain "
+             f"(tol {TT_LAYER_TOL}), or a planted unscaled dS is missed by "
+             f"the step's check (tol {TT_GRAD_TOL}, middle and last call) or "
+             f"the layers' check")
+    profile_steps(None, "text-token", steps=2, step_fn=one_step)
+    del clip, tok, ctx, latents
+    _free_card()
+    return counts
+
+
+def null_text_phase(seed: int, guidance) -> dict:
+    """`invert` (50 DDIM steps), then `null_optimization` at its defaults
+    (50 x 10 Adam steps on the uncond embedding, through the UNet), timed,
+    with its peak and launches; the CFG sampling with the fitted
+    embeddings retraces the trajectory from its end (finite); a profiled
+    run of 2 x 5."""
+    import torch
+    from tpunerf_torch.guidance import sds as sds_lib
+    from tpunerf_torch.guidance.schedulers import ddim_step, ddim_timesteps
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.utils import make_generator
+
+    dev = torch.device("cuda")
+    gen = make_generator(seed + 1, dev)
+    h = guidance.latent_size
+    emb = guidance.get_text_embeds(["a goldfish"])
+    x0 = torch.randn((1, h, h, 4), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        traj = guidance.invert(x0, emb, 50)
+    torch.cuda.synchronize()
+    t_inv = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    uncond = guidance.null_optimization(traj, emb)
+    torch.cuda.synchronize()
+    t_null = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with torch.no_grad():
+        lat, cond = traj[-1], emb[1:]
+        for i, t in enumerate(ddim_timesteps(50, device=dev)):
+            eps = sds_lib.cfg_eps(guidance.unet_apply, lat, t,
+                                  torch.cat([uncond[i], cond]), 7.5)
+            lat = ddim_step(guidance.sched, eps, t, lat, 50).prev_sample
+        mse = torch.mean((lat - traj[0]) ** 2).item()
+    print(f"null-text inversion (50 x 10, defaults): invert {t_inv:.3f} s, "
+          f"null_optimization {t_null:.3f} s ({1e3 * t_null / 500:.2f} ms an "
+          f"inner step), peak {peak:.3f} GiB; retraced latents finite: "
+          f"{bool(torch.isfinite(lat).all())}, MSE to the trajectory's first "
+          f"{mse:.4e}")
+    print(f"null-text launches: {json.dumps(counts)}")
+    # 2 DDIM steps of 5 inner steps: 10 passes with a backward, 2 without
+    profile_steps(None, "null-text (2 DDIM steps x 5)", steps=1,
+                  step_fn=lambda: guidance.null_optimization(traj[:2], emb, 2,
+                                                             5))
+    # an inner step is one CFG pass: 5 forwards, 4 backwards (the first
+    # self-attention reads nothing that depends on the embedding); each of
+    # the 50 steps ends with one more pass
+    want = {at.ATTN: 5 * 550, at.ATTN_DKV: 4 * 500, at.ATTN_DQ: 4 * 500}
+    if not (bool(torch.isfinite(lat).all())
+            and bool(torch.isfinite(uncond).all())
+            and uncond.shape == (50, 1, 77, 768)
+            and all(counts.get(n, 0) == c for n, c in want.items())):
+        fail(f"null-text inversion: the embeddings or the retraced latents "
+             f"are not finite, or its launches are not {want}")
+    del traj, uncond, lat
+    _free_card()
+    return counts
+
+
+def sampling_phase(seed: int, guidance) -> None:
+    """`prompt_to_img` (50 DDIM steps) and one `train_step_delta_loss`
+    step, each timed."""
+    import torch
+    from tpunerf_torch.utils import make_generator
+    dev = torch.device("cuda")
+    gen = make_generator(seed + 2, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = guidance.prompt_to_img("a goldfish", 50, generator=gen)
+    t_img = time.perf_counter() - t0
+    h = guidance.latent_size
+    x = torch.randn((1, h, h, 4), generator=gen, device=dev,
+                    requires_grad=True)
+    ref = torch.randn((1, h, h, 4), generator=gen, device=dev)
+    emb = guidance.get_text_embeds(["a goldfish"])
+    emb_ref = guidance.get_text_embeds(["a tower"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = guidance.train_step_delta_loss(emb, x, ref, emb_ref,
+                                          generator=gen)
+    loss.backward()
+    torch.cuda.synchronize()
+    t_dds = time.perf_counter() - t0
+    print(f"prompt_to_img (50 DDIM steps, CFG 7.5): {t_img:.3f} s, "
+          f"{img.shape} {img.dtype}, mean {img.mean():.2f}; DDS step "
+          f"(train_step_delta_loss + backward): {1e3 * t_dds:.1f} ms, "
+          f"gradient finite {bool(torch.isfinite(x.grad).all())}")
+    if not (img.shape == (1, 512, 512, 3) and bool(torch.isfinite(
+            x.grad).all()) and x.grad.abs().max() > 0):
+        fail("prompt_to_img's image or the DDS step's gradient is wrong")
+
+
 def attention_at_depth_batch(gen) -> dict:
     """#4 at the depth UNet's 64² self-attention with CFG at B = 2: q, k, v
     (4, 8, 4096, 40) bf16 (views of (B, N, H, D) projections, as the UNet
@@ -4245,6 +4720,7 @@ def main() -> int:
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
     check_slivers(args.seed)
+    grad_rows = check_attention_bwd(args.seed)
     split_row, variant_row = check_hash_bwd_experiment(args.seed)
     check_small_steps(args.seed)
     guidance = build_guidance(args.seed)
@@ -4308,6 +4784,8 @@ def main() -> int:
     mode1_launches = mode1[2] if mode1 is not None else {}
     del mapp, mtrainer, mode1
     _free_card()
+    # the SD-v1 paths that differentiate through the UNet (#12, #13)
+    grad_launches = sd_gradient_phases(args.seed, guidance)
     # config #5: depth-conditioned SD, B = 2 (its own stack, freed after)
     depth_launches, b2 = train_depth_full_width(STEPS, args.seed)
     paint_rows[rz.DENSE]["config5"] = b2[rz.DENSE]
@@ -4356,12 +4834,16 @@ def main() -> int:
                    "latent-paint chunked": paint_chunked_launches,
                    **own_stacks}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
-               "refine CLI (chunked)": refine_launches, **paint_paths}
+               "refine CLI (chunked)": refine_launches, **paint_paths,
+               **grad_launches}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,
                          {"latent-paint-mesh mode 0": mesh_launches,
                           **own_stacks}))
+    # #12/#13: the text-token run, beside null-text inversion
+    kernels += counted(grad_rows, grad_launches["text-token optimisation"],
+                       grad_launches)
     # launches from the experiment's own runs
     kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):

@@ -71,8 +71,14 @@ def test_no_module_names_jax_or_the_jax_package():
 
 def test_kernels_are_cuda_sources_of_the_package():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["attention.cu", "hashgrid.cu", "occgrid.cu",
-                     "rasterize.cu"]
+    assert names == ["attention.cu", "attention_bwd.cu", "hashgrid.cu",
+                     "occgrid.cu", "rasterize.cu"]
+    bwd = (PKG / "csrc" / "attention_bwd.cu").read_text()
+    for symbol in ("attention_bwd_dkv", "attention_bwd_dq", "mma.sync"):
+        assert symbol in bwd, symbol
+    # #12 and #13 on the tensor cores (bf16) and on the CUDA cores (f32);
+    # no float atomics
+    assert bwd.count("__global__") == 4 and "atomicAdd" not in bwd
     raster = (PKG / "csrc" / "rasterize.cu").read_text()
     for symbol in ("select_faces_dense", "select_faces_binned",
                    "soft_fwd_dense", "soft_fwd_binned", "soft_bwd_dense",

@@ -1513,20 +1513,160 @@ def test_a_512_exemplar_png_loads_onto_the_card(tmp_path):
 
 
 def test_attention_kernel_refuses_inputs_that_need_a_gradient():
-    """#4 has no backward: with grad mode on and an input that requires a
-    gradient, the wrapper raises (naming the missing backward) instead of
-    returning a tensor with no history; under no_grad it launches."""
+    """With grad mode on and an input that requires a gradient, `attention`
+    runs the kernel forward and the backward kernels #12 and #13 (each
+    launched once) and its gradients equal `attention_bwd_plain`'s on the
+    forward's own output and log-sum-exp; the forward kernel alone
+    (`attention_fwd_cuda`) still refuses such inputs, as its output has no
+    history; under no_grad `attention` launches the forward alone."""
     dev = _card()
     q, k, v = (torch.randn((1, 2, 2048, 40), device=dev,
                            dtype=torch.bfloat16) for _ in range(3))
     q.requires_grad_(True)
+    k.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no autograd history"):
+        at.attention_fwd_cuda(q, k, v, 40 ** -0.5)
     _build.reset_launches()
-    for fn in (at.attention, at.attention_cuda):
-        with pytest.raises(RuntimeError, match="no backward"):
-            fn(q, k, v, 40 ** -0.5)
-    assert _build.LAUNCHES.get(at.ATTN, 0) == 0
+    out = at.attention(q, k, v, 40 ** -0.5)
+    do = torch.randn_like(out)
+    dq, dk = torch.autograd.grad(out, (q, k), do)
+    assert {n: _build.LAUNCHES.get(n, 0) for n in
+            (at.ATTN, at.ATTN_DKV, at.ATTN_DQ)} == {
+        at.ATTN: 1, at.ATTN_DKV: 1, at.ATTN_DQ: 1}
     with torch.no_grad():
-        out = at.attention(q, k, v, 40 ** -0.5)
-    assert _build.LAUNCHES.get(at.ATTN, 0) == 1
-    _close_to_max(out, at.attention_plain(q.detach(), k, v, 40 ** -0.5),
-                  2e-2, "attention under no_grad")
+        o, lse = at.attention_fwd_cuda(q, k, v, 40 ** -0.5, with_lse=True)
+    assert torch.equal(o, out.detach())
+    pq, pk, _ = at.attention_bwd_plain(q.detach(), k.detach(), v, o, lse,
+                                       do, 40 ** -0.5)
+    _close_to_max(dq, pq, BWD_BF16_TOL, "dq")
+    _close_to_max(dk, pk, BWD_BF16_TOL, "dk")
+    with torch.no_grad():
+        at.attention(q, k, v, 40 ** -0.5)
+    assert _build.LAUNCHES[at.ATTN] == 3
+    assert _build.LAUNCHES[at.ATTN_DKV] == 1
+
+
+def test_attention_function_refuses_a_second_derivative():
+    """As JAX's flash attention, the kernels are differentiable once: where
+    the output's gradient itself has history (here 2·out), a gradient taken
+    with create_graph carries an error node, and differentiating it raises
+    instead of treating the kernels' gradients as constants."""
+    dev = _card()
+    q, k, v = (torch.randn((1, 2, 2048, 40), device=dev, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    out = at.attention(q, k, v, 40 ** -0.5)
+    (dq,) = torch.autograd.grad((out * out).sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable|twice"):
+        dq.float().sum().backward()
+
+
+# #12/#13 against attention_bwd_plain: f32 in another summation order;
+# bf16 also rounds P and dS to bf16 before the products in both, so a score
+# near a rounding boundary may round the other way
+BWD_F32_TOL = 1e-5
+BWD_BF16_TOL = 2e-2
+
+
+def _bwd_inputs(dev, B, H, N, D, dtype, layout, seed):
+    """q, k, v, do as `_bf16_qkv` makes them, in `dtype`, with the
+    forward's output and log-sum-exp from the kernel."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (B, N, H, D) if layout == "strided" else (B, H, N, D)
+    out = []
+    for _ in range(4):
+        t = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        out.append(t.permute(0, 2, 1, 3) if layout == "strided" else t)
+    q, k, v, do = out
+    o, lse = at.attention_fwd_cuda(q, k, v, D ** -0.5, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,layout", [
+    (4096, 40, "strided"), (4096 + 77, 40, "contiguous"),
+    (1000, 64, "strided"), (4096, 64, "contiguous"),
+    (1000, 128, "contiguous"), (2048 + 5, 128, "strided"),
+    (1000, 8, "strided")])
+def test_attention_bwd_kernels_match_plain(dtype, n, d, layout):
+    dev = _card()
+    dt = getattr(torch, dtype)
+    q, k, v, o, lse, do = _bwd_inputs(dev, 2, 3, n, d, dt, layout, n + d)
+    scale = d ** -0.5
+    _close_to_max(lse, at.attention_lse_plain(q, k, scale), 1e-5, "lse")
+    _build.reset_launches()
+    got = at.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    assert _build.LAUNCHES[at.ATTN_DKV] == 1
+    assert _build.LAUNCHES[at.ATTN_DQ] == 1
+    want = at.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    rel = BWD_F32_TOL if dtype == "float32" else BWD_BF16_TOL
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype, name
+        _close_to_max(g, w, rel, name)
+
+
+def test_attention_bwd_bf16_takes_a_misaligned_output_gradient():
+    """The tensor-core kernels copy 16-byte chunks: the wrappers refuse a
+    misaligned do, and attention_bwd_cuda copies it first."""
+    dev = _card()
+    q, k, v, o, lse, do = _bwd_inputs(dev, 1, 2, 256, 40, torch.bfloat16,
+                                      "contiguous", 3)
+    buf = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device=dev)
+    off = buf[1:].view(do.shape)
+    off.copy_(do)
+    delta = torch.sum(o.float() * do.float(), dim=-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        at.attention_bwd_dq_cuda(q, k, v, off, lse, delta, 40 ** -0.5)
+    got = at.attention_bwd_cuda(q, k, v, o, lse, off, 40 ** -0.5)
+    want = at.attention_bwd_cuda(q, k, v, o, lse, do, 40 ** -0.5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_attention_bwd_bf16_error_against_f32(d):
+    """The bf16 kernels' gradients against f32 autograd of attention on the
+    same bf16 inputs: at most twice the plain bf16 backward's error, plus
+    1e-6 of the largest gradient."""
+    dev = _card()
+    q, k, v, o, lse, do = _bwd_inputs(dev, 1, 2, 4096 + 77, d,
+                                      torch.bfloat16, "strided", d)
+    scale = d ** -0.5
+    got = at.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    plain = at.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = torch.autograd.grad(at.attention_plain(qf, kf, vf, scale),
+                              (qf, kf, vf), do.float())
+    for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        err = (g.float() - r).abs().max().item()
+        e_plain = (p.float() - r).abs().max().item()
+        tol = 2 * e_plain + 1e-6 * r.abs().max().item()
+        assert err <= tol, (name, err, e_plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_kernels_are_bit_identical_over_two_calls(dtype):
+    dev = _card()
+    args = _bwd_inputs(dev, 2, 8, 4096, 40, getattr(torch, dtype), "strided",
+                       11)
+    first = at.attention_bwd_cuda(*args, 40 ** -0.5)
+    second = at.attention_bwd_cuda(*args, 40 ** -0.5)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_bwd_graph_replay_equals_eager():
+    dev = _card()
+    args = _bwd_inputs(dev, 2, 8, 4096, 40, torch.bfloat16, "strided", 12)
+    eager = at.attention_bwd_cuda(*args, 40 ** -0.5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        at.attention_bwd_cuda(*args, 40 ** -0.5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = at.attention_bwd_cuda(*args, 40 ** -0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)

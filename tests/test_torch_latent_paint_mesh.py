@@ -378,20 +378,16 @@ def test_trainer_steps_move_both_parameter_groups(guidances, tmp_path):
     (dict(guide=dict(concept_name="cat-toy")), "concept_name"),
 ])
 def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
-    """Of what slice 4 refused, `guide.concept_name` still is (A.6); depth
-    SD, Paint-by-Example, `guide.image`, the CLIP losses and
-    `guide.sampled_texture` are ported, and what stays refused around them
-    is refused by name."""
+    """Everything slice 4 refused is ported: depth SD, Paint-by-Example,
+    `guide.image`, the CLIP losses, `guide.sampled_texture` and
+    `guide.concept_name` (a concept directory for the SD-v1 stack, held
+    against JAX in test_torch_sd_sampling.py); what stays refused around
+    them is refused by name, and a concept name that is no directory
+    raises."""
     cfg = _cfg(tconfig, tmp_path)
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
-    if word == "concept_name":
-        assert unported_guidance_settings(cfg)
-        with pytest.raises(NotImplementedError, match=word) as err:
-            TApp.create(cfg, device="cpu")
-        assert "A.6" in str(err.value)
-        return
     assert not unported_guidance_settings(cfg)
     if word == "depth":
         # depth-conditioned SD is ported (mode 0); its modes 1 and 2, which
@@ -408,6 +404,12 @@ def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
         with pytest.raises(NotImplementedError, match=word) as err:
             TApp.create(cfg, device="cpu")
         assert "no such path" in str(err.value)
+    elif word == "concept_name":
+        # a hub name is no directory: nothing can be fetched, so it raises
+        # where the JAX package would skip it
+        with pytest.raises(ValueError, match="concept_name") as err:
+            TApp.create(cfg, device="cpu")
+        assert "not a directory" in str(err.value)
     elif word in ("guide.image", "CLIP"):
         # the CLIP tower's pretrained weights wait for A.8
         cfg.guide.clip_model_dir = "clip"

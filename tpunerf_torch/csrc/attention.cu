@@ -62,6 +62,9 @@ struct Strides {
   long long b, h, n;
 };
 
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+
 // ---------------------------------------------------------------- f32 ---
 
 constexpr int kQT = 64;  // queries per block, one per thread
@@ -71,8 +74,9 @@ template <int DP>
 __global__ void __launch_bounds__(kQT)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int N, int D, Strides sq, Strides sk, Strides sv,
-                     Strides so, float scale_log2) {
+                     float* __restrict__ lse, int H, int N, int D,
+                     Strides sq, Strides sk, Strides sv, Strides so,
+                     float scale_log2) {
   constexpr int KT = DP <= 64 ? 64 : 32;  // keys per shared-memory tile
   __shared__ float s_k[KT][DP];
   __shared__ float s_v[KT][DP];
@@ -140,18 +144,20 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DP; ++c) {
       if (c < D) op[c] = acc[c] * inv;
     }
+    // m and l are in log2 units of the scaled logits
+    if (lse) lse[(long long)bh * N + qi] = (m + log2f(l)) * kLn2;
   }
 }
 
 template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int N, int D, Strides sq, Strides sk,
-                       Strides sv, Strides so, float scale_log2,
+                       float* lse, int B, int H, int N, int D, Strides sq,
+                       Strides sk, Strides sv, Strides so, float scale_log2,
                        cudaStream_t stream) {
   dim3 grid((unsigned)((N + kQT - 1) / kQT), (unsigned)(B * H));
   attention_fwd_kernel<DP><<<grid, kQT, 0, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, N, D,
-      sq, sk, sv, so, scale_log2);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, H, N,
+      D, sq, sk, sv, so, scale_log2);
   return cudaGetLastError();
 }
 
@@ -456,7 +462,8 @@ __global__ void __launch_bounds__(Bf16Cfg<DP>::kThreads, 1)
 attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int H, int N, int D,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int H, int N, int D,
                           Strides sq, Strides sk, Strides sv, Strides so,
                           float scale_log2) {
   using Cfg = Bf16Cfg<DP>;
@@ -658,6 +665,10 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
       const int row = qw + warp * 16 + lane / 4 + 8 * i;
       if (row >= N) continue;
+      // the quad's four lanes hold the same m and l: one writes the row's
+      // log-sum-exp (m and l are in log2 units of the scaled logits)
+      if (lse && lane % 4 == 0)
+        lse[(long long)bh * N + row] = (m[i] + log2f(l[i])) * kLn2;
       const float inv = 1.0f / l[i];
       __nv_bfloat16* op = o + b * so.b + h * so.h + (long long)row * so.n;
 #pragma unroll
@@ -673,8 +684,8 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int N, int D, Strides sq, Strides sk,
-                        Strides sv, Strides so, float scale_log2,
+                        float* lse, int B, int H, int N, int D, Strides sq,
+                        Strides sk, Strides sv, Strides so, float scale_log2,
                         cudaStream_t stream) {
   constexpr int smem = Bf16Cfg<DP>::kSmem;
   // once per instantiation (a static's initialiser runs once)
@@ -687,8 +698,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   attention_fwd_bf16_kernel<DP><<<grid, Bf16Cfg<DP>::kThreads, smem,
                                    stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, N, D, sq, sk, sv, so,
-      scale_log2);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, H, N, D, sq, sk, sv,
+      so, scale_log2);
   return cudaGetLastError();
 }
 
@@ -705,9 +716,12 @@ extern "C" {
 // dtype 0 = float32, 1 = bfloat16. q, k, v, o are (B, H, N, D) views with
 // the given (batch, head, token) element strides and a contiguous head dim.
 // bf16 takes D % 8 == 0, 16-byte aligned q, k, v and strides that are
-// multiples of 8, and scale > 0.
+// multiples of 8, and scale > 0. `lse`, when not null, gets each query
+// row's log-sum-exp of the scaled logits, (B, H, N) f32 contiguous: the
+// backward's residual.
 int attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                  void* o, int B, int H, int N, int D, long long q_sb,
+                  void* o, void* lse, int B, int H, int N, int D,
+                  long long q_sb,
                   long long q_sh, long long q_sn, long long k_sb,
                   long long k_sh, long long k_sn, long long v_sb,
                   long long v_sh, long long v_sn, long long o_sb,
@@ -716,13 +730,13 @@ int attention_fwd(int dtype, const void* q, const void* k, const void* v,
   if (D <= 0 || D > 128 || B * H > 65535) return (int)cudaErrorInvalidValue;
   const Strides sq{q_sb, q_sh, q_sn}, sk{k_sb, k_sh, k_sn},
       sv{v_sb, v_sh, v_sn}, so{o_sb, o_sh, o_sn};
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * kLog2e;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
 #define TPUNERF_ATTN_CASE(DP)                                               \
   if (D <= DP)                                                              \
-    return (int)launch_f32<DP>(q, k, v, o, B, H, N, D, sq, sk, sv, so,      \
-                               scale_log2, s);
+    return (int)launch_f32<DP>(q, k, v, o, (float*)lse, B, H, N, D, sq, sk, \
+                               sv, so, scale_log2, s);
     TPUNERF_ATTN_CASE(40)
     TPUNERF_ATTN_CASE(64)
     TPUNERF_ATTN_CASE(128)
@@ -735,8 +749,8 @@ int attention_fwd(int dtype, const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
 #define TPUNERF_ATTN_CASE(DP)                                               \
   if (D <= DP)                                                              \
-    return (int)launch_bf16<DP>(q, k, v, o, B, H, N, D, sq, sk, sv, so,     \
-                                scale_log2, s);
+    return (int)launch_bf16<DP>(q, k, v, o, (float*)lse, B, H, N, D, sq, sk,\
+                                sv, so, scale_log2, s);
     TPUNERF_ATTN_CASE(16)
     TPUNERF_ATTN_CASE(48)
     TPUNERF_ATTN_CASE(64)

@@ -132,11 +132,18 @@ class CLIPTextModel(nn.Module):
         self.encoder = CLIPEncoder(config)
         self.final_layer_norm = nn.LayerNorm(config.hidden_size, eps=1e-5)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: Optional[torch.Tensor],
+                input_embeddings: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """(B, L) token ids → (B, L, D) final hidden states (post final LN),
-        f32."""
+        f32. `input_embeddings` (B, L, D) bypasses the token table (the ids
+        are then not read): the path that is differentiable to the token
+        embeddings, which text-token optimisation trains."""
         emb = self.embeddings
-        x = emb.token_embedding(input_ids)
+        if input_embeddings is None:
+            x = emb.token_embedding(input_ids)
+        else:
+            x = input_embeddings.to(emb.token_embedding.weight.dtype)
         L = x.shape[1]
         x = x + emb.position_embedding.weight[None, :L]
         causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
@@ -147,7 +154,7 @@ class CLIPTextModel(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Tokenizers (the JAX package's host code; concept tokens come later)
+# Tokenizers (the JAX package's host code)
 # ---------------------------------------------------------------------------
 
 class HashTokenizer:
@@ -155,15 +162,26 @@ class HashTokenizer:
 
     Same interface and special-token layout (BOS/EOS/pad-with-EOS,
     max_length truncation); ids are FNV-hashed words — NOT
-    weight-compatible."""
+    weight-compatible. `add_token` gives a textual-inversion concept the
+    next id past the table; a word equal to it takes that id."""
 
     def __init__(self, vocab_size: int = 49408, max_length: int = 77):
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.bos_id = vocab_size - 2
         self.eos_id = vocab_size - 1
+        self._extra: dict = {}
+
+    def add_token(self, token: str) -> int:
+        tid = self.vocab_size + len(self._extra)
+        if token in self._extra:
+            raise ValueError(f"tokenizer already contains token {token!r}")
+        self._extra[token] = tid
+        return tid
 
     def _word_id(self, word: str) -> int:
+        if word in self._extra:
+            return self._extra[word]
         h = 2166136261
         for ch in word.encode():
             h = ((h ^ ch) * 16777619) & 0xFFFFFFFF

@@ -1,9 +1,9 @@
-"""Diffusion noise schedules: the DDPM tables SDS needs, the DDIM step,
-the PNDM (PLMS) step and img2img's strength truncation.
+"""Diffusion noise schedules: the DDPM tables SDS needs, the DDIM step and
+its inverse (DDIM inversion), the PNDM (PLMS) step and img2img's strength
+truncation.
 
 Tables from the Stable-Diffusion config (scaled_linear β ∈ [0.00085,
-0.012], 1000 train steps). The DDIM-inverse sampler of the JAX package is
-not ported yet: ROADMAP.md item A.6.
+0.012], 1000 train steps).
 """
 from __future__ import annotations
 
@@ -119,6 +119,24 @@ def ddim_step(sched: NoiseSchedule, eps: torch.Tensor, t: torch.Tensor,
     pred_x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
     prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * eps
     return DDIMStepOutput(prev_sample=prev, pred_x0=pred_x0)
+
+
+def ddim_inverse_step(sched: NoiseSchedule, eps: torch.Tensor,
+                      t: torch.Tensor, sample: torch.Tensor,
+                      num_inference_steps: int) -> DDIMStepOutput:
+    """DDIM inversion x_t → x_{t+Δ}: x̂₀ from ε at t, renoised to t + Δ
+    (clamped to the last train step); at t < 0 ᾱ is the final one."""
+    step = sched.num_train_timesteps // num_inference_steps
+    t = torch.as_tensor(t, device=sample.device)
+    a_t = torch.where(t >= 0, sched._alpha_bar(t.clamp(min=0)),
+                      sched.final_alpha_cumprod)
+    a_next = sched._alpha_bar(
+        (t + step).clamp(max=sched.num_train_timesteps - 1))
+    shape = (1,) * sample.ndim
+    a_t, a_next = a_t.reshape(shape), a_next.reshape(shape)
+    pred_x0 = (sample - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    nxt = torch.sqrt(a_next) * pred_x0 + torch.sqrt(1.0 - a_next) * eps
+    return DDIMStepOutput(prev_sample=nxt, pred_x0=pred_x0)
 
 
 # PNDM as SD pipelines run it (skip_prk_steps): the first step uses ε as it

@@ -1,10 +1,12 @@
-"""Score Distillation Sampling as a differentiable scalar.
+"""Score Distillation Sampling (and Delta Denoising Score) as a
+differentiable scalar.
 
     loss = Σ latents · sg(w·(ε̂ − ε))
 
 so the gradient of the render → loss composition w.r.t. the latents is
-exactly w·(ε̂ − ε). The UNet runs under `torch.no_grad`. Every random draw
-(t, ε) can be passed in; otherwise it comes from `generator`.
+exactly w·(ε̂ − ε) (DDS: w·(ε̂ − ε̂_ref)). The UNet runs under
+`torch.no_grad`. Every random draw (t, ε) can be passed in; otherwise it
+comes from `generator`.
 """
 from __future__ import annotations
 
@@ -75,4 +77,34 @@ def sds_loss(unet_apply: Callable, sched: NoiseSchedule,
     grad, _ = score_gradient(unet_apply, sched, latents, text_embeddings,
                              guidance_scale, min_step, max_step, t=t,
                              noise=noise, generator=generator)
+    return torch.sum(latents * grad)
+
+
+def dds_loss(unet_apply: Callable, sched: NoiseSchedule,
+             latents: torch.Tensor, ref_latents: torch.Tensor,
+             text_embeddings: torch.Tensor,
+             ref_text_embeddings: torch.Tensor, guidance_scale: float = 7.5,
+             min_step: int = 20, max_step: int = 980,
+             t: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Delta Denoising Score: a scalar whose gradient w.r.t. `latents` is
+    w·(ε̂ − ε̂_ref), the reference branch's CFG score (`ref_latents` under
+    `ref_text_embeddings`) subtracted, which cancels the prompt-independent
+    part. One t and one noise serve both branches, drawn from `generator`
+    unless given (t, then noise); w has the "sqrt" form."""
+    with torch.no_grad():
+        lat, ref = latents.detach(), ref_latents.detach()
+        if t is None:
+            t = sample_timestep(min_step, max_step, lat.device, generator)
+        t = torch.as_tensor(t, dtype=torch.int64, device=lat.device)
+        if noise is None:
+            noise = torch.randn(lat.shape, generator=generator,
+                                device=lat.device)
+        noise = noise.to(lat)
+        eps_cur = cfg_eps(unet_apply, sched.add_noise(lat, noise, t), t,
+                          text_embeddings, guidance_scale)
+        eps_ref = cfg_eps(unet_apply, sched.add_noise(ref, noise, t), t,
+                          ref_text_embeddings, guidance_scale)
+        grad = sched.sds_weight(t, form="sqrt") * (eps_cur - eps_ref)
     return torch.sum(latents * grad)

@@ -1,12 +1,22 @@
-"""StableDiffusion guidance backend — text-conditioned SDS in latent mode.
+"""StableDiffusion guidance backend — text-conditioned SDS, samplers,
+inversion.
 
 Holds the UNet, the VAE, the CLIP text tower, the tokenizer and the noise
 schedule: CFG text embeddings (`get_text_embeds`), the SDS loss on rendered
 latents or, in RGB mode, on renders encoded through the VAE
-(`train_step_loss`), VAE encode/decode with the 0.18215 latent scaling,
-and the fixed latent→RGB preview matrix. The DDIM sampling loops,
-inversion and pretrained-weight loading come with later slices of the
-port.
+(`train_step_loss`), the DDS loss (`train_step_delta_loss`), DDIM sampling
+with a start-index skip (`produce_latents`, `embeds_to_img`,
+`prompt_to_img`), DDIM inversion and null-text inversion (`invert`,
+`null_optimization`), textual-inversion concept tokens (`load_concept*`),
+VAE encode/decode with the 0.18215 latent scaling, and the fixed
+latent→RGB preview matrix. Pretrained-weight loading comes with a later
+slice of the port (ROADMAP.md item A.8).
+
+The sampling and inversion loops run the UNet in the caller's grad mode:
+`null_optimization` differentiates through it (the attention kernels'
+backward on the card), as text-token optimisation does
+(training/text_token_opt.py); the SDS and DDS losses keep it under
+`no_grad`.
 """
 from __future__ import annotations
 
@@ -14,13 +24,16 @@ import dataclasses
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance import vae as vae_lib
 from tpunerf_torch.guidance.clip_text import (CLIPTextConfig, CLIPTextModel,
                                               make_tokenizer)
-from tpunerf_torch.guidance.schedulers import NoiseSchedule
+from tpunerf_torch.guidance.schedulers import (NoiseSchedule,
+                                               ddim_inverse_step, ddim_step,
+                                               ddim_timesteps)
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.utils import (init_like_flax_, resolve_device,
@@ -217,3 +230,173 @@ class StableDiffusionGuidance(SDStack):
                                 text_embeddings, guidance_scale,
                                 self.min_step, self.max_step, t=t,
                                 noise=noise, generator=generator)
+
+    def train_step_delta_loss(self, text_embeddings: torch.Tensor,
+                              inputs: torch.Tensor, ref_inputs: torch.Tensor,
+                              ref_text_embeddings: torch.Tensor,
+                              guidance_scale: float = 7.5,
+                              t: Optional[torch.Tensor] = None,
+                              noise: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> torch.Tensor:
+        """DDS loss on latents against reference latents and their text
+        (sds.dds_loss); `t` and `noise`, shared by both branches, come from
+        `generator` unless given."""
+        return sds_lib.dds_loss(self.unet_apply, self.sched, inputs,
+                                ref_inputs, text_embeddings,
+                                ref_text_embeddings, guidance_scale,
+                                self.min_step, self.max_step, t=t,
+                                noise=noise, generator=generator)
+
+    # ------------------------------------------------------------------ #
+    # sampling / inversion
+    # ------------------------------------------------------------------ #
+    def produce_latents(self, text_embeddings: torch.Tensor,
+                        num_inference_steps: int = 50,
+                        guidance_scale: float = 7.5,
+                        latents: Optional[torch.Tensor] = None,
+                        start: int = 0,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """DDIM sampling with CFG from `latents` (B, h, h, 4), drawn from
+        `generator` unless given (B = half the CFG batch), over the DDIM
+        grid from index `start` on."""
+        B = text_embeddings.shape[0] // 2
+        if latents is None:
+            latents = torch.randn(
+                (B, self.latent_size, self.latent_size, 4),
+                generator=generator, device=self.device)
+        latents = latents.to(self.device, torch.float32)
+        ts = ddim_timesteps(num_inference_steps, device=self.device)[start:]
+        for t in ts:
+            eps = sds_lib.cfg_eps(self.unet_apply, latents, t,
+                                  text_embeddings, guidance_scale)
+            latents = ddim_step(self.sched, eps, t, latents,
+                                num_inference_steps).prev_sample
+        return latents
+
+    def embeds_to_img(self, text_embeddings: torch.Tensor,
+                      num_inference_steps: int = 50,
+                      guidance_scale: float = 7.5,
+                      latents: Optional[torch.Tensor] = None,
+                      start: int = 0,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Text embeddings → decoded [0, 1] images (B, 8h, 8h, 3),
+        differentiable end to end in the caller's grad mode."""
+        lat = self.produce_latents(text_embeddings, num_inference_steps,
+                                   guidance_scale, latents=latents,
+                                   start=start, generator=generator)
+        return vae_lib.decode_latents(self.vae, lat)
+
+    @torch.no_grad()
+    def prompt_to_img(self, prompts: Union[str, Sequence[str]],
+                      num_inference_steps: int = 50,
+                      guidance_scale: float = 7.5,
+                      latents: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> np.ndarray:
+        """txt2img: uint8 images (B, 8h, 8h, 3) on the host."""
+        emb = self.get_text_embeds(prompts)
+        lat = self.produce_latents(emb, num_inference_steps, guidance_scale,
+                                   latents=latents, generator=generator)
+        imgs = vae_lib.decode_latents(self.vae, lat)
+        return torch.round(imgs * 255).to(torch.uint8).cpu().numpy()
+
+    def invert(self, latents: torch.Tensor, text_embeddings: torch.Tensor,
+               num_inference_steps: int = 50) -> torch.Tensor:
+        """DDIM inversion x₀ → x_T under the cond half of the CFG pair (scale
+        1: the uncond half is not read); the trajectory (S, B, h, w, 4),
+        one latent a step, ascending in t."""
+        cond = text_embeddings[text_embeddings.shape[0] // 2:]
+        ts = ddim_timesteps(num_inference_steps, device=self.device).flip(0)
+        lat, traj = latents, []
+        for t in ts:
+            eps = self.unet_apply(lat, t, cond)
+            lat = ddim_inverse_step(self.sched, eps, t, lat,
+                                    num_inference_steps).prev_sample
+            traj.append(lat)
+        return torch.stack(traj)
+
+    def null_optimization(self, latents_traj: torch.Tensor,
+                          text_embeddings: torch.Tensor,
+                          num_inference_steps: int = 50,
+                          num_inner_steps: int = 10, lr: float = 1e-2,
+                          guidance_scale: float = 7.5) -> torch.Tensor:
+        """Null-text inversion: at each DDIM step, walking the inversion
+        trajectory back down, a fresh Adam fits the uncond embedding in
+        `num_inner_steps` steps so that the CFG step from the current latent
+        lands on the trajectory's next one (mean squared error, the gradient
+        through the UNet); the step then moves on with the fitted
+        embedding. Returns the embeddings (S, B, L, D), one a step."""
+        B = text_embeddings.shape[0] // 2
+        uncond, cond = text_embeddings[:B].detach(), text_embeddings[B:]
+        ts = ddim_timesteps(num_inference_steps, device=self.device)
+        lat_cur = latents_traj[-1]
+        out = []
+        for i, t in enumerate(ts):
+            target_idx = len(ts) - 2 - i
+            lat_target = latents_traj[max(target_idx, 0)]
+            u = uncond.clone().requires_grad_(True)
+            opt = torch.optim.Adam([u], lr=lr)
+            for _ in range(num_inner_steps):
+                with torch.enable_grad():
+                    eps = sds_lib.cfg_eps(self.unet_apply, lat_cur, t,
+                                          torch.cat([u, cond]),
+                                          guidance_scale)
+                    prev = ddim_step(self.sched, eps, t, lat_cur,
+                                     num_inference_steps).prev_sample
+                    loss = torch.mean((prev - lat_target) ** 2)
+                    (g,) = torch.autograd.grad(loss, u)
+                u.grad = g
+                opt.step()
+            uncond = u.detach()
+            with torch.no_grad():
+                eps = sds_lib.cfg_eps(self.unet_apply, lat_cur, t,
+                                      torch.cat([uncond, cond]),
+                                      guidance_scale)
+                lat_cur = ddim_step(self.sched, eps, t, lat_cur,
+                                    num_inference_steps).prev_sample
+            out.append(uncond)
+        return torch.stack(out)
+
+    # ------------------------------------------------------------------ #
+    # textual-inversion concepts
+    # ------------------------------------------------------------------ #
+    def load_concept(self, token: str, embedding) -> None:
+        """Add `token` to the tokenizer and its learned row (D,) to the end
+        of the text tower's token table."""
+        self.tokenizer.add_token(token)
+        emb = self.text_encoder.embeddings
+        old = emb.token_embedding.weight
+        row = torch.as_tensor(embedding).to(old)[None]
+        emb.token_embedding = torch.nn.Embedding.from_pretrained(
+            torch.cat([old.detach(), row]), freeze=True)
+        self.text_encoder.config = dataclasses.replace(
+            self.text_encoder.config, vocab_size=old.shape[0] + 1)
+
+    def load_concept_dir(self, concept_dir: Path) -> str:
+        """Load an sd-concepts-library directory (`learned_embeds.bin`, a
+        {trained token: (D,)} state dict, and `token_identifier.txt`).
+        Returns the token."""
+        concept_dir = Path(concept_dir)
+        token = (concept_dir / "token_identifier.txt").read_text().strip()
+        learned = torch.load(concept_dir / "learned_embeds.bin",
+                             map_location="cpu", weights_only=True)
+        self.load_concept(token, next(iter(learned.values())))
+        return token
+
+    def maybe_load_concept(self, concept_name) -> Optional[str]:
+        """`guide.concept_name` names a concept directory: load it; None
+        when unset. Raises on a name that is not a directory (a hub name
+        cannot be fetched), which the JAX package skips without a word."""
+        if not concept_name:
+            return None
+        cdir = Path(concept_name)
+        if not cdir.is_dir():
+            raise ValueError(
+                f"guide.concept_name {str(concept_name)!r} is not a "
+                f"directory: a textual-inversion concept is read from a "
+                f"local sd-concepts-library directory (learned_embeds.bin, "
+                f"token_identifier.txt); hub names cannot be fetched")
+        return self.load_concept_dir(cdir)

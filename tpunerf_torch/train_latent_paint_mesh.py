@@ -26,7 +26,9 @@ CLIP branch of `optim.use_clip` at low t:
 
 `guide.sampled_texture` seeds the textures from a PNG. The stacks are
 random-initialised from `optim.seed` (pretrained weights are ROADMAP.md
-item A.8); `guide.concept_name` is refused by name (A.6).
+item A.8); `guide.concept_name` names a textual-inversion concept
+directory (`learned_embeds.bin`, `token_identifier.txt`) for the SD-v1
+stack.
 Checkpoints, eval frames, train-render images, the final orbit and the
 export of the displaced mesh land as in `train_latent_nerf`;
 `--optim.resume true` and `--log.eval_only true` work the same way.

@@ -65,10 +65,6 @@ class LatentNeRFApp:
         """Build the guidance stack and the scene on `device` (CUDA unless
         the caller names another; raises when there is no card)."""
         device = resolve_device(device)
-        if cfg.guide.concept_name:
-            raise NotImplementedError(
-                "guide.concept_name: textual-inversion concepts are not "
-                "ported yet: ROADMAP.md item A.6")
         latent_mode = cfg.render.nerf_type == "latent"
         if guidance is None:
             guidance = StableDiffusionGuidance.create(
@@ -77,6 +73,7 @@ class LatentNeRFApp:
                 max_step=cfg.optim.max_step, unet_dtype=cfg.guide.unet_dtype,
                 device=device,
                 generator=make_generator(cfg.optim.seed, device))
+            guidance.maybe_load_concept(cfg.guide.concept_name)
         scene = LatentNeRFScene.create(
             nerf_type=cfg.render.nerf_type, tiny=cfg.guide.tiny_diffusion,
             bound=cfg.render.bound,

@@ -41,10 +41,6 @@ class LatentPaintApp:
         the caller names another; raises when there is no card). `mesh`
         overrides `guide.shape_path`."""
         device = resolve_device(device)
-        if cfg.guide.concept_name:
-            raise NotImplementedError(
-                "guide.concept_name: textual-inversion concepts are not "
-                "ported yet: ROADMAP.md item A.6")
         latent_mode = cfg.render.nerf_type == "latent"
         if guidance is None:
             guidance = StableDiffusionGuidance.create(
@@ -53,6 +49,7 @@ class LatentPaintApp:
                 max_step=cfg.optim.max_step, unet_dtype=cfg.guide.unet_dtype,
                 device=device,
                 generator=make_generator(cfg.optim.seed, device))
+            guidance.maybe_load_concept(cfg.guide.concept_name)
         scene = TexturedMeshScene.create(
             mesh=mesh, shape_path=cfg.guide.shape_path,
             shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,

@@ -17,10 +17,13 @@ Paint-by-Example conditioned on the exemplar `guide.image` (mode 0 only:
 the JAX package has no mode 1 or 2 with either), whose SDS term reads the
 render's mask and, with `optim.use_clip`, takes a CLIP image loss against
 the exemplar at low t. `guide.image` also gives `clip_loss` a reference;
-`guide.sampled_texture` seeds the textures from an image. Refused by name:
-`guide.concept_name` (ROADMAP.md item A.6), pretrained weights
-(`guide.model_dir`, `guide.clip_model_dir`: A.8) and the chunked trainer
-(`optim.train_chunk > 1`, `chunk_refusal`: A.12).
+`guide.sampled_texture` seeds the textures from an image;
+`guide.concept_name` loads a textual-inversion concept directory into the
+text-guided SD stack the app builds (a name that is not a directory, or a
+concept with the depth or Paint-by-Example backend, raises). Refused by
+name: pretrained weights (`guide.model_dir`, `guide.clip_model_dir`:
+ROADMAP.md item A.8) and the chunked trainer (`optim.train_chunk > 1`,
+`chunk_refusal`: A.12).
 The texture and the dome colours train at `optim.lr`, the displacement and
 the lights at `optim.disp_lr`.
 
@@ -77,6 +80,10 @@ DEPTH_PBE_REFUSAL = (
     "guide.use_sd false (Paint-by-Example) with 'depth' in "
     "guide.diffusion_name: the JAX package then trains with the depth "
     "backend and builds Paint-by-Example beside it unused; choose one")
+CONCEPT_REFUSAL = (
+    "guide.concept_name: textual-inversion concepts (ROADMAP.md A.6) load "
+    "into the text-guided SD-v1 stack only; the {backend} backend leaves "
+    "it unused")
 PBE_IMAGE_REFUSAL = (
     "guide.use_sd false (Paint-by-Example) requires guide.image: the "
     "exemplar it is conditioned on and, with optim.use_clip, the image the "
@@ -88,8 +95,6 @@ def unported_guidance_settings(cfg: TrainConfig) -> list:
     each with the ROADMAP.md item that brings it."""
     guide = cfg.guide
     asks = {
-        "guide.concept_name (textual-inversion concepts) comes with "
-        "ROADMAP.md item A.6": bool(guide.concept_name),
         "guide.clip_model_dir (pretrained CLIP vision weights) comes with "
         "ROADMAP.md item A.8": guide.clip_model_dir is not None,
     }
@@ -164,6 +169,9 @@ class LatentPaintMeshApp:
             raise NotImplementedError(PBE_MODES_REFUSAL.format(mode=mode))
         if use_pbe and cfg.guide.image is None:
             raise ValueError(PBE_IMAGE_REFUSAL)
+        if cfg.guide.concept_name and (use_depth or use_pbe):
+            raise NotImplementedError(CONCEPT_REFUSAL.format(
+                backend="depth" if use_depth else "Paint-by-Example"))
         device = resolve_device(device)
         latent_mode = mode == 0
         stack = dict(tiny=cfg.guide.tiny_diffusion,
@@ -185,6 +193,7 @@ class LatentPaintMeshApp:
             guidance = StableDiffusionGuidance.create(
                 latent_mode=latent_mode, min_step=cfg.optim.min_step,
                 max_step=cfg.optim.max_step, **stack)
+            guidance.maybe_load_concept(cfg.guide.concept_name)
         scene = TexturedMeshScene.create(
             mesh=mesh, shape_path=cfg.guide.shape_path,
             shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,

@@ -60,10 +60,11 @@ steps too, so that an eager and a replayed step compute alike.
 Image files are written by a pool of two threads. Every write is joined
 before a failure is raised, and the pool is shut down, with the checkpoint
 writer joined, at the end of `train()` and of `full_eval()`, and by
-`close()`, which a run that raises reaches too. Text-token optimisation
-(`optim.use_opt_txt`) is ROADMAP.md item A.6, and an app with a
-`chunk_refusal` refuses `optim.train_chunk > 1`: such a config is refused
-at construction.
+`close()`, which a run that raises reaches too. `optim.use_opt_txt` is
+refused (the JAX package's trainer never reads it; text-token optimisation
+is the function `training.text_token_opt.optimize_text_token`), and an app
+with a `chunk_refusal` refuses `optim.train_chunk > 1`: such a config is
+refused at construction.
 """
 from __future__ import annotations
 
@@ -97,8 +98,10 @@ def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
     log, optim = cfg.log, cfg.optim
     no_eval = not hasattr(app, "eval_render")
     asks = {
-        "optim.use_opt_txt (text-token optimisation) comes with ROADMAP.md "
-        "item A.6": optim.use_opt_txt,
+        "optim.use_opt_txt: the JAX package's trainer never reads this "
+        "flag, so no trainer step optimises text tokens; call "
+        "tpunerf_torch.training.text_token_opt.optimize_text_token "
+        "instead": optim.use_opt_txt,
         "log.eval_size != 0 (eval frames) needs an app with an eval_render":
             log.eval_size != 0 and no_eval,
         "log.full_eval_size != 0 (the final eval orbit) needs an app with "
