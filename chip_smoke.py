@@ -151,8 +151,10 @@
     D = 64 and 128 in bf16 and (1, 1, 4096, 32) f32, each against
     `attention_bwd_plain` on the forward kernel's own output and
     log-sum-exp (the LSE against plain too), in bf16 also against f32
-    autograd, two calls bit for bit, eager and in a CUDA graph beside the
-    plain backward and SDPA's backward (a yardstick only), with bounds.
+    autograd and, in bf16, against the earlier mma.sync design (kept for
+    timing), two calls bit for bit, eager and, in turns with that design and
+    SDPA's backward (a yardstick only), in a CUDA graph beside the plain
+    backward, with bounds; the wgmma instances' HGMMA counts in their SASS.
     Then, after 8, with the SD-v1 stack: text-token optimisation at its
     defaults (4 DDIM steps through the UNet, the f32 VAE decode and a
     ViT-L/14 image tower; Adam at 1e-3) cut to 4 of 100 steps, with its
@@ -160,11 +162,12 @@
     kernel a step), and one step's gradient through the kernels against
     the same step through `attention_bwd_plain` (beside that step with a
     fault planted in one layer's backward) and each of its 19 backward
-    calls against `attention_bwd_plain` on the call's own inputs;
+    calls against `attention_bwd_plain` on the call's own inputs, and two
+    profiled steps with #12 + #13's share of the device's busy time;
     null-text inversion at
     its defaults (`invert` over 50 DDIM steps, `null_optimization` 50 x 10)
-    with its seconds, peak and launches, and the fitted embeddings'
-    retrace; `prompt_to_img` (50 steps) and one DDS step, timed.
+    with its seconds, peak and launches, the fitted embeddings' retrace
+    and a profiled 2 x 5 run (#12 + #13's share of its busy time); `prompt_to_img` (50 steps) and one DDS step, timed.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -173,7 +176,7 @@ kernels' device ms a step.
 Prints the device line, one line per check, a `{"kernels": [...]}` line (the
 eleven kernels, then the kept first designs with "main_path": false and the
 launches of their checks, then #12 and #13 with the text-token run's
-launches) and, last, `{"ok": true, "device": {...}}`.
+launches and their kept mma.sync design with its check's) and, last, `{"ok": true, "device": {...}}`.
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any phase fails.
 
@@ -415,18 +418,21 @@ def check_kernels(seed: int):
     return rows
 
 
-def attention_sass():
+def attention_sass(source: str = "attention"):
     """{kernel: Counter of tensor-core opcodes} in `cuobjdump -sass` of the
-    built attention library, one entry per template instance."""
+    built attention library (or `source`'s), one entry per template
+    instance; `WARPGROUP.DEPBAR` counts the waits on wgmma."""
     import re
     from collections import Counter
     from tpunerf_torch.scripts.card import sass_functions
     found = {}
-    for head, chunk in sass_functions("attention").items():
-        m = re.search(r"(attention_\w*?_kernel)ILi(\d+)E", head)
+    for head, chunk in sass_functions(source).items():
+        m = re.search(r"(?<=\d)(attention_\w*?_kernel)ILi(\d+)E(?:Lb(\d)E)?",
+                      head)
         if m:
-            found[f"{m.group(1)}<{m.group(2)}>"] = Counter(
-                re.findall(r"\b(HGMMA|HMMA)\.[A-Z0-9_.]+", chunk))
+            which = {None: "", "1": ", dkv", "0": ", dq"}[m.group(3)]
+            found[f"{m.group(1)}<{m.group(2)}{which}>"] = Counter(
+                re.findall(r"\b(HGMMA|HMMA|WARPGROUP\.DEPBAR)\b", chunk))
     return found
 
 
@@ -2878,9 +2884,10 @@ def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
     """#12 and #13 at one shape (q, k, v, dO as views of (B, N, H, D)
     projections, as the UNet passes them): the forward's LSE against
     plain, each kernel against `attention_bwd_plain` and, in bf16, against
-    f32 autograd; two calls bit for bit; eager and graph times beside the
-    plain backward's and SDPA's backward (a yardstick, never used); the
-    bounds and their shares."""
+    f32 autograd and the kept mma.sync design; two calls bit for bit;
+    eager times and, in turns (kernels, mma.sync design, SDPA's backward
+    (a yardstick, never used), then back), graph times beside the plain
+    backward's; the bounds and their shares."""
     import torch
     from tpunerf_torch.kernels import attention as at
     from tpunerf_torch.scripts import exp_hash_bwd as ex
@@ -2894,17 +2901,18 @@ def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
     lse_ref = at.attention_lse_plain(q, k, scale)
     lse_err = (lse - lse_ref).abs().max().item()
     delta = torch.sum(o.float() * do.float(), dim=-1)
+    bf16 = dtype == "bfloat16"
+    args = (q, k, v, do, lse, delta, scale)
+    fns = {"dkv": lambda: at.attention_bwd_dkv_cuda(*args),
+           "dq": lambda: at.attention_bwd_dq_cuda(*args)}
+    if bf16:
+        fns.update(dkv_mma=lambda: at.attention_bwd_dkv_mma_cuda(*args),
+                   dq_mma=lambda: at.attention_bwd_dq_mma_cuda(*args))
 
-    def dkv():
-        return at.attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale)
-
-    def dq():
-        return at.attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale)
-
-    dk1, dv1 = dkv()
-    dq1 = dq()
-    dk2, dv2 = dkv()
-    dq2 = dq()
+    dk1, dv1 = fns["dkv"]()
+    dq1 = fns["dq"]()
+    dk2, dv2 = fns["dkv"]()
+    dq2 = fns["dq"]()
     same = all(torch.equal(a, b) for a, b in ((dk1, dk2), (dv1, dv2),
                                               (dq1, dq2)))
     want = dict(zip(("dq", "dk", "dv"),
@@ -2916,8 +2924,8 @@ def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
         w = want[name].float()
         errs[name] = (g.float() - w).abs().max().item()
         ok &= g.shape == q.shape and errs[name] <= rel * w.abs().max().item()
-    vs_f32 = {}
-    if dtype == "bfloat16":
+    vs_f32, vs_mma, mma_errs = {}, {}, {}
+    if bf16:
         qf, kf, vf = (t.detach().float().requires_grad_(True)
                       for t in (q, k, v))
         ref = dict(zip(("dq", "dk", "dv"), torch.autograd.grad(
@@ -2929,22 +2937,40 @@ def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
             vs_f32[name] = (e_k, e_p)
             ok &= e_k <= 2 * e_p + 1e-6 * ref[name].abs().max().item()
         del qf, kf, vf, ref
+        dk_m, dv_m = fns["dkv_mma"]()
+        for name, g, m in (("dq", dq1, fns["dq_mma"]()), ("dk", dk1, dk_m),
+                           ("dv", dv1, dv_m)):
+            vs_mma[name] = (g.float() - m.float()).abs().max().item()
+            mma_errs[name] = (m.float() - want[name].float()).abs().max(
+            ).item()
+            ok &= vs_mma[name] <= rel * m.float().abs().max().item()
+        del dk_m, dv_m
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = sdpa(qs, ks, vs, scale=scale)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do,
-                                                 retain_graph=True), 10)
-    del qs, ks, vs, out
+
+    def library():
+        return torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
     plain_ms = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, o, lse, do,
                                                       scale), 2)
-    ms = {"dkv": cuda_ms(dkv, 5), "dq": cuda_ms(dq, 5),
+    ms = {"dkv": cuda_ms(fns["dkv"], 5), "dq": cuda_ms(fns["dq"], 5),
           "bwd": cuda_ms(lambda: at.attention_bwd_cuda(q, k, v, o, lse, do,
                                                        scale), 5)}
-    graph = {"dkv": ex.graph_ms(dkv, 5)[0], "dq": ex.graph_ms(dq, 5)[0]}
+    # in turns: kernels, mma.sync design, SDPA's backward, then back
+    order = [n for n in ("dkv", "dq", "dkv_mma", "dq_mma") if n in fns]
+    turns = {n: [] for n in order + ["library"]}
+    for rnd in range(2):
+        for name in (order + ["library"])[::(-1) ** rnd]:
+            turns[name].append(cuda_ms(library, 10) if name == "library"
+                               else ex.graph_ms(fns[name], 5)[0])
+    del qs, ks, vs, out
+    graph = {n: sum(v) / len(v) for n, v in turns.items() if n != "library"}
+    lib_ms = sum(turns["library"]) / 2
     torch.cuda.synchronize()
     mhz = max_sm_mhz()
-    es = 2 if dtype == "bfloat16" else 4
-    kind = "bf16" if dtype == "bfloat16" else "f32"
+    es = 2 if bf16 else 4
+    kind = "bf16" if bf16 else "f32"
     BH = B * H
     reads = 4 * BH * N * D * es + 2 * BH * N * 4
     bounds = {"dkv": bound(reads + 2 * BH * N * D * es, 8 * BH * N * N * D,
@@ -2958,32 +2984,60 @@ def attention_bwd_case(shape, dtype: str, label: str, gen) -> dict:
     if vs_f32:
         print(f"attention_bwd {label} vs f32 autograd: " + ", ".join(
             f"{n} kernel {a:.3e} / plain bf16 {b:.3e}"
-            for n, (a, b) in vs_f32.items()))
+            for n, (a, b) in vs_f32.items()) + "; vs the mma.sync design: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in vs_mma.items()))
     for name in ("dkv", "dq"):
         b_ms, b_by = bounds[name]
+        old = (f"; mma.sync design " + " / ".join(
+            f"{t:.4f}" for t in turns[name + "_mma"]) + " graph, share "
+            f"{b_ms / graph[name + '_mma']:.4f}") if bf16 else ""
         print(f"attention_bwd_{name} {label} {shape}: {ms[name]:.4f} ms "
-              f"eager, {graph[name]:.4f} graph; bound {b_ms:.4f} ms "
-              f"({b_by}), share graph {b_ms / graph[name]:.4f}")
-    print(f"attention_bwd {label} {shape}: both kernels + delta "
-          f"{ms['bwd']:.4f} ms eager; SDPA backward {lib_ms:.4f} ms "
-          f"eager; plain {plain_ms:.4f} ms")
+              f"eager, " + " / ".join(f"{t:.4f}" for t in turns[name])
+              + f" graph (in turns); bound {b_ms:.4f} ms ({b_by}), share "
+              f"graph {b_ms / graph[name]:.4f}" + old)
+    both = graph["dkv"] + graph["dq"]
+    old = (f", mma.sync design {graph['dkv_mma'] + graph['dq_mma']:.4f}"
+           if bf16 else "")
+    print(f"attention_bwd {label} {shape}: #12 + #13 {both:.4f} ms graph"
+          f"{old}; SDPA backward " + " / ".join(
+              f"{t:.4f}" for t in turns["library"]) + " ms eager (in turns),"
+          f" ratio {both / lib_ms:.3f}; both kernels + delta "
+          f"{ms['bwd']:.4f} ms eager; plain {plain_ms:.4f} ms")
     if not ok:
         fail(f"attention backward kernels disagree with their plain version "
-             f"at {shape} {dtype} (or the LSE, or two calls differ)")
+             f"at {shape} {dtype} (or the LSE, or two calls differ, or the "
+             f"mma.sync design)")
     return dict(shape=list(shape), dtype=dtype, max_abs_err=errs,
-                lse_err=lse_err, ms=ms, graph_ms=graph, plain_ms=plain_ms,
+                mma_errs=mma_errs, lse_err=lse_err, ms=ms, graph_ms=graph,
+                turns=turns,
+                plain_ms=plain_ms,
                 bound_ms={n: b[0] for n, b in bounds.items()},
                 bound_by={n: b[1] for n, b in bounds.items()},
                 library_ms=lib_ms)
 
 
 def check_attention_bwd(seed: int) -> dict:
-    """#12 and #13 at every shape of BWD_SHAPES. Returns their rows (the
-    first shape's numbers, the others under "shapes"), without launches."""
+    """#12 and #13 at every shape of BWD_SHAPES, and the kept mma.sync
+    design beside them. Returns their rows (the first shape's numbers, the
+    others under "shapes"), without launches except the kept design's,
+    which no path runs: theirs are this check's."""
     import torch
+    from tpunerf_torch.kernels import _build
     from tpunerf_torch.kernels import attention as at
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    _build.reset_launches()
     cases = [attention_bwd_case(*case, gen) for case in BWD_SHAPES]
+    mma_launches = {n: _build.LAUNCHES.get(n, 0)
+                    for n in (at.ATTN_DKV_MMA, at.ATTN_DQ_MMA)}
+    # the bf16 instances at padded head dims 48 and 64 run on wgmma
+    sass = attention_sass("attention_bwd")
+    for name, ops in sorted(sass.items()):
+        if "mma" in name:
+            print(f"attention_bwd SASS {name}: {dict(ops)}")
+    wg = [ops for name, ops in sass.items() if "wgmma" in name]
+    if len(wg) != 4 or not all(ops.get("HGMMA") for ops in wg):
+        fail("the bf16 attention backward's wgmma instances are missing "
+             "or have no HGMMA in their SASS")
     main = cases[0]
     rows = {}
     for name, part, line in ((at.ATTN_DKV, "dkv", 941), (at.ATTN_DQ, "dq",
@@ -3005,6 +3059,18 @@ def check_attention_bwd(seed: int) -> dict:
                          ms=c["ms"][part], graph_ms=c["graph_ms"][part],
                          bound_ms=c["bound_ms"][part],
                          library_ms=c["library_ms"]) for c in cases[1:]])
+        kept = part + "_mma"
+        rows[name + "_mma"] = dict(
+            rows[name], name=name + "_mma", main_path=False,
+            launches=mma_launches[name + "_mma"],
+            max_abs_err=max(v for n, v in main["mma_errs"].items()
+                            if (n == "dq") == (part == "dq")),
+            ms=main["graph_ms"][kept], graph_ms=main["graph_ms"][kept],
+            note="the earlier mma.sync design, kept for timing (graph times)",
+            shapes=[dict(shape=c["shape"], dtype=c["dtype"],
+                         graph_ms=c["graph_ms"][kept],
+                         bound_ms=c["bound_ms"][part])
+                    for c in cases[1:] if kept in c["graph_ms"]])
     _free_card()
     return rows
 
@@ -4128,6 +4194,13 @@ def profile_steps(trainer, label: str, steps: int = 5, step_fn=None
                             if any(tag in e.key for tag in own)]:
         print(f"  kernel {dev_us(e) / 1e3 / steps:8.4f} ms/step "
               f"x{e.count / steps:6.1f}  {e.key[:90]}")
+    # the attention backward kernels (#12, #13) where the steps ran them
+    bwd = [e for e in events if "attention_bwd_" in e.key]
+    if bwd:
+        bwd_ms = sum(dev_us(e) for e in bwd) / 1e3 / steps
+        print(f"  attention backward (#12 + #13) of {label}: {bwd_ms:.4f} "
+              f"ms/step, share of the busy time {bwd_ms / busy_ms:.4f}, "
+              f"launches/step {sum(e.count for e in bwd) / steps:.1f}")
     # keys read "(anonymous namespace)::select_..._kernel(float const*, ..."
     sel = {e.key.split("::")[-1].split("(")[0]: e for e in events
            if "::select_" in e.key}
@@ -4707,6 +4780,8 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  [{name}] {kernel}: {line.strip()}")
                 ptxas.setdefault(kernel, []).append(line.strip())
+            elif "C7512" in line:   # wgmma serialised for want of registers
+                print(f"  [{name}] {line.strip()[:240]}")
     # #9 keeps no thread's sums in local memory (its first design spilled)
     for kernel in ("soft_bwd_dense_kernel", "soft_bwd_dense_tiles_kernel"):
         lines = ptxas.get(kernel)

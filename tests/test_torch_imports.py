@@ -74,11 +74,14 @@ def test_kernels_are_cuda_sources_of_the_package():
     assert names == ["attention.cu", "attention_bwd.cu", "hashgrid.cu",
                      "occgrid.cu", "rasterize.cu"]
     bwd = (PKG / "csrc" / "attention_bwd.cu").read_text()
-    for symbol in ("attention_bwd_dkv", "attention_bwd_dq", "mma.sync"):
+    for symbol in ("attention_bwd_dkv", "attention_bwd_dq", "mma.sync",
+                   "wgmma_rs", "attention_bwd_dkv_mma", "attention_bwd_dq_mma",
+                   "cp_async_arrive"):
         assert symbol in bwd, symbol
-    # #12 and #13 on the tensor cores (bf16) and on the CUDA cores (f32);
-    # no float atomics
-    assert bwd.count("__global__") == 4 and "atomicAdd" not in bwd
+    # #12 and #13 in one wgmma kernel (bf16 at padded head dims 48 and 64),
+    # on mma.sync (bf16 at 128, and the earlier design, timed only) and on
+    # the CUDA cores (f32); no float atomics
+    assert bwd.count("__global__") == 5 and "atomicAdd" not in bwd
     raster = (PKG / "csrc" / "rasterize.cu").read_text()
     for symbol in ("select_faces_dense", "select_faces_binned",
                    "soft_fwd_dense", "soft_fwd_binned", "soft_bwd_dense",

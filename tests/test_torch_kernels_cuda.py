@@ -1604,6 +1604,57 @@ def test_attention_bwd_kernels_match_plain(dtype, n, d, layout):
         _close_to_max(g, w, rel, name)
 
 
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("b,h,n,d", [
+    (1, 3, 4096 + 77, 40), (3, 5, 1000, 40), (1, 2, 40, 40),
+    (1, 133, 256, 40), (1, 3, 4096 + 77, 64), (3, 5, 1000, 64),
+    (1, 2, 40, 64), (2, 3, 130, 16)])
+def test_attention_bwd_wgmma_ring_edges(b, h, n, d, layout):
+    """The wgmma kernels (padded head dims 48 and 64) where a ring of tiles
+    can go wrong: N not a multiple of the 64-row tiles or of a block's 128
+    rows, N below one tile (a block's second warpgroup holds no row), B·H
+    not a multiple of the 132 SMs, and strided (B, N, H, D) views; each
+    against `attention_bwd_plain` within the bf16 tolerance."""
+    dev = _card()
+    q, k, v, o, lse, do = _bwd_inputs(dev, b, h, n, d, torch.bfloat16,
+                                      layout, 7 * n + d)
+    scale = d ** -0.5
+    _build.reset_launches()
+    got = at.attention_bwd_cuda(q, k, v, o, lse, do, scale)
+    assert _build.LAUNCHES[at.ATTN_DKV] == 1
+    assert _build.LAUNCHES[at.ATTN_DQ] == 1
+    want = at.attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        _close_to_max(g, w, BWD_BF16_TOL, name)
+
+
+def test_attention_bwd_wgmma_agrees_with_the_mma_design():
+    """The kept mma.sync design (timed only) and the wgmma kernels on the
+    same inputs at the UNet's (2, 8, 4096, 40): both round P and dS to bf16
+    and differ only in summation order, so they agree within the bf16
+    tolerance; each wrapper counts its own launches."""
+    dev = _card()
+    q, k, v, o, lse, do = _bwd_inputs(dev, 2, 8, 4096, 40, torch.bfloat16,
+                                      "strided", 21)
+    scale = 40 ** -0.5
+    delta = torch.sum(o.float() * do.float(), dim=-1)
+    _build.reset_launches()
+    new = (at.attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale),
+           *at.attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale))
+    old = (at.attention_bwd_dq_mma_cuda(q, k, v, do, lse, delta, scale),
+           *at.attention_bwd_dkv_mma_cuda(q, k, v, do, lse, delta, scale))
+    assert {n: _build.LAUNCHES.get(n, 0) for n in (
+        at.ATTN_DKV, at.ATTN_DQ, at.ATTN_DKV_MMA, at.ATTN_DQ_MMA)} == {
+        at.ATTN_DKV: 1, at.ATTN_DQ: 1, at.ATTN_DKV_MMA: 1, at.ATTN_DQ_MMA: 1}
+    for name, a, b in zip(("dq", "dk", "dv"), new, old):
+        _close_to_max(a, b, BWD_BF16_TOL, name)
+    with pytest.raises(TypeError, match="bf16 only"):
+        at.attention_bwd_dq_mma_cuda(q.float(), k.float(), v.float(),
+                                     do.float(), lse, delta, scale)
+
+
 def test_attention_bwd_bf16_takes_a_misaligned_output_gradient():
     """The tensor-core kernels copy 16-byte chunks: the wrappers refuse a
     misaligned do, and attention_bwd_cuda copies it first."""

@@ -56,7 +56,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace tpn;
 
 struct Strides {
   long long b, h, n;
@@ -186,277 +190,6 @@ struct Bf16Cfg {
   static_assert(2 * kStages * 8 <= kBarBytes, "barriers");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; `bytes` = 0 reads nothing and writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// arrives on `bar` once every earlier cp.async of this thread has landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`.
-// Traps after 4 s, so that a lost arrival ends the kernel with an error
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (uint32_t n = 1;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n % 1024 == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (t0 == 0)
-        t0 = now;
-      else if (now - t0 > 4000000000ull)
-        __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits until at most `N` committed wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes, so that the
-// compiler moves no access to them across a wgmma issue or wait.
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-template <typename T, int N>
-__device__ __forceinline__ void fence_regs(T (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_reg(r[i]);
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(r[i]);
-}
-
-// named barriers between two consumer warpgroups (256 threads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
-}
-
-// Tiles of R rows x DP bf16 in wgmma's swizzled K-major layout: atoms of W
-// bytes a row (the widest of 128 and 32 that DP fills) stacked along the
-// head dim, each R rows deep; the 16-byte chunk cw of row r sits at
-// (cw ^ (row bits)) within its row, the XOR cp.async applies on the way in
-// and wgmma undoes on the way out. Tiles start on 1024-byte boundaries.
-template <int DP>
-struct Swz {
-  static constexpr int W = DP % 64 == 0 ? 128 : 32;  // atom row, bytes
-  static constexpr int CW = W / 16;                 // 16-byte chunks in it
-  static constexpr uint64_t kMode = W == 128 ? 1 : 3;
-};
-
-// byte offset of the i-th 16-byte chunk in atom-major order
-template <int DP>
-__device__ __forceinline__ uint32_t swz(uint32_t i) {
-  const uint32_t o = 16 * i;
-  return o ^ (((o >> 7) & (Swz<DP>::CW - 1)) << 4);
-}
-
-// Q or K tile of R rows: k-step kk takes head-dim columns 16kk..16kk+15
-template <int DP>
-__device__ __forceinline__ uint64_t desc_qk(uint32_t tile, int R, int kk) {
-  constexpr int W = Swz<DP>::W;
-  const uint32_t off = (kk * 32 / W) * R * W + (kk * 32) % W;
-  return make_desc(tile + off, 16, 8 * W, Swz<DP>::kMode);
-}
-
-// V tile, read MN-major (N = head dim): k-step kk takes keys 16kk..16kk+15
-template <int DP>
-__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int kk) {
-  constexpr int W = Swz<DP>::W;
-  return make_desc(tile + kk * 16 * W, kKT * W, 8 * W, Swz<DP>::kMode);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// wgmma m64nNk16, bf16 in, f32 accumulate. `ss`: A and B from shared
-// memory (both K-major); `rs`: A from registers, B MN-major in shared
-// memory. `acc` = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4],
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DP == 16) wgmma_rs_n16(d, a, db, 1);
-  if constexpr (DP == 48) wgmma_rs_n48(d, a, db, 1);
-  if constexpr (DP == 64) wgmma_rs_n64(d, a, db, 1);
-  if constexpr (DP == 128) wgmma_rs_n128(d, a, db, 1);
-}
-
-// Copies `rows` rows of DP bf16 (row r at src + r*sn) into a tile at
-// `dst`. Chunk i (16 bytes) goes to swz(i): consecutive threads fill
-// consecutive chunks of a row of an atom. Rows >= nvalid and columns >= D
-// are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long sn, int rows, int nvalid,
-                                          int D, int t, int nthreads) {
-  constexpr int CW = Swz<DP>::CW;
-  for (int i = t; i < rows * (DP / 8); i += nthreads) {
-    const int r = (i / CW) % rows, c = ((i / (CW * rows)) * CW + i % CW) * 8;
-    const bool ok = r < nvalid && c < D;
-    cp_async16(dst + swz<DP>(i), ok ? src + r * sn + c : src, ok ? 16 : 0);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(Bf16Cfg<DP>::kThreads, 1)
 attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -469,7 +202,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   using Cfg = Bf16Cfg<DP>;
   constexpr int S = Cfg::kStages;
   extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
   const uint32_t full0 = base, empty0 = base + 8 * S;
   const uint32_t kv0 = base + Cfg::kKVOff;
 
@@ -479,13 +212,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int nt = (N + kKT - 1) / kKT;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full0 + 8 * s, kProducers);
-      mbar_init(empty0 + 8 * s, WG * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) ring_init(full0, empty0, S, kProducers, WG * 128);
   __syncthreads();
 
   if (wg == WG) {
@@ -504,7 +231,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                     N - j * kKT, D, t, kProducers);
       cp_async_arrive(full0 + 8 * s);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    cp_async_wait_all();
   } else {
     // ---- consumers: 64 queries each -------------------------------------
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
@@ -513,9 +240,9 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t qs = base + Cfg::kQOff + wg * Cfg::kQBytes;
     load_rows<DP>(qs, q + b * sq.b + h * sq.h + (long long)qw * sq.n, sq.n,
                   kWQ, N - qw, D, t, 128);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    fence_proxy_async();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    cp_async_wait_all();
+    fence_proxy_async_smem();
+    warpgroup_sync(1 + wg);
 
     float acc[DP / 2];
 #pragma unroll
@@ -531,7 +258,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // waits for key tile j and for this warpgroup's turn to issue
     auto acquire = [&](int j) {
       mbar_wait(full0 + 8 * (j % S), (j / S) & 1);
-      fence_proxy_async();
+      fence_proxy_async_smem();
       named_sync(1 + WG + wg);
       fence_regs(sc);
       fence_regs(acc);
@@ -544,17 +271,14 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       if (wg + 1 < WG || j + 1 < nt) named_arrive(1 + WG + (wg + 1) % WG);
     };
     auto issue_qk = [&](int j) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss_n128(sc, desc_qk<DP>(qs, kWQ, kk),
-                      desc_qk<DP>(stage_kd(j), kKT, kk), kk > 0);
+      wgmma_ss<DP, kKT>(sc, qs, stage_kd(j));
       wgmma_commit();
     };
     auto issue_pv = [&](int j) {
       const uint32_t vd = stage_kd(j) + Cfg::kTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kKT / 16; ++kk)
-        wgmma_rs<DP>(acc, pa[kk], desc_v<DP>(vd, kk));
+        wgmma_rs<DP>(acc, pa[kk], vd, kKT, kk);
       wgmma_commit();
     };
     // S_j -> P_j (f32, in place), the running max and sum; `corr` gets
@@ -608,15 +332,6 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 2; ++i)
         l[i] = l[i] * corr[i] + ((sp[i][0] + sp[i][1]) + (sp[i][2] + sp[i][3]));
     };
-    // k-step kk of P.V takes the score columns of accumulator blocks 2kk
-    // and 2kk + 1
-    auto pack = [&]() {
-#pragma unroll
-      for (int n = 0; n < kKT / 8; ++n) {
-        pa[n / 2][2 * (n % 2)] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
-        pa[n / 2][2 * (n % 2) + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
-      }
-    };
 
     // Iteration j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1} together,
     // runs the softmax of S_j while the second product is in flight, then
@@ -632,7 +347,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     release_turn(0);
     wgmma_wait<0>();
     softmax(0, corr);
-    pack();
+    pack_frags(pa, sc);
     for (int j = 1; j < nt; ++j) {
       acquire(j);
       issue_qk(j);
@@ -650,7 +365,7 @@ attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         acc[4 * n + 2] *= corr[1];
         acc[4 * n + 3] *= corr[1];
       }
-      pack();
+      pack_frags(pa, sc);
     }
     fence_regs(acc);
     fence_regs(pa);

@@ -14,8 +14,8 @@
 // With P = exp(s·q·kᵀ − lse) (lse from the forward kernel), Δ = rowsum(dO ∘
 // O) (a torch reduction, as JAX leaves it to XLA) and dS = s·P ∘ (dO·Vᵀ − Δ):
 //   #12: one block per (batch·head, tile of keys); it walks every query in
-//        tiles of kBwdTile through shared memory and accumulates dV = Pᵀ·dO
-//        and dK = dSᵀ·Q in registers;
+//        tiles through shared memory and accumulates dV = Pᵀ·dO and
+//        dK = dSᵀ·Q in registers;
 //   #13: one block per (batch·head, tile of queries); it walks the keys in
 //        tiles and accumulates dQ = dS·K.
 // In bf16, P and dS are rounded to bf16 before their products, as JAX's
@@ -25,9 +25,15 @@
 // the N² score matrix (S and dP in both kernels, dV, dK, dQ) are 7·2·N²·D·BH
 // = 150 GFLOP: 0.152 ms on the bf16 tensor cores (67 TFLOP/s of f32 FMAs
 // on the CUDA cores: 2.2 ms); the 2·BH·N² exponentials are 0.128 ms on the
-// special-function units. Two designs:
-// * bf16 (the UNet's type): the products on the tensor cores, mma.sync
-//   m16n8k16 (see "bf16 on the tensor cores" below);
+// special-function units (16 a clock per SM), as much again as the products
+// at this head dim, so the two must overlap. Three designs:
+// * bf16 at padded head dims 48 and 64 (the UNet's D = 40, and 64): wgmma,
+//   warp-specialised, with a cp.async ring ("bf16 on wgmma" below);
+// * bf16 at D > 64 (no path runs it): mma.sync m16n8k16 ("bf16 on the
+//   tensor cores" below), whose two 64 × 128 gradient accumulators would not
+//   fit beside the score tiles in a wgmma warpgroup's registers; the same
+//   kernels at every head dim are kept as the entries *_mma, timed beside
+//   the wgmma ones;
 // * f32 (a VAE mid-attention at C <= 128, unet_dtype float32), on the CUDA
 //   cores: a row (a key in #12, a query in #13) is TPK adjacent threads,
 //   each holding DP/TPK of its head-dim columns in registers, in float4
@@ -36,7 +42,6 @@
 //   read the same words, broadcast); the row's dot products are summed
 //   over the TPK lanes by shuffles. The head dim is zero-padded to DP in
 //   shared memory and in registers.
-// Making them fast (wgmma, TMA, a pipelined ring of tiles) is later work.
 //
 // Inputs are (B, H, N, D) views with a contiguous head dim and any (batch,
 // head, token) strides (in bf16 multiples of 8 on 16-byte aligned bases, as
@@ -47,7 +52,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
+
+using namespace tpn;
 
 struct Strides {
   long long b, h, n;
@@ -340,11 +349,6 @@ template <int RS>
 __device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p) {
   const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
   return (uint32_t)u[0] | ((uint32_t)u[RS] << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // `rows` rows of D bf16 (row r at src + r·sn) into a shared tile of row
@@ -651,6 +655,429 @@ cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16 on wgmma (#12, #13) ---
+//
+// One kernel template for both: a block holds kWgRows rows in each of its
+// two consumer warpgroups (the "resident" rows: keys in #12, queries in
+// #13) and a producer warp streams the other side (queries with their lse
+// and Δ in #12, keys in #13) through a ring of shared-memory stages. With
+// A1, A2 the resident operands and B1, B2 the streamed ones:
+//   #12: A1 = K, A2 = V, B1 = Q, B2 = dO; Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ,
+//        dV += Pᵀ·dO, dK += dSᵀ·Q (lse and Δ by column);
+//   #13: A1 = Q, A2 = dO, B1 = K, B2 = V; S = Q·Kᵀ, dP = dO·Vᵀ,
+//        dQ += dS·K (lse and Δ by row).
+// Design:
+// * the producer warp copies each tile with cp.async (16 B a thread, zero
+//   past N and D, so the strided projections need no tensor map), in
+//   wgmma's swizzled layout (wgmma.cuh), and signals the stage's `full`
+//   mbarrier as the copies land; the consumers free it through `empty`;
+// * the score products are wgmma m64nTk16 over the padded head dim, A1 and
+//   A2 from registers (#13 at DP = 48) or from shared memory (SS, the
+//   others), B1 and B2 K-major from the stage;
+// * P and dS are computed in f32 from the accumulators, rounded to bf16
+//   and fed to the gradient products as register A fragments (the
+//   accumulator layout is the A layout), with B1 and B2 read MN-major by
+//   wgmma's transpose: no column-wise shared loads;
+// * each warpgroup issues tile j's score products with tile j − 1's
+//   gradient products and computes P_j and dS_j while the latter are in
+//   flight; the two warpgroups take turns to issue (named barriers), so
+//   that one's exponentials overlap the other's products.
+// Registers decide the tile sizes: with 9 warps per block (3 on one of the
+// SM's 4 register-file partitions) ptxas gives a thread at most 168, and a
+// producer warpgroup's setmaxnreg did not raise that. Beyond it ptxas
+// serialises the wgmma (C7512): #12 at 64-query tiles held 144 registers
+// in flight (S, dP, P, dS, dV, dK) and ran serialised, so its tiles are 48
+// queries; #13 takes 64 keys. A design without the producer warp (8 warps,
+// 255 registers, 64- and 128-row tiles) ran slower.
+// The bounds above hold for both; what the kernels reach is in PERF.md.
+
+constexpr int kWgRows = 64;   // resident rows a consumer warpgroup
+constexpr int kWgCons = 2;    // consumer warpgroups
+constexpr int kWgProducers = 32;  // one producer warp
+constexpr int kWgThreads = kWgCons * 128 + kWgProducers;
+template <int DP, bool DKV>
+struct WgCfg {
+  // streamed rows a tile: #12's two accumulators leave room for 48 (at 64,
+  // the registers its wgmma hold in flight outgrow 168 and ptxas serialises
+  // them, C7512)
+  static constexpr int T = DKV ? 48 : 64;
+  static constexpr int kStages = 4;
+  static constexpr int kTile = T * DP * 2;        // one streamed tile, bytes
+  static constexpr int kVec = DKV ? 2 * T * 4 : 0;  // lse, Δ of a tile
+  // a stage: B1, B2, then (#12) lse and Δ; stages on 1024-byte boundaries
+  static constexpr int kStage = (2 * kTile + kVec + 1023) / 1024 * 1024;
+  static constexpr int kBarBytes = 1024;          // full[], empty[]
+  // where A1 and A2 live: #13 at DP = 48 holds Q and dO as A fragments in
+  // registers (RS); the others read them from shared memory (SS, each
+  // warpgroup's two tiles after the ring), whose fragments would not fit
+  // within 168 registers beside their accumulators
+  static constexpr bool kSS = DKV || DP == 64;
+  static constexpr int kRes = kSS ? kWgRows * DP * 2 : 0;  // one A tile
+  static constexpr int kResOff = kBarBytes + kStages * kStage;
+  // + 1024: the kernel rounds the base of shared memory up to 1024 bytes
+  static constexpr int kSmem = kResOff + kWgCons * 2 * kRes + 1024;
+  // a tile starts on a whole number of swizzle atoms (8 rows of W bytes)
+  static_assert(kTile % (8 * Swz<DP>::W) == 0, "tile alignment");
+  static_assert(2 * kStages * 8 <= kBarBytes, "barriers");
+};
+
+// The wgmma A fragments of rows [0, 64) × DP of a (row stride sn) tensor in
+// global memory, zero past nvalid rows and past D: warp w holds rows 16w..,
+// fragment element i at row g + 8(i & 1), column 16kk + 2t + 8(i >> 1).
+template <int DP>
+__device__ __forceinline__ void load_frags(uint32_t (&a)[DP / 16][4],
+                                           const __nv_bfloat16* src,
+                                           long long sn, int nvalid, int D,
+                                           int warp, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1);
+      const int c = 16 * kk + 2 * t + 8 * (i >> 1);
+      a[kk][i] = r < nvalid && c < D ? ld32(src + r * sn + c) : 0u;
+    }
+}
+
+// rows [0, 64) of a 64 × DP accumulator tile (this warpgroup's) to global
+// (row stride sn) in bf16, rows < nvalid, columns < D
+template <int DP>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, long long sn,
+                                          const float (&acc)[DP / 2],
+                                          int nvalid, int D, int warp,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + lane / 4 + 8 * i;
+    if (r >= nvalid) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = 8 * n + 2 * (lane % 4);
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + r * sn + c) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+    }
+  }
+}
+
+template <int DP, bool DKV>
+__global__ void __launch_bounds__(kWgThreads, 1)
+attention_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ a1,
+                           const __nv_bfloat16* __restrict__ a2,
+                           const __nv_bfloat16* __restrict__ b1,
+                           const __nv_bfloat16* __restrict__ b2,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ out0,
+                           __nv_bfloat16* __restrict__ out1, int H, int N,
+                           int D, Strides sa1, Strides sa2, Strides sb1,
+                           Strides sb2, Strides so0, Strides so1, float scale,
+                           float scale_log2) {
+  using Cfg = WgCfg<DP, DKV>;
+  constexpr int S = Cfg::kStages, T = Cfg::T, WG = kWgCons;
+  extern __shared__ __align__(16) uint8_t smem[];  // based on 1024 below
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const uint8_t* gbase = smem + (base - smem_addr(smem));  // generic
+  const uint32_t full0 = base, empty0 = base + 8 * S;
+  const uint32_t ring = base + Cfg::kBarBytes;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int nt = (N + T - 1) / T;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const float* lb = lse + (long long)bh * N;
+  const float* db = delta + (long long)bh * N;
+  auto stage = [&](int j) { return ring + (j % S) * Cfg::kStage; };
+
+  if (threadIdx.x == 0) ring_init(full0, empty0, S, kWgProducers, WG * 128);
+  __syncthreads();
+
+  if (wg == WG) {
+    // ---- producer warp: B1, B2 (and lse, Δ) tiles into the ring ----------
+    // A thread copies the same kChunks 16-byte chunks of every tile (chunk
+    // t + 32k in load_rows' order): their offsets are computed once.
+    constexpr int CW = Swz<DP>::CW, kChunks = T * (DP / 8) / kWgProducers;
+    uint32_t soff[kChunks];
+    int row[kChunks];
+    bool col_ok[kChunks];
+    long long g1[kChunks], g2[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int i = t + kWgProducers * k;
+      const int r = (i / CW) % T, c = ((i / (CW * T)) * CW + i % CW) * 8;
+      soff[k] = swz<DP>(i);
+      row[k] = r;
+      col_ok[k] = c < D;
+      g1[k] = r * sb1.n + c;
+      g2[k] = r * sb2.n + c;
+    }
+    const __nv_bfloat16* p1 = b1 + b * sb1.b + h * sb1.h;
+    const __nv_bfloat16* p2 = b2 + b * sb2.b + h * sb2.h;
+    for (int j = 0; j < nt; ++j) {
+      mbar_wait(empty0 + 8 * (j % S), ((j / S) & 1) ^ 1);
+      const uint32_t st = stage(j);
+      const int nvalid = N - j * T;
+      const __nv_bfloat16* s1 = p1 + (long long)j * T * sb1.n;
+      const __nv_bfloat16* s2 = p2 + (long long)j * T * sb2.n;
+#pragma unroll
+      for (int k = 0; k < kChunks; ++k) {
+        // rows past N and columns past D are zero-filled
+        const bool ok = col_ok[k] && row[k] < nvalid;
+        cp_async16(st + soff[k], ok ? s1 + g1[k] : s1, ok ? 16 : 0);
+        cp_async16(st + Cfg::kTile + soff[k], ok ? s2 + g2[k] : s2,
+                   ok ? 16 : 0);
+      }
+      if constexpr (DKV) {
+        // lse, then Δ, of the tile's queries; zero past N, where Q and dO
+        // are zero rows: P = 1 and dS = 0 there add nothing to dV and dK
+#pragma unroll
+        for (int i = t; i < 2 * T; i += kWgProducers) {
+          const int qi = j * T + i % T;
+          const bool ok = qi < N;
+          cp_async4(st + 2 * Cfg::kTile + 4 * i,
+                    (i < T ? lb : db) + (ok ? qi : 0), ok ? 4 : 0);
+        }
+      }
+      cp_async_arrive(full0 + 8 * (j % S));
+    }
+    cp_async_wait_all();
+  } else {
+    // ---- consumers: kWgRows resident rows each ----------------------------
+    const int warp = t / 32, lane = t % 32;
+    const int rw = blockIdx.x * (WG * kWgRows) + wg * kWgRows;  // first row
+    // A1 and A2 for the whole walk: #12 in shared memory (this warpgroup's
+    // two tiles), #13 as wgmma A fragments in registers
+    constexpr bool kSS = Cfg::kSS;
+    const __nv_bfloat16* r1 = a1 + b * sa1.b + h * sa1.h + (long long)rw * sa1.n;
+    const __nv_bfloat16* r2 = a2 + b * sa2.b + h * sa2.h + (long long)rw * sa2.n;
+    const uint32_t res = base + Cfg::kResOff + wg * 2 * Cfg::kRes;
+    uint32_t f1[kSS ? 1 : DP / 16][4], f2[kSS ? 1 : DP / 16][4];
+    if constexpr (kSS) {
+      load_rows<DP>(res, r1, sa1.n, kWgRows, N - rw, D, t, 128);
+      load_rows<DP>(res + Cfg::kRes, r2, sa2.n, kWgRows, N - rw, D, t, 128);
+      cp_async_wait_all();
+      fence_proxy_async_smem();
+      warpgroup_sync(3 + wg);
+    } else {
+      load_frags<DP>(f1, r1, sa1.n, N - rw, D, warp, lane);
+      load_frags<DP>(f2, r2, sa2.n, N - rw, D, warp, lane);
+    }
+    // #13: this thread's two rows' lse·log2e and Δ·s (a row past N has
+    // zero Q and dO and both 0: P = 1, dS = 0, and is not stored)
+    float rl2[2] = {0.0f, 0.0f}, rd[2] = {0.0f, 0.0f};
+    if constexpr (!DKV) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rw + 16 * warp + lane / 4 + 8 * i;
+        if (r < N) {
+          rl2[i] = lb[r] * kLog2e;
+          rd[i] = db[r] * scale;
+        }
+      }
+    }
+    float acc0[DP / 2], acc1[DKV ? DP / 2 : 1];  // dV, dK (#12) or dQ (#13)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc0[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < (DKV ? DP / 2 : 1); ++i) acc1[i] = 0.0f;
+    float sx[T / 2], sy[T / 2];          // S and dP, then P and dS, f32
+    uint32_t fx[T / 16][4], fy[T / 16][4];  // P (#12) and dS, bf16 A frags
+
+    auto fence_all = [&]() {
+      if constexpr (!kSS) {
+        fence_regs(f1);
+        fence_regs(f2);
+      }
+      fence_regs(sx);
+      fence_regs(sy);
+      fence_regs(fy);
+      fence_regs(acc0);
+      if constexpr (DKV) {
+        fence_regs(fx);
+        fence_regs(acc1);
+      }
+    };
+    // waits for tile j and for this warpgroup's turn to issue
+    auto acquire = [&](int j) {
+      mbar_wait(full0 + 8 * (j % S), (j / S) & 1);
+      fence_proxy_async_smem();
+      named_sync(1 + wg);
+      fence_all();
+      wgmma_fence();
+    };
+    // the next warpgroup's turn; the last one skips its last, which
+    // warpgroup 0 would never take
+    auto release_turn = [&](int j) {
+      if (wg + 1 < WG || j + 1 < nt) named_arrive(1 + (wg + 1) % WG);
+    };
+    auto issue_scores = [&](int j) {
+      if constexpr (kSS) {
+        wgmma_ss<DP, T>(sx, res, stage(j));
+        wgmma_ss<DP, T>(sy, res + Cfg::kRes, stage(j) + Cfg::kTile);
+      } else {
+        wgmma_scores<DP, T>(sx, f1, stage(j));
+        wgmma_scores<DP, T>(sy, f2, stage(j) + Cfg::kTile);
+      }
+      wgmma_commit();
+    };
+    auto issue_grads = [&](int j) {
+      const uint32_t st = stage(j);
+#pragma unroll
+      for (int kk = 0; kk < T / 16; ++kk) {
+        if constexpr (DKV) {
+          wgmma_rs<DP>(acc0, fx[kk], st + Cfg::kTile, T, kk);  // dV += Pᵀ·dO
+          wgmma_rs<DP>(acc1, fy[kk], st, T, kk);               // dK += dSᵀ·Q
+        } else {
+          wgmma_rs<DP>(acc0, fy[kk], st, T, kk);               // dQ += dS·K
+        }
+      }
+      wgmma_commit();
+    };
+    // S, dP of tile j -> P, dS (f32, in place): P = exp2(S·s·log2e −
+    // lse·log2e), dS = (dP·s − Δ·s)·P, where the plain version computes
+    // (dP − Δ)·P·s (the two differ in the last bits of dS before its bf16
+    // rounding)
+    auto grads_of = [&](int j) {
+      fence_regs(sx);
+      fence_regs(sy);
+      if constexpr (DKV) {
+        // column c of the tile is query j·T + c: its lse and Δ from the stage
+        const float* sl = reinterpret_cast<const float*>(
+            gbase + (stage(j) - base) + 2 * Cfg::kTile);
+#pragma unroll
+        for (int n = 0; n < T / 8; ++n) {
+          const int c = 8 * n + 2 * (lane % 4);
+          const float2 l = *reinterpret_cast<const float2*>(sl + c);
+          const float2 dl = *reinterpret_cast<const float2*>(sl + T + c);
+          const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
+          const float d2[2] = {dl.x * scale, dl.y * scale};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(sx[4 * n + e], scale_log2, -l2[e & 1]));
+            sy[4 * n + e] = fmaf(sy[4 * n + e], scale, -d2[e & 1]) * p;
+            sx[4 * n + e] = p;
+          }
+        }
+      } else {
+        // keys past N (zero rows of K and V) get P = 0
+        const int valid = N - j * T;
+        if (valid < T) {
+#pragma unroll
+          for (int n = 0; n < T / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (8 * n + 2 * (lane % 4) + (e & 1) >= valid)
+                sx[4 * n + e] = -INFINITY;
+        }
+#pragma unroll
+        for (int e = 0; e < T / 2; ++e) {
+          const int i = (e / 2) % 2;  // row of accumulator element e
+          const float p = ex2(fmaf(sx[e], scale_log2, -rl2[i]));
+          sy[e] = fmaf(sy[e], scale, -rd[i]) * p;
+        }
+      }
+    };
+    auto pack = [&]() {
+      if constexpr (DKV) pack_frags(fx, sx);
+      pack_frags(fy, sy);
+    };
+
+    // Iteration j issues tile j's two score products and tile j − 1's
+    // gradient products together, computes P_j and dS_j while the second
+    // group is in flight, then packs them. The warpgroups take turns to
+    // issue (named barrier 1 + wg, warpgroup 0 first), so that one's
+    // exponentials overlap the other's products. The first iteration is
+    // peeled: every wgmma group is then committed unconditionally, which
+    // ptxas needs to keep the products asynchronous (else it serialises
+    // them, C7514).
+    if (wg == WG - 1) named_arrive(1);
+    acquire(0);
+    issue_scores(0);
+    release_turn(0);
+    wgmma_wait<0>();
+    grads_of(0);
+    pack();
+    for (int j = 1; j < nt; ++j) {
+      acquire(j);
+      issue_scores(j);
+      issue_grads(j - 1);
+      release_turn(j);
+      wgmma_wait<1>();  // S_j and dP_j have landed
+      grads_of(j);
+      wgmma_wait<0>();  // tile j − 1's gradient products have landed
+      fence_all();
+      mbar_arrive(empty0 + 8 * ((j - 1) % S));
+      pack();
+    }
+    fence_all();
+    wgmma_fence();
+    issue_grads(nt - 1);
+    wgmma_wait<0>();
+    fence_all();
+
+    store_acc<DP>(out0 + b * so0.b + h * so0.h + (long long)rw * so0.n, so0.n,
+                  acc0, N - rw, D, warp, lane);
+    if constexpr (DKV)
+      store_acc<DP>(out1 + b * so1.b + h * so1.h + (long long)rw * so1.n,
+                    so1.n, acc1, N - rw, D, warp, lane);
+  }
+}
+
+template <int DP, bool DKV>
+cudaError_t launch_wgmma(const void* a1, const void* a2, const void* b1,
+                         const void* b2, const float* lse,
+                         const float* delta, void* out0, void* out1, int B,
+                         int H, int N, int D, Strides sa1, Strides sa2,
+                         Strides sb1, Strides sb2, Strides so0, Strides so1,
+                         float scale, cudaStream_t stream) {
+  constexpr int smem = WgCfg<DP, DKV>::kSmem;
+  static const cudaError_t attr =
+      open_smem(attention_bwd_wgmma_kernel<DP, DKV>, smem);
+  if (attr != cudaSuccess) return attr;
+  constexpr int rows = kWgCons * kWgRows;
+  dim3 grid((unsigned)((N + rows - 1) / rows), (unsigned)(B * H));
+  attention_bwd_wgmma_kernel<DP, DKV><<<grid, kWgThreads, smem, stream>>>(
+      (const __nv_bfloat16*)a1, (const __nv_bfloat16*)a2,
+      (const __nv_bfloat16*)b1, (const __nv_bfloat16*)b2, lse, delta,
+      (__nv_bfloat16*)out0, (__nv_bfloat16*)out1, H, N, D, sa1, sa2, sb1, sb2,
+      so0, so1, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// #12 and #13 in bf16 (s: the strides of q, k, v, dout, then the
+// gradients): wgmma at padded head dims 48 and 64; at 128 the mma.sync
+// kernels, whose two 64 × 128 accumulators would not fit beside the score
+// tiles in a warpgroup's registers
+template <int DP>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int B,
+                            int H, int N, int D, const Strides* s,
+                            float scale, cudaStream_t stream) {
+  if constexpr (DP == 128)
+    return launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv, B, H, N, D,
+                               s, scale, stream);
+  else
+    return launch_wgmma<DP, true>(k, v, q, dout, lse, delta, dv, dk, B, H, N,
+                                  D, s[1], s[2], s[0], s[3], s[5], s[4],
+                                  scale, stream);
+}
+
+template <int DP>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int B, int H, int N,
+                           int D, const Strides* s, float scale,
+                           cudaStream_t stream) {
+  if constexpr (DP == 128)
+    return launch_dq_mma<128>(q, k, v, dout, lse, delta, dq, B, H, N, D, s,
+                              scale, stream);
+  else
+    return launch_wgmma<DP, false>(q, dout, k, v, lse, delta, dq, nullptr, B,
+                                   H, N, D, s[0], s[3], s[1], s[2], s[4],
+                                   s[4], scale, stream);
+}
+
 // 16-byte copies of bf16 rows: 16-byte aligned base, strides of multiples
 // of 8 elements, D % 8 == 0
 bool aligned16(const void* p, const Strides& s) {
@@ -669,6 +1096,70 @@ bool aligned16(const void* p, const Strides& s) {
   if (D <= 64) return (int)LAUNCH<64, 4>(__VA_ARGS__); \
   return (int)LAUNCH<128, 8>(__VA_ARGS__);
 
+// The entries' checks and dispatch. `mma`: bf16 on the mma.sync kernels at
+// every head dim (the earlier design, kept for timing only).
+int dkv_entry(int dtype, bool mma, const void* q, const void* k,
+              const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int B, int H, int N,
+              int D, const long long* strides, float scale, void* stream) {
+  if (N <= 0 || B * H <= 0) return (int)cudaSuccess;
+  if (D <= 0 || D > 128 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  Strides s[6];
+  for (int i = 0; i < 6; ++i)
+    s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  if (dtype == 0 && !mma) {
+    TPUNERF_ATTN_BWD_DISPATCH(launch_dkv, q, k, v, dout, l, dl, dk, dv, B, H,
+                              N, D, s, scale, st)
+  }
+  if (dtype == 1) {
+    const void* ptrs[6] = {q, k, v, dout, dk, dv};
+    for (int i = 0; i < 6; ++i)
+      if (!aligned16(ptrs[i], s[i])) return (int)cudaErrorInvalidValue;
+    if (D % 8) return (int)cudaErrorInvalidValue;
+    if (mma) {
+      TPUNERF_ATTN_BWD_MMA(launch_dkv_mma, q, k, v, dout, l, dl, dk, dv, B, H,
+                           N, D, s, scale, st)
+    }
+    TPUNERF_ATTN_BWD_MMA(launch_dkv_bf16, q, k, v, dout, l, dl, dk, dv, B, H,
+                         N, D, s, scale, st)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dq_entry(int dtype, bool mma, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta, void* dq,
+             int B, int H, int N, int D, const long long* strides,
+             float scale, void* stream) {
+  if (N <= 0 || B * H <= 0) return (int)cudaSuccess;
+  if (D <= 0 || D > 128 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  Strides s[5];
+  for (int i = 0; i < 5; ++i)
+    s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  if (dtype == 0 && !mma) {
+    TPUNERF_ATTN_BWD_DISPATCH(launch_dq, q, k, v, dout, l, dl, dq, B, H, N,
+                              D, s, scale, st)
+  }
+  if (dtype == 1) {
+    const void* ptrs[5] = {q, k, v, dout, dq};
+    for (int i = 0; i < 5; ++i)
+      if (!aligned16(ptrs[i], s[i])) return (int)cudaErrorInvalidValue;
+    if (D % 8) return (int)cudaErrorInvalidValue;
+    if (mma) {
+      TPUNERF_ATTN_BWD_MMA(launch_dq_mma, q, k, v, dout, l, dl, dq, B, H, N,
+                           D, s, scale, st)
+    }
+    TPUNERF_ATTN_BWD_MMA(launch_dq_bf16, q, k, v, dout, l, dl, dq, B, H, N, D,
+                         s, scale, st)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -684,54 +1175,37 @@ int attention_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int B, int H, int N, int D,
                       const long long* strides, float scale, void* stream) {
-  if (N <= 0 || B * H <= 0) return (int)cudaSuccess;
-  if (D <= 0 || D > 128 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  Strides s[6];
-  for (int i = 0; i < 6; ++i)
-    s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* l = (const float*)lse;
-  const float* dl = (const float*)delta;
-  if (dtype == 0) {
-    TPUNERF_ATTN_BWD_DISPATCH(launch_dkv, q, k, v, dout, l, dl, dk, dv, B, H,
-                              N, D, s, scale, st)
-  }
-  if (dtype == 1) {
-    const void* ptrs[6] = {q, k, v, dout, dk, dv};
-    for (int i = 0; i < 6; ++i)
-      if (!aligned16(ptrs[i], s[i])) return (int)cudaErrorInvalidValue;
-    if (D % 8) return (int)cudaErrorInvalidValue;
-    TPUNERF_ATTN_BWD_MMA(launch_dkv_mma, q, k, v, dout, l, dl, dk, dv, B, H,
-                         N, D, s, scale, st)
-  }
-  return (int)cudaErrorInvalidValue;
+  return dkv_entry(dtype, false, q, k, v, dout, lse, delta, dk, dv, B, H, N,
+                   D, strides, scale, stream);
 }
 
 int attention_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int H, int N, int D,
                      const long long* strides, float scale, void* stream) {
-  if (N <= 0 || B * H <= 0) return (int)cudaSuccess;
-  if (D <= 0 || D > 128 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  Strides s[5];
-  for (int i = 0; i < 5; ++i)
-    s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* l = (const float*)lse;
-  const float* dl = (const float*)delta;
-  if (dtype == 0) {
-    TPUNERF_ATTN_BWD_DISPATCH(launch_dq, q, k, v, dout, l, dl, dq, B, H, N,
-                              D, s, scale, st)
-  }
-  if (dtype == 1) {
-    const void* ptrs[5] = {q, k, v, dout, dq};
-    for (int i = 0; i < 5; ++i)
-      if (!aligned16(ptrs[i], s[i])) return (int)cudaErrorInvalidValue;
-    if (D % 8) return (int)cudaErrorInvalidValue;
-    TPUNERF_ATTN_BWD_MMA(launch_dq_mma, q, k, v, dout, l, dl, dq, B, H, N, D,
-                         s, scale, st)
-  }
-  return (int)cudaErrorInvalidValue;
+  return dq_entry(dtype, false, q, k, v, dout, lse, delta, dq, B, H, N, D,
+                  strides, scale, stream);
+}
+
+// The earlier bf16 design (mma.sync at every head dim), on the same
+// arguments; bf16 only. No path calls it: it is timed beside the entries
+// above.
+int attention_bwd_dkv_mma(int dtype, const void* q, const void* k,
+                          const void* v, const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B, int H,
+                          int N, int D, const long long* strides, float scale,
+                          void* stream) {
+  return dkv_entry(dtype, true, q, k, v, dout, lse, delta, dk, dv, B, H, N,
+                   D, strides, scale, stream);
+}
+
+int attention_bwd_dq_mma(int dtype, const void* q, const void* k,
+                         const void* v, const void* dout, const void* lse,
+                         const void* delta, void* dq, int B, int H, int N,
+                         int D, const long long* strides, float scale,
+                         void* stream) {
+  return dq_entry(dtype, true, q, k, v, dout, lse, delta, dq, B, H, N, D,
+                  strides, scale, stream);
 }
 
 }  // extern "C"

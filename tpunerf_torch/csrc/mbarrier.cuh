@@ -1,5 +1,6 @@
 // Shared-memory mbarriers and one-dimensional bulk copies (Hopper's TMA
-// without a tensor map), for the kernels of hashgrid.cu and rasterize.cu.
+// without a tensor map), for the kernels of hashgrid.cu and rasterize.cu
+// and, through wgmma.cuh, the attention kernels.
 //
 // A bulk copy moves a contiguous run of global memory into shared memory;
 // source, destination and size must be 16-byte multiples. Its completion

@@ -13,8 +13,11 @@ row's log-sum-exp and whose backward is JAX's two-kernel flash backward:
 block per tile of keys) and #13 (`attention_bwd_dq`: dQ, a block per tile
 of queries), both recomputing P = exp(s·q·kᵀ − lse). `attention_bwd_plain`
 is that backward's math in plain PyTorch, for the tests and the card's
-checks. A kernel that cannot build or launch raises: nothing gives way to
-the plain versions on a card.
+checks. The earlier bf16 design of #12/#13 (mma.sync) stays as
+`attention_bwd_dkv_mma_cuda` and `attention_bwd_dq_mma_cuda`, with launch
+counters of their own, for timing only: no path calls them. A kernel that
+cannot build or launch raises: nothing gives way to the plain versions on
+a card.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from tpunerf_torch.kernels import _build
 ATTN = "attention_fwd"
 ATTN_DKV = "attention_bwd_dkv"
 ATTN_DQ = "attention_bwd_dq"
+# #12/#13's earlier bf16 design (mma.sync), timed beside them only
+ATTN_DKV_MMA = "attention_bwd_dkv_mma"
+ATTN_DQ_MMA = "attention_bwd_dq_mma"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -211,41 +217,69 @@ def _bwd_common(q, k, v, do, lse, delta, scale):
             do.data_ptr(), lse.data_ptr(), delta.data_ptr())
 
 
-def attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float):
-    """Kernel #12: (dk, dv) from the forward's `lse` and Δ =
-    rowsum(dO ∘ O) (`delta`), both (B, H, N) f32 contiguous. q, k, v as
-    `attention_fwd_cuda` takes them, do of q's shape and dtype (in bf16
-    16-byte aligned with strides that are multiples of 8, as q); each
-    gradient a (B, H, N, D) view of a (B, N, H, D) buffer in its input's
-    dtype. bf16 runs on the tensor cores, f32 on the CUDA cores."""
+def _dkv_call(name: str, q, k, v, do, lse, delta, scale: float):
     common = _bwd_common(q, k, v, do, lse, delta, scale)
     B, H, N, D = q.shape
     dk, dv = _like_heads(k), _like_heads(v)
     strides = []
     for t in (q, k, v, do, dk, dv):
         strides += _strides(t)
-    err = _entry("attention_bwd", "attention_bwd_dkv", _DKV_ARGS)(
+    err = _entry("attention_bwd", name, _DKV_ARGS)(
         *common, dk.data_ptr(), dv.data_ptr(), B, H, N, D,
         _long_array(strides), float(scale), _build.stream_ptr(q.device))
-    _build.check(err, ATTN_DKV)
-    _build.count_launch(ATTN_DKV)
+    _build.check(err, name)
+    _build.count_launch(name)
     return dk, dv
 
 
-def attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float):
-    """Kernel #13: dq, on the inputs `attention_bwd_dkv_cuda` takes."""
+def _dq_call(name: str, q, k, v, do, lse, delta, scale: float):
     common = _bwd_common(q, k, v, do, lse, delta, scale)
     B, H, N, D = q.shape
     dq = _like_heads(q)
     strides = []
     for t in (q, k, v, do, dq):
         strides += _strides(t)
-    err = _entry("attention_bwd", "attention_bwd_dq", _DQ_ARGS)(
+    err = _entry("attention_bwd", name, _DQ_ARGS)(
         *common, dq.data_ptr(), B, H, N, D, _long_array(strides),
         float(scale), _build.stream_ptr(q.device))
-    _build.check(err, ATTN_DQ)
-    _build.count_launch(ATTN_DQ)
+    _build.check(err, name)
+    _build.count_launch(name)
     return dq
+
+
+def attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float):
+    """Kernel #12: (dk, dv) from the forward's `lse` and Δ =
+    rowsum(dO ∘ O) (`delta`), both (B, H, N) f32 contiguous. q, k, v as
+    `attention_fwd_cuda` takes them, do of q's shape and dtype (in bf16
+    16-byte aligned with strides that are multiples of 8, as q); each
+    gradient a (B, H, N, D) view of a (B, N, H, D) buffer in its input's
+    dtype. bf16 runs on the tensor cores (wgmma at D <= 64, mma.sync
+    above), f32 on the CUDA cores."""
+    return _dkv_call(ATTN_DKV, q, k, v, do, lse, delta, scale)
+
+
+def attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float):
+    """Kernel #13: dq, on the inputs `attention_bwd_dkv_cuda` takes."""
+    return _dq_call(ATTN_DQ, q, k, v, do, lse, delta, scale)
+
+
+def _check_mma(q) -> None:
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the mma.sync design of #12/#13 is bf16 only, got "
+                        f"{q.dtype}")
+
+
+def attention_bwd_dkv_mma_cuda(q, k, v, do, lse, delta, scale: float):
+    """#12's earlier bf16 design (mma.sync m16n8k16 at every head dim), with
+    #12's contract; only `chip_smoke.py` and the card tests call it."""
+    _check_mma(q)
+    return _dkv_call(ATTN_DKV_MMA, q, k, v, do, lse, delta, scale)
+
+
+def attention_bwd_dq_mma_cuda(q, k, v, do, lse, delta, scale: float):
+    """#13's earlier bf16 design, as `attention_bwd_dkv_mma_cuda`."""
+    _check_mma(q)
+    return _dq_call(ATTN_DQ_MMA, q, k, v, do, lse, delta, scale)
 
 
 def attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -103,8 +103,9 @@ class OptimConfig:
     lambda_opacity: float = 0.0
     start_shading_iter: Optional[int] = None
     check_nan: bool = False                 # per-step finite-loss guard
-    # steps per device dispatch: >1 chains train steps in one program
-    # (the JAX package's lax.scan trainer; not yet in the port)
+    # steps per device dispatch: >1 chains train steps in one program (the
+    # JAX package's lax.scan trainer; the port replays one step captured in
+    # a CUDA graph, Trainer.run_chunk and GraphedStep)
     train_chunk: int = 1
 
 
