@@ -52,11 +52,11 @@
    (`hashgrid_bwd_split`: full, gmax, addr, accum, reduce at 0.5x ... 4x
    the resident blocks, `full` at 1x equal to #2), each timed in a CUDA
    graph and held against its plain version (the split's bit for bit).
-4. Checks a tiny step of each app (and of config #5's depth-guided
-   latent-paint-mesh at B = 2, and of Paint-by-Example latent-paint-mesh
-   with `use_clip` in both branches), the soft silhouette's gradient to the
-   displacement and a tiny latent-NeRF eval chunk on the card against the
-   same on the CPU.
+4. Checks a tiny step of each app (and of latent-NeRF with config #3's
+   sketch-shape loss, of config #5's depth-guided latent-paint-mesh at B =
+   2, and of Paint-by-Example latent-paint-mesh with `use_clip` in both
+   branches), the soft silhouette's gradient to the displacement and a
+   tiny latent-NeRF eval chunk on the card against the same on the CPU.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
    128^3 occupancy grid; S=128, K=64 at 64x64; the 859M-parameter SD-v1
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
@@ -64,15 +64,36 @@
    cut to 24 steps (so that the occupancy refreshes at steps 1 and 16 run)
    and a checkpoint every 12: the 10-frame eval orbit at 512^2 before step
    1 and after each checkpoint, train images at 5 %, asynchronous
-   checkpoints, the 100-frame final orbit and the mesh export (skipped
-   until ROADMAP.md A.7). It copies the x, table and g that reach #1 and
+   checkpoints, the 100-frame final orbit and the mesh export (the 64^3
+   iso-surface at 10 as OBJ/MTL/albedo under mesh/). It copies the x,
+   table and g that reach #1 and
    #2 and the samples that reach #3 on step 10, and what reaches #1 and #3
    in the first eval chunk, and then times those kernels, and their first
    designs, on those ray-ordered inputs. It times the eval chunk (render,
    VAE decode) and a save (to its return, to the end of the write), then
    resumes a second Trainer from the checkpoint (state equal bit for bit,
    two more finite steps) and runs the CLI with log.eval_only.
-6. Trains the port's latent-paint app at full width with the same guidance
+6. (after 9 (c)) Eval config #3 end to end with the same guidance:
+   `lego_man.yaml --guide.shape_path sphere` (`shapes/teddy.obj` is not in
+   the repo): the sphere's 48^3 SDF grid built by the C++ library
+   (`tpunerf_torch/native`, g++ at first use); then the stage-1 runs of 5
+   and (b), (e) on lego_man.yaml: 24 eager steps through the Trainer with
+   the shape loss of each step (checkpoints at 12 and 24, the 10-frame
+   evals, a 10-frame final orbit, the mesh export), 24 steps with
+   `--optim.train_chunk 8` (every launch accounted for, the trace, the
+   steady step graphed beside eager); its step 1 is held graphed against
+   eager in (a). Then the NeRF->mesh bridge on its step-24 checkpoint:
+   `train_latent_nerf_mesh.extract_mesh_from_checkpoint` at 128^3 and iso
+   10 twice (density grid on the card through #1, 32 chunks of 65,536
+   points; marching tetrahedra on the host; equal bit for bit), the paint
+   stage as the CLI builds it with the built stack (the UV build timed, 4
+   latent-paint steps, a 5-frame eval chunk at 512^2: #4, #5, #6 or its
+   dense fallback, the export), #5 on the extracted mesh's rows and pixels
+   as the training render and the eval chunk give them (bit for bit
+   against the plain version and the all-pairs design, timed, with their
+   bounds), and #1 against its plain version on the density grid's first
+   chunk.
+   Then trains the port's latent-paint app at full width with the same guidance
    (procedural sphere of 3968 faces, 960-face background dome, 128^2 latent
    texture, 64x64 train grid) through `Trainer.train()`, which ends with the
    eval orbit (5 frames at 512^2: VAE decode of the texture to 1024^2,
@@ -92,8 +113,8 @@
 9. Config #4 end to end, the latent→RGB refine stage and the chunked
    trainer (`optim.train_chunk`: one step captured in a CUDA graph and
    replayed k times a chunk):
-   (a) before 5, a full-width step of stage 1, of the refine stage and of
-       latent-paint, captured and replayed against the same step run
+   (a) before 5, a full-width step of stage 1, of the refine stage, of
+       config #3 and of latent-paint, captured and replayed against the same step run
        eagerly twice from the same state (parameters, buffers, Adam's
        moments, the generator): bit for bit where the eager runs agree,
        else each tensor within its own stated bound, with the operations
@@ -198,9 +219,17 @@ STEPS = 24      # > 16, so that the refreshes at steps 1 and 16 both run
 DEVICE = "cuda"  # where the latent-paint-mesh phases build and run
 
 
+START = time.perf_counter()
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def mark(phase: str) -> None:
+    """The script's seconds so far, as a phase starts."""
+    print(f"[{time.perf_counter() - START:.1f} s] {phase}", flush=True)
 
 
 sys.path.insert(0, str(ROOT))
@@ -1907,6 +1936,46 @@ def check_small_steps(seed: int, device: str = "cuda") -> None:
     if not (rel <= 1e-4 and g_err <= 1e-4):
         fail("the tiny step on the card disagrees with the CPU step")
 
+    # --- the same step with config #3's sketch shape (lambda_shape 1) ----
+    # one SDF grid of the sphere, built on the host, on both devices; the
+    # one-gather lookup's index may flip where a sample's xyz (from the
+    # card's sin/cos) lies within an ulp of a cell's half
+    from tpunerf_torch.fields.sketch_shape import SDFGrid
+    from tpunerf_torch.meshrep import shapes
+    mesh = shapes.load_shape("sphere").normalize(cfg.guide.shape_scale,
+                                                 cfg.guide.dy)
+    sdf = SDFGrid.from_mesh(mesh.vertices.numpy(), mesh.faces.numpy(),
+                            resolution=24, bound=cfg.render.bound)
+    lam = cfg.optim.lambda_shape
+    cfg.optim.lambda_shape = 1.0          # the apps share cfg
+    out = {}
+    for d, app in apps.items():
+        app.scene.sdf = SDFGrid(sdf.values.to(d), sdf.bound)
+        app.scene.zero_grad(set_to_none=True)
+        loss, aux = app.loss_fn(views.to(d), u=u.to(d),
+                                t=torch.tensor(500, device=d),
+                                noise=noise.to(d))
+        loss.backward()
+        out[d] = (loss.item(), aux["shape_loss"].item(),
+                  {k: p.grad.cpu() for k, p in
+                   app.scene.field.named_parameters()})
+    cfg.optim.lambda_shape = lam
+    for app in apps.values():
+        app.scene.sdf = None
+        app.scene.zero_grad(set_to_none=True)
+    (l_cpu, s_cpu, g_cpu), (l_gpu, s_gpu, g_gpu) = out[cpu], out[gpu]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    s_rel = abs(s_gpu - s_cpu) / abs(s_cpu)
+    g_err = _rel_grad_err(g_gpu, g_cpu)
+    print(f"tiny config #3 step (sketch shape, 24³ SDF of the sphere, "
+          f"lambda_shape 1), card vs CPU: loss {l_gpu:+.6e} vs "
+          f"{l_cpu:+.6e} (rel {rel:.2e}, tol 1e-4); shape loss "
+          f"{s_gpu:.6e} vs {s_cpu:.6e} (rel {s_rel:.2e}, tol 1e-4); max "
+          f"grad err / max|grad| {g_err:.2e} (tol 1e-4)")
+    if not (s_cpu > 0 and rel <= 1e-4 and s_rel <= 1e-4 and g_err <= 1e-4):
+        fail("the tiny sketch-shape step on the card disagrees with the CPU "
+             "step")
+
     # --- latent-paint: sphere, 24² grid, 32² texture ----------------------
     pcfg = parse(TrainConfig, [
         "--guide.tiny_diffusion", "true", "--guide.unet_dtype", "float32",
@@ -2168,57 +2237,93 @@ def timed_train(trainer, steps: int):
     return losses, times, t_end - stamps[-1], launches
 
 
+def mesh_written(mesh_dir: Path) -> bool:
+    """Whether an export wrote its OBJ, MTL and albedo into `mesh_dir`."""
+    return mesh_dir.is_dir() and sorted(
+        p.name for p in mesh_dir.iterdir()) == ["albedo.png", "mesh.mtl",
+                                                "mesh.obj"]
+
+
+def obj_summary(mesh_dir: Path) -> str:
+    """The vertex and face counts of `mesh_dir/mesh.obj`."""
+    obj = mesh_dir / "mesh.obj"
+    if not obj.exists():
+        return f"no {obj.name} under {mesh_dir.name}/"
+    lines = obj.read_text().splitlines()
+    n_v = sum(ln.startswith("v ") for ln in lines)
+    n_f = sum(ln.startswith("f ") for ln in lines)
+    return f"{mesh_dir.name}/{obj.name}: {n_v} vertices, {n_f} faces"
+
+
 SAND_CASTLE = ROOT / "demo_configs" / "latent_nerf" / "sand_castle.yaml"
+LEGO_MAN = ROOT / "demo_configs" / "latent_nerf" / "lego_man.yaml"
 NASCAR_DEPTH = ROOT / "demo_configs" / "latent_paint_mesh" / \
     "nascar_depth.yaml"
 
 
 def _nerf_argv(steps: int, seed: int, *extra: str):
-    """sand_castle.yaml cut to `steps` steps with a checkpoint (and its
-    eval) every STEPS/2; every other setting its default."""
+    """A latent-NeRF config (sand_castle.yaml or lego_man.yaml) cut to
+    `steps` steps with a checkpoint (and its eval) every STEPS/2; every
+    other setting the yaml's or its default, unless `extra` sets it."""
     return ["--optim.iters", str(steps), "--optim.seed", str(seed),
             "--log.exp_root", str(ROOT / "experiments" / "chip_smoke"),
             "--log.save_interval", str(STEPS // 2), *extra]
 
 
-def train_full_width(steps: int, seed: int, guidance):
+# eval config #3 (lego_man.yaml) on the procedural sphere: its mesh,
+# shapes/teddy.obj, is not in the repo; the final orbit cut to 10 frames
+SKETCH = ("--guide.shape_path", "sphere", "--log.full_eval_size", "10")
+
+
+def train_full_width(steps: int, seed: int, guidance,
+                     config: Path = SAND_CASTLE, extra=(),
+                     label: str = "latent-NeRF"):
     """Full-width latent-NeRF training through the port's Trainer at
-    sand_castle.yaml's defaults, cut only to `steps` steps and a checkpoint
-    every steps/2: the eval orbit's 10 frames at 512² before the first
-    step and after each checkpoint, train images at 5 %, asynchronous
-    checkpoints, the 100-frame final orbit and the mesh export (skipped
-    until ROADMAP.md item A.7). Prints the eval chunk's times, the save's,
-    the checkpoint's size, the artifacts and the steady median without the
-    steps that carry a checkpoint, an eval or an image."""
+    `config`'s settings (stage 1: sand_castle.yaml; config #3: lego_man.yaml
+    with `SKETCH`), cut only to `steps` steps, a checkpoint every steps/2
+    and what `extra` sets: the eval orbit's 10 frames at 512² before the
+    first step and after each checkpoint, train images at 5 %,
+    asynchronous checkpoints, the final orbit and the mesh export (the 64³
+    iso-surface at 10, written as OBJ/MTL/albedo under `mesh/`); with a
+    guide shape, the shape loss of every step. Prints the save's times, the
+    artifacts, the exported mesh's size and the steady median without the
+    steps that carry a checkpoint, an eval or an image. Returns the run's
+    launches, the app, the trainer and what reached #1-#3 on step
+    CAPTURE_STEP and the first eval chunk."""
     import shutil
     import torch
     from tpunerf_torch.core.config import parse
-    from tpunerf_torch.core.views import circle_poses
     from tpunerf_torch.training.config import TrainConfig
     from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
     from tpunerf_torch.training.trainer import Trainer
 
-    cfg = parse(TrainConfig, _nerf_argv(steps, seed),
-                config_path=SAND_CASTLE)
-    log = cfg.log
+    cfg = parse(TrainConfig, _nerf_argv(steps, seed, *extra),
+                config_path=config)
+    log, guide = cfg.log, cfg.guide
     exp = Path(log.exp_dir)
     shutil.rmtree(exp, ignore_errors=True)      # an earlier call's
-    print(f"latent-NeRF, {SAND_CASTLE.name}, cuts: optim.iters {steps} (of "
-          f"5000), log.save_interval {log.save_interval} (of 100); at their "
-          f"defaults: eval_size {log.eval_size}, full_eval_size "
-          f"{log.full_eval_size}, eval_batch {log.eval_batch}, log_images "
-          f"{log.log_images} at vis_train_prob {log.vis_train_prob}, "
-          f"async_ckpt {log.async_ckpt}, max_keep_ckpts "
-          f"{log.max_keep_ckpts}, save_mesh {log.save_mesh}, eval_grid_size "
-          f"{cfg.render.eval_grid_size}")
+    full = parse(TrainConfig, [], config_path=config).optim.iters
+    print(f"{label}, {config.name}, cuts: optim.iters {steps} (of {full}), "
+          f"log.save_interval {log.save_interval} (of 100), "
+          f"{' '.join(extra) or 'nothing else'}; settings: eval_size "
+          f"{log.eval_size}, full_eval_size {log.full_eval_size}, eval_batch "
+          f"{log.eval_batch}, log_images {log.log_images} at vis_train_prob "
+          f"{log.vis_train_prob}, async_ckpt {log.async_ckpt}, "
+          f"max_keep_ckpts {log.max_keep_ckpts}, save_mesh {log.save_mesh}, "
+          f"eval_grid_size {cfg.render.eval_grid_size}, seed "
+          f"{cfg.optim.seed}, text {guide.text!r}; guide shape "
+          f"{guide.shape_path} (shape_scale {guide.shape_scale}, dy "
+          f"{guide.dy}, proximal_surface {guide.proximal_surface}, "
+          f"lambda_shape {cfg.optim.lambda_shape})")
     t0 = time.perf_counter()
     app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
     trainer = Trainer(cfg, app, device="cuda")
     torch.cuda.synchronize()
-    print(f"latent-NeRF setup (text embeddings, field): "
+    print(f"{label} setup (text embeddings, field"
+          f"{', SDF grid' if app.scene.sdf is not None else ''}): "
           f"{time.perf_counter() - t0:.2f} s")
-    save_return = []
-    real_save = trainer.save_checkpoint
+    save_return, shape_losses = [], []
+    real_save, real_loss = trainer.save_checkpoint, app.loss_fn
 
     def timed_save(full=True):
         torch.cuda.synchronize()
@@ -2226,32 +2331,46 @@ def train_full_width(steps: int, seed: int, guidance):
         real_save(full)
         save_return.append(time.perf_counter() - t)
 
-    trainer.save_checkpoint = timed_save
-    with capture_hash_inputs(CAPTURE_STEP) as captured:
-        _, times, tail_s, launches = timed_train(trainer, steps)
-    del trainer.save_checkpoint
+    def loss_fn(*args, **kwargs):
+        loss, aux = real_loss(*args, **kwargs)
+        shape_losses.append(aux.get("shape_loss"))
+        return loss, aux
+
+    trainer.save_checkpoint, app.loss_fn = timed_save, loss_fn
+    try:
+        with capture_hash_inputs(CAPTURE_STEP) as captured:
+            _, times, tail_s, launches = timed_train(trainer, steps)
+    finally:
+        del trainer.save_checkpoint, app.loss_fn
+    if app.scene.sdf is not None:
+        shape = [float(v) for v in shape_losses]
+        print(f"{label} shape loss: " + " ".join(f"{v:.5f}" for v in shape))
+        if not (len(shape) == steps and all(math.isfinite(v) and v > 0
+                                            for v in shape)):
+            fail(f"{label}: the shape loss is missing or not finite")
 
     # what the run wrote
     ckpts = [p.name for p in trainer.ckpts.existing()]
     evals = sorted(p.name for p in (exp / "vis" / "eval").iterdir())
     results = sorted(p.name for p in (exp / "results").iterdir())
     images = sorted(p.name for p in (exp / "vis" / "train").iterdir())
-    skipped = [ln for ln in (exp / "log.txt").read_text().splitlines()
-               if "mesh export skipped" in ln]
+    mesh_line = [ln for ln in (exp / "log.txt").read_text().splitlines()
+                 if "mesh export" in ln]
     saves = list(range(log.save_interval, steps + 1, log.save_interval))
     print(f"checkpoints kept: {ckpts}; eval frames: {len(evals)} (steps "
           f"{sorted({int(e[5:11]) for e in evals})}); results: "
           f"{len(results)} files ({results[0]} ... {results[-1]}); train "
           f"images: {images}")
-    print(f"log: {skipped[0] if skipped else 'no mesh export line'}")
+    print(f"log: {mesh_line[0] if mesh_line else 'no mesh export line'}; "
+          f"{obj_summary(exp / 'mesh')}")
     if not (ckpts == [f"step_{s:06d}.ckpt" for s in saves[-2:]]
             and len(evals) == log.eval_size * (len(saves) + 1)
             and (len(results) == log.full_eval_size
                  or any(r.endswith((".mp4", ".gif")) for r in results))
             and all(r.startswith(f"step_{steps:06d}") for r in results)
-            and skipped):
-        fail("the latent-NeRF run did not write its checkpoints, frames or "
-             "mesh-export line")
+            and mesh_written(exp / "mesh")):
+        fail(f"the {label} run did not write its checkpoints, frames or "
+             f"mesh")
 
     # steady steps: past the first (it carries the first eval), without the
     # refresh steps (16, 32, ...) and the steps after a checkpoint with its
@@ -2262,20 +2381,32 @@ def train_full_width(steps: int, seed: int, guidance):
                     if i not in aside and i % 16 != 0)
     med = steady[len(steady) // 2]
     rays = cfg.render.batch_size * cfg.render.train_grid_size ** 2
-    print(f"latent-NeRF steady step: median {1e3 * med:.3f} ms over "
-          f"{len(steady)} steps ({rays / med:.1f} rays/s; left out: steps "
+    print(f"{label} steady step: median {1e3 * med:.3f} ms over "
+          f"{len(steady)} steps (p90 "
+          f"{1e3 * steady[int(0.9 * (len(steady) - 1))]:.3f}, max "
+          f"{1e3 * steady[-1]:.3f}; {rays / med:.1f} rays/s; left out: steps "
           f"{sorted(aside)} and the refresh steps); refresh step 16: "
           f"{1e3 * times[15]:.3f} ms; step {saves[0] + 1} (after the step-"
           f"{saves[0]} checkpoint and eval): {1e3 * times[saves[0]]:.3f} ms;"
-          f" full eval (100 frames, PNG writes, export skip, joins) "
-          f"{tail_s:.3f} s; peak memory "
+          f" full eval ({log.full_eval_size} frames, PNG writes, mesh "
+          f"export, joins) {tail_s:.3f} s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    print(f"save_checkpoint in the run: returned in "
+    print(f"{label} save_checkpoint in the run: returned in "
           + ", ".join(f"{1e3 * t:.2f}" for t in save_return) + " ms")
     occ_frac = app.metric_scalars().get("occ_frac")
-    print(f"occ_frac after training: {occ_frac}")
+    print(f"{label} occ_frac after training: {occ_frac}")
+    return launches, app, trainer, captured
 
-    # one save by hand: to its return, to the end of the write; its size
+
+def save_and_eval_split(app, trainer) -> None:
+    """Stage 1 after its run: one save by hand (to its return, to the end
+    of the write; its size) and the eval chunk's time split into the 64²
+    latent render and the VAE decode."""
+    import torch
+    from tpunerf_torch.core.views import circle_poses
+    cfg = trainer.cfg
+    log, steps = cfg.log, trainer.train_step_idx
+    exp = Path(log.exp_dir)
     torch.cuda.synchronize()
     t = time.perf_counter()
     trainer.save_checkpoint(True)
@@ -2298,13 +2429,12 @@ def train_full_width(steps: int, seed: int, guidance):
                 use_occupancy=True, white_background=True)
         latents = render()["image"]
         render_ms = cuda_ms(render, 5)
-        decode_ms = cuda_ms(lambda: guidance.decode_latents(latents), 3,
-                            warmup=1)
+        decode_ms = cuda_ms(lambda: app.guidance.decode_latents(latents),
+                            3, warmup=1)
     print(f"latent-NeRF eval chunk ({log.eval_batch} views, "
           f"{app.scene.latent_size}² latent render + VAE decode to "
           f"{dims[0]}²): {chunk_ms:.3f} ms; alone: render {render_ms:.3f} "
           f"ms, VAE decode of {tuple(latents.shape)} {decode_ms:.3f} ms")
-    return launches, app, trainer, captured
 
 
 def resume_and_eval_only(steps: int, seed: int, guidance, trainer) -> None:
@@ -4234,8 +4364,9 @@ def check_graphed_steps(seed: int, guidance) -> None:
     """(a) One full-width step captured and replayed against the same step
     run eagerly twice from the same state and generator state
     (`graphed_against_eager`): stage 1 at sand_castle.yaml's defaults and
-    the refine stage (an RGB field), both on step 1, which carries the
-    occupancy refresh (its draws follow the replay's), and latent-paint.
+    the refine stage (an RGB field) and config #3 (the sketch shape's
+    loss), each on step 1, which carries the occupancy refresh (its draws
+    follow the replay's), and latent-paint.
     The loss and the generator must be equal bit for bit. Where the two
     eager runs agree on everything, so must the replay. Where they differ,
     the step is judged once more, captured and run under
@@ -4278,6 +4409,11 @@ def check_graphed_steps(seed: int, guidance) -> None:
                 LatentPaintApp, guidance, parse(TrainConfig, quiet + [
                     "--log.exp_root", tmp, "--guide.text", "a goldfish",
                     "--guide.shape_path", "sphere"])),
+            "config #3 (sketch shape) step 1 with its refresh": (
+                LatentNeRFApp, guidance, parse(
+                    TrainConfig, quiet + ["--log.exp_root", tmp,
+                                          "--guide.shape_path", "sphere"],
+                    config_path=LEGO_MAN)),
         }
 
         def compare(label, app_cls, g, cfg):
@@ -4419,16 +4555,34 @@ def steady_graph_vs_eager(trainer, label: str, n: int = 10, rounds: int = 2):
     return out
 
 
-def train_chunked_full_width(steps: int, seed: int, guidance):
-    """(b) and (e): stage 1, sand_castle.yaml's defaults cut as the eager
-    run, with `--optim.train_chunk 8` and `--log.trace_steps 5,9`: chunks of
-    8 and 4 (clipped at the checkpoints of steps 12 and 24), the refreshes
-    of steps 1 and 16 eager between replays, the 10-frame evals and the
-    images as in the eager run, the final orbit cut to 10 frames
-    (`log.full_eval_size 10`); the trace holds #1-#4's kernels. Then the
-    steady step graphed beside eager, the profiler's idle share of graphed
-    steps and the launches a replay. Returns the run's launches, the
-    trainer and its step-24 checkpoint."""
+def launched(fn, into):
+    """`fn`, adding the kernel launches of each call to the Counter `into`
+    (also where it raises, as an export of an empty surface does)."""
+    from tpunerf_torch.kernels import _build
+
+    def run(*args, **kwargs):
+        before = dict(_build.LAUNCHES)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            into.update({n: c - before.get(n, 0)
+                         for n, c in _build.LAUNCHES.items()})
+    return run
+
+
+def train_chunked_full_width(steps: int, seed: int, guidance,
+                             config: Path = SAND_CASTLE, extra=(),
+                             label: str = "stage 1"):
+    """(b) and (e): stage 1 (or config #3: `config`, `extra`) cut as the
+    eager run, with `--optim.train_chunk 8` and `--log.trace_steps 5,9`:
+    chunks of 8 and 4 (clipped at the checkpoints of steps 12 and 24), the
+    refreshes of steps 1 and 16 eager between replays, the 10-frame evals
+    and the images as in the eager run, the final orbit cut to 10 frames
+    (`log.full_eval_size 10`); the trace holds #1-#4's kernels; with a
+    guide shape, the last replay's shape loss. Then the steady step graphed
+    beside eager, the profiler's idle share of graphed steps and the
+    launches a replay. Returns the run's launches, the trainer, its step-24
+    checkpoint and the steady times."""
     import shutil
     from collections import Counter
     import torch
@@ -4440,9 +4594,9 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
     from tpunerf_torch.training.trainer import Trainer
 
     cfg = parse(TrainConfig, _nerf_argv(
-        steps, seed, "--optim.train_chunk", "8", "--log.trace_steps", "5,9",
-        "--log.full_eval_size", "10", "--log.exp_name",
-        "sand_castle_chunked"), config_path=SAND_CASTLE)
+        steps, seed, *extra, "--optim.train_chunk", "8",
+        "--log.trace_steps", "5,9", "--log.full_eval_size", "10",
+        "--log.exp_name", f"{config.stem}_chunked"), config_path=config)
     exp = Path(cfg.log.exp_dir)
     shutil.rmtree(exp, ignore_errors=True)
     app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
@@ -4450,15 +4604,6 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
     # the eager launches of each refresh and eval, and the launch counts
     # where the trace window opens and closes
     refreshed, evals_launched, window = {}, Counter(), []
-
-    def launched(fn, into):
-        def run(*args, **kwargs):
-            before = dict(_build.LAUNCHES)
-            out = fn(*args, **kwargs)
-            into.update({n: c - before.get(n, 0)
-                         for n, c in _build.LAUNCHES.items()})
-            return out
-        return run
 
     def refresh(**kw):
         refreshed[trainer.train_step_idx] = Counter()
@@ -4474,6 +4619,8 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
     real_refresh = app.scene.update_occupancy
     app.scene.update_occupancy = refresh
     trainer.evaluate = launched(trainer.evaluate, evals_launched)
+    exported = Counter()       # the 64³ density grid of the mesh export
+    app.export = launched(app.export, exported)
     real_trace = (profiling.start_trace, profiling.stop_trace)
     profiling.start_trace = at_window(profiling.start_trace)
     profiling.stop_trace = at_window(profiling.stop_trace)
@@ -4481,33 +4628,41 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
         chunks, _, launches = timed_chunks(trainer)
     finally:
         profiling.start_trace, profiling.stop_trace = real_trace
-        del app.scene.update_occupancy, trainer.evaluate
+        del app.scene.update_occupancy, trainer.evaluate, app.export
     lengths = [k for _, k, _ in chunks]
     ckpts = [p.name for p in trainer.ckpts.existing()]
     evals = sorted(p.name for p in (exp / "vis" / "eval").iterdir())
     images = sorted(p.name for p in (exp / "vis" / "train").iterdir())
     per_replay = trainer.graph.launches
-    print(f"stage 1 chunked (train_chunk 8): chunk lengths {lengths}; "
+    if app.scene.sdf is not None:
+        last_shape = float(trainer.graph.aux["shape_loss"])
+        print(f"{label} chunked: the last replay's shape loss "
+              f"{last_shape:.5f}")
+        if not (math.isfinite(last_shape) and last_shape > 0):
+            fail(f"{label}: the replayed shape loss is not finite")
+    print(f"{label} chunked (train_chunk 8): chunk lengths {lengths}; "
           f"refreshes after steps {list(refreshed)}; checkpoints {ckpts}; "
           f"eval frames {len(evals)}; train images {images}; launches a "
           f"replay {json.dumps(per_replay)}; launches in the run "
           f"{json.dumps(launches)}; of them eager in the evals "
-          f"{json.dumps(evals_launched)} and the refreshes "
-          f"{json.dumps(refreshed)}; peak memory "
+          f"{json.dumps(evals_launched)}, the refreshes "
+          f"{json.dumps(refreshed)} and the mesh export "
+          f"{json.dumps(exported)}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     if not (lengths == [8, 4, 8, 4] and list(refreshed) == [1, 16]
             and ckpts == ["step_000012.ckpt", "step_000024.ckpt"]
             and len(evals) == 3 * cfg.log.eval_size):
-        fail("the chunked stage-1 run broke the eager cadence")
+        fail(f"the chunked {label} run broke the eager cadence")
     # every launch accounted for: the replays and the capture's warm-up
-    # step (one eager step, so what one replay records), and the evals and
-    # refreshes run eagerly between
+    # step (one eager step, so what one replay records), and the evals,
+    # refreshes and the mesh export run eagerly between
     for name in launches:
-        eager = (evals_launched[name]
+        eager = (evals_launched[name] + exported[name]
                  + sum(c[name] for c in refreshed.values()))
         want = (steps + 1) * per_replay.get(name, 0) + eager
         if launches[name] != want:
-            fail(f"{name}: {launches[name]} launches in the chunked run, "
+            fail(f"{name}: {launches[name]} launches in the chunked "
+                 f"{label} run, "
                  f"not {steps} replays and the warm-up step x "
                  f"{per_replay.get(name, 0)} and {eager} eager")
     # (e) the trace of steps 5-8 (the chunks holding them: 1-8, 9-12): each
@@ -4515,7 +4670,7 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
     # launches and the refreshes inside the window launched
     trace = exp / "trace" / "trace.json"
     if not trace.exists() or len(window) != 2:
-        fail("log.trace_steps wrote no trace")
+        fail(f"log.trace_steps wrote no trace ({label})")
     (first, opened), (last, closed) = window
     inside = Counter()
     for step, c in refreshed.items():
@@ -4529,21 +4684,21 @@ def train_chunked_full_width(steps: int, seed: int, guidance):
             for name, (symbol, tag) in TRACE_KERNELS.items()}
     counted = {tag: closed.get(name, 0) - opened.get(name, 0)
                for name, (symbol, tag) in TRACE_KERNELS.items()}
-    print(f"trace_steps 5,9: {trace.stat().st_size} bytes, "
+    print(f"{label} trace_steps 5,9: {trace.stat().st_size} bytes, "
           f"{len(events)} events, steps {first + 1}-{last}; kernels of "
           f"#1-#4 executed in it: {json.dumps(counts)}; replays x a "
           f"replay's launches + the refreshes in the window: "
           f"{json.dumps(want)}; counted launches in the window: "
           f"{json.dumps(counted)}")
     if not (all(counts.values()) and counts == want == counted):
-        fail("the trace's kernels of #1-#4 are not the window's replays "
-             "and refreshes")
-    steady = steady_graph_vs_eager(trainer, "stage 1 (latent-NeRF)")
-    busy = profile_steps(trainer, "stage 1 graphed", steps=5,
+        fail(f"the trace's kernels of #1-#4 are not the window's replays "
+             f"and refreshes ({label})")
+    steady = steady_graph_vs_eager(trainer, label)
+    busy = profile_steps(trainer, f"{label} graphed", steps=5,
                          step_fn=trainer.graph.replay)
     # the profiler slows the replays down; against the unprofiled median
     med = steady["graph"]["median_ms"]
-    print(f"stage 1 graphed: device busy {busy:.3f} ms (profiled) of the "
+    print(f"{label} graphed: device busy {busy:.3f} ms (profiled) of the "
           f"unprofiled median {med:.3f} ms, idle share "
           f"{max(0.0, 1 - busy / med):.3f}")
     return launches, trainer, exp / "checkpoints" / "step_000024.ckpt", \
@@ -4745,6 +4900,274 @@ def refine_full_width(seed: int, guidance, ckpt: Path, rows):
     return launches, steady
 
 
+def sdf_grid_phase() -> None:
+    """Config #3's guide shape alone: the C++ library's build, then the
+    sphere's 48³ SDF grid (`SDFGrid.from_mesh`, the 2× prefilter
+    included) on the card, its time, range and inside share."""
+    import torch
+    from tpunerf_torch import native
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.fields.sketch_shape import SDFGrid
+    from tpunerf_torch.meshrep import shapes
+    from tpunerf_torch.training.config import TrainConfig
+
+    cfg = parse(TrainConfig, list(SKETCH), config_path=LEGO_MAN)
+    guide = cfg.guide
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    mesh = shapes.load_shape(guide.shape_path).normalize(guide.shape_scale,
+                                                         guide.dy)
+    t0 = time.perf_counter()
+    sdf = SDFGrid.from_mesh(mesh.vertices.numpy(), mesh.faces.numpy(),
+                            resolution=48, bound=cfg.render.bound,
+                            device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    sdf_ms = 1e3 * (time.perf_counter() - t0)
+    vals = sdf.values
+    print(f"config #3 SDF grid (C++, {lib.name}, g++ build {build_s:.2f} "
+          f"s): 48³ over {mesh.num_faces} faces "
+          f"({48 ** 3 * mesh.num_faces:.3e} point-triangle pairs) in "
+          f"{sdf_ms:.1f} ms, prefilter to 96³ included; values "
+          f"[{vals.min().item():.4f}, {vals.max().item():.4f}], inside "
+          f"share {(vals < 0).float().mean().item():.4f}")
+    if not ((vals < 0).any() and (vals > 0).any()):
+        fail("the config #3 SDF grid has no inside or no outside")
+
+
+def bridge_selection(app, trainer, dims) -> dict:
+    """#5 on what the extracted mesh gives it, recorded as the paint path
+    calls the wrapper: one training render's rows and pixels (64²) and the
+    eval chunk's (5 views at `dims`, the dense sweep where the bins
+    overflow). Every call of the training render (the mesh's, the dome's)
+    bit for bit against the plain version, the mesh's as a `_sel_case`; the
+    eval chunk's launch bit
+    for bit against the all-pairs design on all its views and, as a
+    `_sel_case`, its first view against the plain version (the plain
+    sweep of all five is five times as long: one view bounds the phase's
+    time). Returns
+    {"d": the training render's case, "e": the eval chunk's} for #5's row."""
+    import torch
+    from tpunerf_torch.core.views import circle_poses, rand_poses
+    from tpunerf_torch.kernels import rasterize as rz
+
+    real, calls = rz.select_faces_dense_cuda, []
+
+    def record(rows, pix, width=0):
+        calls.append((rows.clone(), pix.clone(), width))
+        return real(rows, pix, width)
+
+    dev, cfg = trainer.device, trainer.cfg
+    rz.select_faces_dense_cuda = record
+    try:
+        with torch.no_grad():
+            app.scene.render_train(rand_poses(
+                cfg.render.batch_size, trainer.view_cfg, dev,
+                generator=trainer.generator))
+            n_train = len(calls)
+            app.eval_render(circle_poses(5, trainer.view_cfg, dev), dims)
+    finally:
+        rz.select_faces_dense_cuda = real
+    train, evals = calls[:n_train], calls[n_train:]
+    mism = sum(int((real(r, p, w) != rz.select_faces_dense_plain(r, p))
+                   .sum().item()) for r, p, w in train)
+    print(f"#5 on the bridge's extracted mesh: the training render's calls, "
+          f"rows {[tuple(r.shape) for r, _, _ in train]} over P = "
+          f"{[p.shape[0] for _, p, _ in train]}: mismatches vs plain {mism} "
+          f"(tol 0, exact); the eval chunk's calls, rows "
+          f"{[tuple(r.shape) for r, _, _ in evals]}")
+    if not train or mism:
+        fail("#5 disagrees with its plain version on the bridge's training "
+             "render, or was not called")
+    cases = {}
+    r, p, w = max(train, key=lambda c: c[0].shape[1])   # the mesh's
+    cases["d"] = _sel_case(
+        rz, f"#5 (d) the bridge's training render at 64², extracted mesh "
+        f"F={r.shape[1]}", lambda: real(r, p, w),
+        lambda: rz.select_faces_dense_sweep_cuda(r, p),
+        lambda: rz.select_faces_dense_plain(r, p), r, p, w, 20)
+    if not evals:
+        print("  the bridge's eval chunk took the band bins (#6): no dense "
+              "call to hold")
+        return cases
+    r5, p, w = max(evals, key=lambda c: c[0].shape[1])
+    out5 = real(r5, p, w)
+    same = torch.equal(out5, rz.select_faces_dense_sweep_cuda(r5, p))
+    r1 = r5[:1].contiguous()
+    cases["e"] = _sel_case(
+        rz, f"#5 (e) the bridge's eval chunk at {dims[0]}², its first view, "
+        f"extracted mesh F={r1.shape[1]}", lambda: real(r1, p, w),
+        lambda: rz.select_faces_dense_sweep_cuda(r1, p),
+        lambda: rz.select_faces_dense_plain(r1, p), r1, p, w, 3)
+    first = torch.equal(out5[:1], real(r1, p, w))
+    ms5 = cuda_ms(lambda: real(r5, p, w), 3)
+    cases["e"].update(views=r5.shape[0], all_views_ms=ms5,
+                      all_views_equal_all_pairs=same)
+    print(f"  #5 (e) the eval chunk's launch, {r5.shape[0]} views: equal to "
+          f"the all-pairs design bit for bit {same}; its first view equal to "
+          f"the one-view launch {first}; eager {ms5:.4f} ms")
+    if not (same and first):
+        fail("#5 disagrees with the all-pairs design on the bridge's eval "
+             "chunk")
+    return cases
+
+
+def bridge_phase(seed: int, guidance, ckpt: Path, rows, paint_rows) -> dict:
+    """The NeRF→mesh bridge (`tpunerf_torch.train_latent_nerf_mesh`) on
+    config #3's step-24 checkpoint: `extract_mesh_from_checkpoint` at
+    `render.mc_resolution` 128 and `render.iso_level` 10 twice (the density
+    grid on the card in 32 chunks of 65,536 points through #1, marching
+    tetrahedra on the host; the two meshes equal bit for bit), with the
+    density grid's and the marching's ms; then the paint stage as the CLI
+    builds it (`paint_config`: the `_mesh` experiment) with the SD-v1 stack
+    passed in: the UV build's ms, 4 latent-paint steps and the eval chunk of
+    5 frames at 512² before step 1 (#4, #5, #6 or its dense fallback), the
+    export; #5 on the extracted mesh's rows (`bridge_selection`, into #5's
+    row). Then #1 against its plain version on the density grid's first
+    chunk (x (65536, 3)). Returns the path's launches."""
+    import shutil
+    import numpy as np
+    import torch
+    from tpunerf_torch import train_latent_nerf_mesh as bridge
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.core.views import circle_poses
+    from tpunerf_torch.fields import scene as scene_mod
+    from tpunerf_torch.fields.latent_nerf import LatentNeRFConfig
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import rasterize as rz
+    from tpunerf_torch.meshrep import uv_unwrap
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint import LatentPaintApp
+    from tpunerf_torch.training.trainer import Trainer
+
+    paint_steps = 4
+    cfg = parse(TrainConfig, _nerf_argv(
+        paint_steps, seed, *SKETCH, "--optim.ckpt", str(ckpt),
+        "--log.exp_name", "lego_man_bridge", "--log.save_interval", "1000",
+        "--log.eval_size", "5", "--log.eval_batch", "5",
+        "--log.full_eval_size", "0", "--log.log_images", "false"),
+        config_path=LEGO_MAN)
+    G, iso = cfg.render.mc_resolution, cfg.render.iso_level
+    timed, grids = {}, []
+
+    def timing(owner, name, label, keep=None):
+        real = getattr(owner, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed.setdefault(label, []).append(
+                1e3 * (time.perf_counter() - t))
+            if keep is not None:
+                keep.append(out)
+            return out
+        setattr(owner, name, run)
+        return real
+
+    reals = [(scene_mod.LatentNeRFScene, "density_grid", timing(
+        scene_mod.LatentNeRFScene, "density_grid", "density grid", grids)),
+        (scene_mod, "marching_tetrahedra", timing(
+            scene_mod, "marching_tetrahedra", "marching")),
+        (uv_unwrap, "get_or_build_uvs", timing(
+            uv_unwrap, "get_or_build_uvs", "UV build"))]
+    _build.reset_launches()
+    try:
+        meshes = []
+        for _ in range(2):
+            try:
+                meshes.append(bridge.extract_mesh_from_checkpoint(cfg))
+            finally:
+                if grids:
+                    grid = grids[-1]
+                    print(f"bridge density grid {G}³ of {ckpt.name}: sigma "
+                          f"max {grid.max():.4f}, at the centre "
+                          f"{grid[G // 2, G // 2, G // 2]:.4f}, mean "
+                          f"{grid.mean():.4e}, share above iso {iso} "
+                          f"{(grid > iso).mean():.3e}")
+        extract_launches = dict(_build.LAUNCHES)
+        (m1, m2) = meshes
+        same = (torch.equal(m1.vertices, m2.vertices)
+                and torch.equal(m1.faces, m2.faces))
+        print(f"bridge extract_mesh_from_checkpoint ({G}³, iso {iso}): V "
+              f"{m1.num_vertices}, F {m1.num_faces}; density grid ms "
+              f"{', '.join(f'{t:.2f}' for t in timed['density grid'])} "
+              f"({G ** 3 // scene_mod.DENSITY_CHUNK} chunks of "
+              f"{scene_mod.DENSITY_CHUNK}); marching ms "
+              f"{', '.join(f'{t:.2f}' for t in timed['marching'])}; the two "
+              f"meshes equal bit for bit: {same}; launches "
+              f"{json.dumps(extract_launches)}")
+        if not (same and m1.num_faces > 0):
+            fail("the bridge's mesh is empty or differs between two "
+                 "extractions")
+        if extract_launches.get(hg.FWD, 0) != 2 * G ** 3 // \
+                scene_mod.DENSITY_CHUNK:
+            fail("the density grid did not run #1 once a chunk")
+        paint_cfg = bridge.paint_config(cfg)
+        shutil.rmtree(paint_cfg.log.exp_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        app = LatentPaintApp.create(paint_cfg, guidance=guidance,
+                                    mesh=m1, device="cuda")
+        trainer = Trainer(paint_cfg, app, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    finally:
+        for owner, name, real in reals:
+            setattr(owner, name, real)
+    print(f"bridge paint stage setup: {setup_s:.2f} s, of it the UV build "
+          f"(chart atlas over {m1.num_faces} faces, host) "
+          f"{timed['UV build'][0]:.1f} ms; texture "
+          f"{tuple(app.scene.texture_img.shape)}")
+    tex0 = app.scene.texture_img.detach().clone()
+    _, times, tail_s, paint_launches = timed_train(trainer, paint_steps)
+    route = ("band bins (#6)" if paint_launches.get(rz.BINNED, 0)
+             else "the dense sweep (#5: the bins overflowed)")
+    exp = Path(paint_cfg.log.exp_dir)
+    print(f"bridge paint: step ms {', '.join(f'{1e3 * t:.2f}' for t in times)}"
+          f" (step 1 carries the eval chunk of 5 frames at "
+          f"{paint_cfg.render.eval_grid_size}², by {route}); export "
+          f"{tail_s:.3f} s; {obj_summary(exp / 'mesh')}; launches "
+          f"{json.dumps(paint_launches)}")
+    if torch.equal(tex0, app.scene.texture_img.detach()):
+        fail("the bridge's paint stage left the texture unchanged")
+    if not (paint_launches.get(at.ATTN, 0) == 5 * paint_steps
+            and paint_launches.get(rz.DENSE, 0) >= 2 * paint_steps
+            and mesh_written(exp / "mesh")):
+        fail("the bridge's paint stage missed its kernels or its export")
+    views = circle_poses(5, trainer.view_cfg, trainer.device)
+    dims = (paint_cfg.render.eval_grid_size,) * 2
+    chunk_ms = cuda_ms(lambda: app.eval_render(views, dims), 3, warmup=1)
+    print(f"bridge eval chunk (5 views at {dims[0]}² on the extracted mesh):"
+          f" {chunk_ms:.3f} ms")
+    paint_rows[rz.DENSE]["inputs"].update(
+        bridge_selection(app, trainer, dims))
+    launches = dict(extract_launches)
+    for name, n in paint_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    del app, trainer
+    _free_card()
+
+    # #1 on the density grid's first chunk, against its plain version
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+    table = state["field.hash_table"].to("cuda")
+    bound = cfg.render.bound
+    ax = (np.arange(G) + 0.5) / G * 2 - 1
+    gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+    pts = torch.from_numpy((np.stack([gx.ravel(), gy.ravel(), gz.ravel()],
+                                     -1)[:scene_mod.DENSITY_CHUNK] * bound
+                            ).astype(np.float32)).to("cuda")
+    x01 = torch.clamp((pts + bound) / (2 * bound), 0.0, 1.0)
+    row, _ = hash_grid_rows(x01, table, None, LatentNeRFConfig().grid,
+                            f"the {G}³ density grid's first chunk")
+    rows[hg.FWD]["density_grid"] = {
+        k: row[k] for k in ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                            "bound_ms", "bound_by", "share_of_bound")}
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4791,15 +5214,19 @@ def main() -> int:
                    for ln in lines):
                 fail(f"{kernel} spills (-Xptxas -v)")
 
+    mark("kernel checks")
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
     check_slivers(args.seed)
     grad_rows = check_attention_bwd(args.seed)
     split_row, variant_row = check_hash_bwd_experiment(args.seed)
+    mark("tiny steps against the CPU")
     check_small_steps(args.seed)
+    mark("the SD-v1 stack; graphed steps (a)")
     guidance = build_guidance(args.seed)
     check_graphed_steps(args.seed, guidance)
+    mark("stage 1")
     eager_launches, app, trainer, captured = train_full_width(
         STEPS, args.seed, guidance)
     main_path = [n for n, r in rows.items() if r.get("main_path") is not False]
@@ -4808,6 +5235,7 @@ def main() -> int:
         fail(f"latent-NeRF path never launched {missing}")
     check_hash_step_inputs(captured, rows)
     del captured
+    save_and_eval_split(app, trainer)
     resume_and_eval_only(STEPS, args.seed, guidance, trainer)
     breakdown(app, trainer)
     del app, trainer
@@ -4816,13 +5244,40 @@ def main() -> int:
                                                            guidance)
     del ctrainer
     _free_card()
+    mark("the refine stage")
     refine_launches, _ = refine_full_width(args.seed, guidance, ckpt, rows)
+    _free_card()
+    # config #3 (sketch shape) and the NeRF→mesh bridge on its checkpoint
+    mark("config #3")
+    sdf_grid_phase()
+    sketch_eager, sapp, strainer, captured = train_full_width(
+        STEPS, args.seed, guidance, LEGO_MAN, SKETCH, "config #3")
+    del sapp, strainer, captured
+    _free_card()
+    sketch_chunked, strainer, sketch_ckpt, _ = train_chunked_full_width(
+        STEPS, args.seed, guidance, LEGO_MAN, SKETCH, "config #3")
+    del strainer
+    _free_card()
+    mark("the NeRF→mesh bridge")
+    bridge_launches = bridge_phase(args.seed, guidance, sketch_ckpt, rows,
+                                   paint_rows)
+    _free_card()
+    mark("the bridge done")
     for label, counts in (("chunked stage-1", launches),
-                          ("refine", refine_launches)):
+                          ("refine", refine_launches),
+                          ("config #3 eager", sketch_eager),
+                          ("config #3 chunked", sketch_chunked)):
         missing = [n for n in main_path if counts.get(n, 0) <= 0]
         if missing:
             fail(f"the {label} path never launched {missing}")
-    _free_card()
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import rasterize as rz
+    missing = [n for n in (hg.FWD, at.ATTN, rz.DENSE)
+               if bridge_launches.get(n, 0) <= 0]
+    if missing:
+        fail(f"the NeRF→mesh bridge never launched {missing}")
+    mark("latent-paint")
     paint_launches, papp, ptrainer = train_paint_full_width(
         STEPS, args.seed, guidance)
     paint_breakdown(papp, ptrainer)
@@ -4831,13 +5286,13 @@ def main() -> int:
     _free_card()
     paint_chunked_launches = train_paint_chunked(STEPS, args.seed, guidance)
     _free_card()
+    mark("latent-paint-mesh")
     mesh_launches, mapp, mtrainer, mode1 = train_mesh_full_width(
         STEPS, args.seed, guidance)
     sil_launches, sil_inputs, sil_dense = silhouette_phase(mapp, mtrainer,
                                                            guidance)
     # #10 (c) and #9 (d) on the silhouette phase's own g and prod, beside
     # the first designs
-    from tpunerf_torch.kernels import rasterize as rz
     case_c = soft_bwd_case("(c) the silhouette phase's g = 2·mask and prod",
                            *sil_inputs)
     soft_rows[rz.SOFT_BWD_BINNED]["inputs"]["c"] = case_c
@@ -4860,8 +5315,10 @@ def main() -> int:
     del mapp, mtrainer, mode1
     _free_card()
     # the SD-v1 paths that differentiate through the UNet (#12, #13)
+    mark("the SD-v1 gradient paths")
     grad_launches = sd_gradient_phases(args.seed, guidance)
     # config #5: depth-conditioned SD, B = 2 (its own stack, freed after)
+    mark("config #5")
     depth_launches, b2 = train_depth_full_width(STEPS, args.seed)
     paint_rows[rz.DENSE]["config5"] = b2[rz.DENSE]
     soft_rows[rz.SOFT_FWD_DENSE]["config5"] = b2[rz.SOFT_FWD_DENSE]
@@ -4870,9 +5327,9 @@ def main() -> int:
         b2[rz.SOFT_FWD_DENSE]["max_abs_err"])
     _free_card()
     # the Paint-by-Example cell (its own stack, freed after)
+    mark("Paint-by-Example")
     pbe_launches = train_pbe_full_width(STEPS, args.seed)
     _free_card()
-    from tpunerf_torch.kernels import attention as at
     rows[at.ATTN]["config5"] = attention_at_depth_batch(
         torch.Generator(device="cuda").manual_seed(args.seed))
     # each kernel's count comes from the run of the path that was checked
@@ -4907,9 +5364,11 @@ def main() -> int:
                   "Paint-by-Example (use_clip)": pbe_launches}
     paint_paths = {"latent-paint eager": paint_launches,
                    "latent-paint chunked": paint_chunked_launches,
-                   **own_stacks}
+                   "nerf→mesh bridge": bridge_launches, **own_stacks}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
-               "refine CLI (chunked)": refine_launches, **paint_paths,
+               "refine CLI (chunked)": refine_launches,
+               "config #3": sketch_eager,
+               "config #3 chunked": sketch_chunked, **paint_paths,
                **grad_launches}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
@@ -4923,6 +5382,7 @@ def main() -> int:
     kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):
         fail("a kernel of the main paths was never launched")
+    mark("end")
     # the card once more, where the end of a long output still shows it
     print(f"nvidia-smi: {smi[0] if smi else 'unavailable'}")
     print(json.dumps({"kernels": kernels}))

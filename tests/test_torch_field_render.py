@@ -175,11 +175,3 @@ def test_train_render_with_injected_jitter_matches_jax(scenes):
         # their share
         np.testing.assert_allclose(float(out[name]), float(ref[name]),
                                    rtol=1e-5 + 2 * (1 - same.mean()))
-
-
-def test_sketch_shape_and_mesh_extraction_name_their_slice(scenes):
-    _, _, ts = scenes
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TScene.create(tiny=True, shape_path="sphere")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ts.extract_mesh()

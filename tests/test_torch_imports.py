@@ -23,6 +23,7 @@ from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
 from tpunerf_torch.scripts.exp_hash_bwd import main as exp_hash_bwd_main
 from tpunerf_torch.train_latent_nerf import main, split_device
 from tpunerf_torch.train_latent_paint import main as paint_main
+from tpunerf_torch.train_latent_nerf_mesh import main as bridge_main
 from tpunerf_torch.train_latent_paint_mesh import main as mesh_main
 from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
 from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
@@ -46,7 +47,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
               "training.latent_paint", "train_latent_paint_mesh",
               "training.latent_paint_mesh", "meshrep.laplacian",
               "meshrep.displacement_mlp", "scripts.exp_hash_bwd",
-              "profiling", "training.trainer"):
+              "profiling", "training.trainer", "train_latent_nerf_mesh",
+              "fields.sketch_shape", "fields.marching", "native"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -142,6 +144,8 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mesh_main(["--guide.tiny_diffusion", "true", "--guide.shape_path",
                    "sphere"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bridge_main(["--guide.tiny_diffusion", "true"])
     for argv in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             exp_hash_bwd_main(argv + ["--n", "64"])
@@ -277,7 +281,8 @@ def test_cli_trains_the_tiny_app_on_the_cpu(tmp_path):
 
 def test_cli_trains_the_tiny_app_with_the_default_log_settings(tmp_path):
     """sand_castle.yaml with no log override but sizes: checkpoints, eval
-    and result frames, train images, the mesh export logged as skipped."""
+    and result frames, train images, the mesh export logged as skipped
+    (the tiny random field has no surface at iso 10)."""
     main(["--config_path",
           str(ROOT / "demo_configs" / "latent_nerf" / "sand_castle.yaml"),
           "--device", "cpu", "--guide.tiny_diffusion", "true",
@@ -294,4 +299,6 @@ def test_cli_trains_the_tiny_app_with_the_default_log_settings(tmp_path):
                      for i in range(2)]
     assert list((exp / "results").iterdir())
     assert list((exp / "vis" / "train").glob("step_*.png"))
-    assert "mesh export skipped" in (exp / "log.txt").read_text()
+    assert "mesh export skipped: no surface at isolevel" in (
+        exp / "log.txt").read_text()
+    assert not (exp / "mesh").exists() or not any((exp / "mesh").iterdir())

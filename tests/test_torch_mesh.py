@@ -179,6 +179,105 @@ def test_uv_unwrap_of_the_icosphere_equals_jax(tmp_path):
         junwrap.atlas_utilization(jvt, jft)
 
 
+def _planar_grid_chart(n: int = 24):
+    """A planar n×n quad grid (2n² faces, no overlap)."""
+    gx, gy = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+    local = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    vid = lambda i, j: i * (n + 1) + j  # noqa: E731
+    ft = np.array([[vid(i, j), vid(i + 1, j), vid(i, j + 1)]
+                   for i in range(n) for j in range(n)]
+                  + [[vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)]
+                     for i in range(n) for j in range(n)], np.int32)
+    return local, ft
+
+
+def _chart_case(name: str):
+    if name == "crossing slivers":
+        # each one's interior samples lie outside the other; edges cross
+        return np.array([[0.0, 0.45], [2.0, 0.55], [0.0, 0.55],
+                         [0.95, -0.5], [1.05, 2.0], [1.05, -0.5]],
+                        np.float32), np.array([[0, 1, 2], [3, 4, 5]],
+                                              np.int32)
+    if name == "adjacent faces":
+        return (np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]],
+                         np.float32), np.array([[0, 1, 2], [1, 3, 2]],
+                                               np.int32))
+    local, ft = _planar_grid_chart()
+    if name == "planar grid":
+        return local, ft
+    # a crossing deep inside the grid; a face folded into another one
+    # (no edges cross: its interior samples lie inside that face)
+    V = len(local)
+    extra = np.array([[0.3, 0.45], [2.5, 0.55], [0.3, 0.55],
+                      [1.15, -0.5], [1.25, 2.0], [1.25, -0.5]],
+                     np.float32) * 8
+    if name == "planar grid with a crossing":
+        return (np.concatenate([local, extra]), np.concatenate(
+            [ft, np.array([[V, V + 1, V + 2], [V + 3, V + 4, V + 5]],
+                          np.int32)]))
+    fold = np.array([[10.1, 10.1], [10.4, 10.1], [10.1, 10.4]], np.float32)
+    return (np.concatenate([local, fold]),
+            np.concatenate([ft, np.array([[V, V + 1, V + 2]], np.int32)]))
+
+
+@pytest.mark.parametrize("name, overlaps", [
+    ("crossing slivers", True), ("adjacent faces", False),
+    ("planar grid", False), ("planar grid with a crossing", True),
+    ("planar grid with a folded face", True)])
+def test_chart_overlap_tests_equal_jax(name, overlaps):
+    """The port tests only the pairs whose boxes share a grid cell; its
+    answers are the all-pairs tests' of the JAX package, in memory linear
+    in the chart."""
+    import tracemalloc
+    local, ft = _chart_case(name)
+    tris = local[ft]
+    tracemalloc.start()
+    got = tunwrap._chart_overlaps(local, ft)
+    _, peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    assert got == junwrap._chart_overlaps(local, ft) == overlaps
+    crossing = tunwrap._edges_properly_intersect(tris)
+    assert crossing == junwrap._edges_properly_intersect(tris)
+    assert crossing == (overlaps and "folded" not in name)
+    assert peak < 64 * 2 ** 20, f"{peak / 2 ** 20:.0f} MB"
+
+
+def _blob_mesh(G: int, seed: int, noise: float):
+    """An extracted noisy blob, as the NeRF→mesh bridge gives the UV
+    unwrap: charts of many faces, some of them folded."""
+    from tpunerf_torch.fields.marching import marching_tetrahedra
+    ax = np.linspace(-1, 1, G)
+    X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
+    rng = np.random.default_rng(seed)
+    vals = ((0.55 - np.sqrt(X ** 2 + Y ** 2 + Z ** 2)) * 30 + 10
+            + rng.normal(0, noise, X.shape)).astype(np.float32)
+    return marching_tetrahedra(vals, 10.0)
+
+
+@pytest.mark.parametrize("mesh", ["uv sphere", "blob, smooth",
+                                  "blob, folded charts"])
+def test_chart_atlas_equals_jax(mesh):
+    if mesh == "uv sphere":
+        m = tshapes.uv_sphere()
+        v, f = m.vertices.numpy(), m.faces.numpy()
+    else:
+        v, f = _blob_mesh(24, 0, 0.5) if mesh == "blob, smooth" \
+            else _blob_mesh(24, 1, 2.0)
+    charts = tunwrap.grow_charts(v, f)
+    assert charts == junwrap.grow_charts(v, f)
+    adj = tunwrap._face_adjacency(f)
+    assert [sorted(a) for a in adj] == \
+        [sorted(a) for a in junwrap._face_adjacency(f)]
+    normals = tunwrap._face_normals_np(v, f)
+    folded = sum(tunwrap._chart_overlaps(
+        *tunwrap._project_chart(v, f, c, normals)[::2]) for c in charts)
+    assert (folded > 0) == (mesh == "blob, folded charts")
+    vt, ft = tunwrap.chart_atlas(v, f)
+    jvt, jft = junwrap.chart_atlas(v, f)
+    np.testing.assert_array_equal(vt, jvt)
+    np.testing.assert_array_equal(ft, jft)
+
+
 def test_full_chain_quadrant_texture_oracle():
     """Camera (0,0,2), fovy π/2: world (x, y, 0) lands at NDC (x/2, y/2).
     A [−2, 2]² quad with uv = (world + 2)/4 under nearest sampling of a 2×2

@@ -153,3 +153,89 @@ def test_port_trainer_refreshes_at_steps_1_and_16(apps, tmp_path):
     assert len(losses) == 17 and np.isfinite(losses).all()
     assert not torch.equal(table, app.scene.field.hash_table.detach())
     assert (tmp_path / "default" / "config.yaml").exists()
+
+
+# --------------------------------------------------------------------------
+# the sketch-guided step (eval config #3's loss): lambda_shape 1 on the
+# procedural sphere
+
+
+def _shape_cfg(mod, tmp_path):
+    cfg = _cfg(mod, tmp_path)
+    cfg.optim.lambda_shape = 1.0
+    cfg.guide.shape_path = "sphere"
+    cfg.guide.proximal_surface = 0.3
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def shape_apps(apps, tmp_path_factory):
+    """Both apps with the sphere's 48³ SDF, the stage-1 parameters and
+    occupancy grid of `apps`."""
+    japp, params, tapp = apps
+    tmp = tmp_path_factory.mktemp("shape_step")
+    jshape = JApp.create(_shape_cfg(jconfig, tmp), guidance=japp.guidance)
+    tshape = TApp.create(_shape_cfg(tconfig, tmp), guidance=tapp.guidance,
+                         device="cpu")
+    load_flax_params(tshape.scene, np_tree(params), "scene")
+    return jshape, params, tshape
+
+
+def test_sketch_guided_scene_builds_the_jax_grid(shape_apps):
+    japp, _, tapp = shape_apps
+    assert tapp.scene.sdf.resolution == japp.scene.sdf.resolution == 48
+    # the sphere normalised by each package (f32 means and norms), then
+    # the same C++ source
+    np.testing.assert_allclose(tapp.scene.sdf.values.numpy(),
+                               np.asarray(japp.scene.sdf.values), rtol=0,
+                               atol=1e-6)
+    assert tapp.scene.proximal_surface == japp.scene.proximal_surface == 0.3
+
+
+def test_sketch_guided_step_matches_jax(shape_apps):
+    japp, params, tapp = shape_apps
+    key_view, key = jax.random.split(jax.random.key(13))
+    jv = jviews.rand_poses(key_view, 1, jviews.ViewSamplerConfig())
+    tv = tviews.ViewBatch(*(torch.from_numpy(np.array(a)) for a in
+                            (jv.theta, jv.phi, jv.radius, jv.dirs,
+                             jv.is_body)))
+    tv.dirs = tv.dirs.long()
+    (loss_j, _), grads_j = jax.jit(jax.value_and_grad(
+        japp.loss_fn, has_aux=True))(params, jv, key, jnp.asarray(1))
+    u, t, noise = _jax_step_draws(japp, key, jv)
+    # the shape term alone, on the same render
+    ref_shape = japp.scene.render_train(params, jv, jax.random.split(key)[0],
+                                        jnp.asarray(1))["shape_loss"]
+
+    tapp.scene.field.zero_grad(set_to_none=True)
+    loss_t, aux_t = tapp.loss_fn(tv, u=u, t=t, noise=noise)
+    loss_t.backward()
+    assert float(ref_shape) > 0
+    np.testing.assert_allclose(aux_t["shape_loss"].item(), float(ref_shape),
+                               rtol=1e-5)
+    # the tolerances of test_loss_gradients_and_adam_step_match_jax
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-4)
+    ref_grads = state_dict_from_flax(np_tree(grads_j["field"]), "field")
+    got = {k: p.grad for k, p in tapp.scene.field.named_parameters()}
+    assert set(got) == set(ref_grads)
+    for name, g in got.items():
+        assert_close_to_max(g.numpy(), ref_grads[name].numpy(), 1e-4, name)
+
+
+def test_the_shape_term_reaches_the_hash_table(shape_apps):
+    """The same step at lambda_shape 1 and 0 (the same draws) gives other
+    hash-table gradients: the shape loss is in the backward pass."""
+    _, _, tapp = shape_apps
+    views = tviews.rand_poses(1, tviews.ViewSamplerConfig(), torch.device(
+        "cpu"), generator=torch.Generator().manual_seed(0))
+    u = torch.rand((1, 256, 32), generator=torch.Generator().manual_seed(1))
+    grads = []
+    for lam in (1.0, 0.0):
+        tapp.cfg.optim.lambda_shape = lam
+        tapp.scene.field.zero_grad(set_to_none=True)
+        loss, _ = tapp.loss_fn(views, u=u, t=torch.tensor(500),
+                               noise=torch.zeros((1, 16, 16, 4)))
+        loss.backward()
+        grads.append(tapp.scene.field.hash_table.grad.clone())
+    tapp.cfg.optim.lambda_shape = 1.0
+    assert not torch.equal(grads[0], grads[1])

@@ -344,17 +344,22 @@ class _HostReads(TorchDispatchMode):
 
 @pytest.mark.parametrize("app_kind, nerf_type", [
     ("nerf", "latent"), ("nerf", "rgb"), ("paint", "latent"),
-    ("paint", "rgb")])
+    ("paint", "rgb"), ("nerf+shape", "latent")])
 def test_captured_step_reads_nothing_back(tmp_path, guidance, app_kind,
                                           nerf_type):
     """The loss and backward of the step that the trainer captures, as the
     CPU runs them: no value goes back to the host (the card's Adam is
-    capturable; the CPU's reads its step count, so it is left out)."""
+    capturable; the CPU's reads its step count, so it is left out).
+    "nerf+shape" adds the sketch-shape loss (eval config #3's step)."""
     g = dataclasses.replace(guidance, latent_mode=nerf_type == "latent")
-    if app_kind == "nerf":
+    if app_kind.startswith("nerf"):
         cfg = _nerf_cfg(tmp_path, app_kind + nerf_type)
         cfg.render.nerf_type = nerf_type
+        if app_kind == "nerf+shape":
+            cfg.guide.shape_path = "icosphere"
+            cfg.optim.lambda_shape = 1.0
         app = LatentNeRFApp.create(cfg, guidance=g, device="cpu")
+        assert (app.scene.sdf is not None) == (app_kind == "nerf+shape")
     else:
         cfg = _paint_cfg(tconfig, tmp_path, app_kind + nerf_type)
         cfg.render.nerf_type = nerf_type
@@ -368,3 +373,5 @@ def test_captured_step_reads_nothing_back(tmp_path, guidance, app_kind,
         gnorm = trainer.grad_norm()
     assert not probe.seen, dict(probe.seen)
     assert np.isfinite(loss.item()) and gnorm.item() > 0
+    if app_kind == "nerf+shape":
+        assert aux["shape_loss"].item() > 0

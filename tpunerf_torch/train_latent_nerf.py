@@ -4,15 +4,23 @@ Usage:
     python -m tpunerf_torch.train_latent_nerf \\
         --config_path demo_configs/latent_nerf/sand_castle.yaml
 
+or sketch-guided (eval config #3; `shapes/teddy.obj` is not in the repo,
+so the procedural sphere stands in for it):
+
+    python -m tpunerf_torch.train_latent_nerf \\
+        --config_path demo_configs/latent_nerf/lego_man.yaml \\
+        --guide.shape_path sphere
+
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
 given. Under `<log.exp_root>/<log.exp_name>/` a run writes
 `checkpoints/step_%06d.ckpt` every `log.save_interval` steps with the eval
 frames `vis/eval/step_%06d_%03d_rgb.png`, train-render images
 `vis/train/step_%06d.png` (PNG, where the JAX package writes JPEG), and
-after the last step the orbit in `results/`; the mesh export is skipped
-until ROADMAP.md item A.7. `--optim.resume true` continues from the newest
-checkpoint; `--log.eval_only true` renders the final orbit of the newest
-checkpoint and takes no step.
+after the last step the orbit in `results/` and the 64³ iso-surface in
+`mesh/` (logged as skipped where it is empty). `--optim.resume true`
+continues from the newest checkpoint; `--log.eval_only true` renders the
+final orbit of the newest checkpoint and takes no step. A checkpoint feeds
+the NeRF→mesh bridge, `tpunerf_torch.train_latent_nerf_mesh`.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Latent-NeRF application: text-to-3D volumetric SDS training.
 
 A hash-grid latent-NeRF field optimized by text-conditioned SDS, with
-occupancy-grid pruning and sparsity regularization, and its eval orbit: the
+occupancy-grid pruning, sparsity regularization and, where
+`guide.shape_path` names a guide shape, the sketch-shape loss
+(`optim.lambda_shape`, `guide.proximal_surface`), and its eval orbit: the
 field rendered at the latent grid and decoded by the VAE. With
 `render.nerf_type rgb` it is the refine stage of the two-stage recipe: an
 RGB field trained through the VAE encoder, which loads a latent run's
 checkpoint (`optim.ckpt`) with fresh colour heads (`migrate_params`) and
-renders its eval orbit at the eval grid. Sketch-shape guidance and mesh
-extraction are ROADMAP.md item A.7.
+renders its eval orbit at the eval grid. `export` writes the field's
+iso-surface as an OBJ.
 """
 from __future__ import annotations
 
@@ -74,14 +76,7 @@ class LatentNeRFApp:
                 device=device,
                 generator=make_generator(cfg.optim.seed, device))
             guidance.maybe_load_concept(cfg.guide.concept_name)
-        scene = LatentNeRFScene.create(
-            nerf_type=cfg.render.nerf_type, tiny=cfg.guide.tiny_diffusion,
-            bound=cfg.render.bound,
-            num_samples=cfg.render.num_samples_per_ray,
-            num_compacted=max(cfg.render.num_samples_per_ray // 2, 8),
-            train_grid_size=cfg.render.train_grid_size,
-            shape_path=cfg.guide.shape_path, dy=cfg.guide.dy,
-            mlp_dtype=cfg.render.mlp_dtype, device=device)
+        scene = LatentNeRFScene.from_config(cfg, device=device)
         scene.latent_size = guidance.latent_size
         neg = cfg.guide.negative_text if cfg.guide.append_neg_text else ""
         text_z = directional_text_embeddings(guidance, cfg.guide.text,
@@ -99,7 +94,8 @@ class LatentNeRFApp:
                 generator: Optional[torch.Generator] = None,
                 vae_noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Render → SDS (+ regularizers). The draws — stratified jitter `u`
+        """Render → SDS (+ regularizers, + the shape loss where the scene
+        has a guide shape). The draws — stratified jitter `u`
         (B, P, S), in RGB mode the VAE posterior's `vae_noise` (B, 64, 64,
         4), then SDS timestep `t` and noise (B, 64, 64, 4) — are taken from
         `generator` unless given, in that order."""
@@ -113,6 +109,9 @@ class LatentNeRFApp:
             loss = loss + self.cfg.optim.lambda_opacity * out["opacity_loss"]
         aux = {"image": out["image"].detach(),
                "weights_sum": torch.mean(out["weights_sum"]).detach()}
+        if "shape_loss" in out:
+            loss = loss + self.cfg.optim.lambda_shape * out["shape_loss"]
+            aux["shape_loss"] = out["shape_loss"].detach()
         return loss, aux
 
     def post_step(self, step: int, u: Optional[torch.Tensor] = None,
@@ -158,10 +157,10 @@ class LatentNeRFApp:
         return max(1, (40 << 20) // max(per_pose, 1))
 
     def export(self, path: Path) -> None:
-        """NeRF → mesh: the 64³ iso-surface with a grid UV atlas and a grey
-        albedo. `extract_mesh` raises NotImplementedError naming ROADMAP.md
-        item A.7 until that item (the trainer logs the export as skipped),
-        as does an empty surface."""
+        """NeRF → mesh: the 64³ iso-surface at `render.iso_level`'s
+        default 10 with a grid UV atlas and a grey albedo, as `mesh.obj`,
+        `mesh.mtl` and `albedo.png` under `path`. An empty surface raises
+        NotImplementedError (the trainer logs the export as skipped)."""
         verts, faces = self.scene.extract_mesh(resolution=64)
         if len(faces) == 0:
             raise NotImplementedError("no surface at isolevel")

@@ -18,7 +18,8 @@ Around the step, as the JAX package's trainer does (`<exp_dir>/` below):
   `log.eval_batch` poses (at most the app's `max_eval_batch`); after the
   last step `log.full_eval_size` frames into `results/` (a video where an
   encoder is installed, PNGs otherwise) and the mesh export of
-  `log.save_mesh` into `mesh/` (an app that cannot export yet raises
+  `log.save_mesh` into `mesh/` (an app with nothing to export, as a
+  latent-NeRF field with no surface at the iso level, raises
   NotImplementedError, and the export is logged as skipped);
 * checkpoints (`training/checkpoints.py`): `checkpoints/step_%06d.ckpt`
   every `log.save_interval` steps, written on a background thread where
