@@ -57,6 +57,10 @@
    2, and of Paint-by-Example latent-paint-mesh with `use_clip` in both
    branches), the soft silhouette's gradient to the displacement and a
    tiny latent-NeRF eval chunk on the card against the same on the CPU.
+   The card's depth and Paint-by-Example stacks are read by their
+   `create(model_dir=...)` from tiny diffusers-layout directories the CPU
+   stacks are written into (depth with `use_inpaint=True,
+   inpaint_model_dir=...`), equal to them bit for bit.
 5. Trains the port's latent-NeRF app at full width (hash grid L=12, T=2^11;
    128^3 occupancy grid; S=128, K=64 at 64x64; the 859M-parameter SD-v1
    UNet, the CLIP ViT-L/14 text tower and the SD-v1 VAE, random-initialised
@@ -189,6 +193,18 @@
     its defaults (`invert` over 50 DDIM steps, `null_optimization` 50 x 10)
     with its seconds, peak and launches, the fitted embeddings' retrace
     and a profiled 2 x 5 run (#12 + #13's share of its busy time); `prompt_to_img` (50 steps) and one DDS step, timed.
+13. Pretrained weights, after the SD-v1 stack is built (`weights_phase`):
+    the stack written as a diffusers-layout directory (the bf16 UNet as
+    BF16 safetensors, the VAE as F32 safetensors in the older attention
+    naming, the text tower as `text_encoder/pytorch_model.bin` with the
+    `text_model.` prefix and a stray `position_ids`), read back on the card
+    by `create(model_dir=...)` (every parameter and one CFG pass through #4
+    equal to the source's bit for bit), the latent-NeRF CLI from
+    `--guide.model_dir` for 4 steps (sand_castle.yaml; evals, images and
+    the export cut) and the port's `convert_sd_weights --dtype bfloat16`
+    on the directory; the bytes and seconds of the write, the read and the
+    CLI's first step, beside the card's name and power limit. At most 90 s;
+    the directory is removed after it.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -2140,11 +2156,14 @@ def check_small_depth_step(seed: int, gpu) -> None:
     (`scripts.depth_step`): depth-guided latent-paint-mesh, B = 2 views
     (body and head camera), mode 0, the same weights and draws, f32; the
     loss on the scale of its summed terms and every gradient within
-    paint-mesh's tolerances."""
+    paint-mesh's tolerances. The card's stack is read from tiny directories
+    the CPU stack is written into (`create(model_dir=..., use_inpaint=True,
+    inpaint_model_dir=...)`, the inpainting UNet drawn from the seed)."""
     from tpunerf_torch.scripts import depth_step
 
     (l_cpu, g_cpu), (l_gpu, g_gpu), scale = depth_step.tiny_depth_steps(
-        gpu, seed)
+        gpu, seed, load_stack=lambda cpu_stack, dev: stack_from_dirs(
+            cpu_stack, dev, seed))
     want = {"background_sphere_colors", "displacement", "texture_img"}
     if set(g_cpu) != want or set(g_gpu) != want:
         fail(f"the tiny config #5 step has gradients of {sorted(g_cpu)} on "
@@ -2167,12 +2186,15 @@ def check_small_pbe_step(seed: int, gpu) -> None:
     0, the same weights and draws, f32, at t = 250 (the CLIP branch: DDIM
     step, VAE decode and CLIP tower differentiated) and t = 500 (SDS): the
     loss on its scale and every gradient within paint-mesh's
-    tolerances."""
+    tolerances. The card's stack is read from a tiny directory the CPU
+    stack is written into (`create(model_dir=...)`)."""
     from tpunerf_torch.scripts import pbe_step
 
     want = {"background_sphere_colors", "displacement", "texture_img"}
     for branch, ((l_cpu, g_cpu), (l_gpu, g_gpu), scale) in \
-            pbe_step.tiny_pbe_steps(gpu, seed).items():
+            pbe_step.tiny_pbe_steps(gpu, seed, load_stack=lambda cpu_stack,
+                                    dev: stack_from_dirs(cpu_stack, dev,
+                                                         seed)).items():
         if set(g_cpu) != want or set(g_gpu) != want:
             fail(f"the tiny Paint-by-Example {branch} step has gradients of "
                  f"{sorted(g_cpu)} on the CPU and {sorted(g_gpu)} on the "
@@ -2187,6 +2209,328 @@ def check_small_pbe_step(seed: int, gpu) -> None:
         if not (rel <= pbe_step.LOSS_TOL and g_err <= pbe_step.GRAD_TOL):
             fail(f"the tiny Paint-by-Example {branch} step on the card "
                  "disagrees with the CPU step")
+
+
+# --------------------------------------------------------------------------
+# diffusers-layout directories written from the port's modules: the port
+# reads such directories (guidance/weights.py) and, as the JAX package, has
+# no writer of its own
+# --------------------------------------------------------------------------
+
+ST_DTYPES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
+             "int64": "I64"}
+VAE_OLD_NAMES = {"group_norm": "norm", "to_q": "query", "to_k": "key",
+                 "to_v": "value", "to_out.0": "proj_attn"}
+WEIGHTS_STEPS = 4       # latent-NeRF CLI steps from --guide.model_dir
+WEIGHTS_PHASE_S = 90    # the pretrained-weights phase's budget
+
+
+def write_safetensors(path: Path, tensors) -> int:
+    """{name: tensor} (any device) as a .safetensors file in the tensors'
+    own dtypes, the header padded to 8 bytes. Returns the bytes written."""
+    import struct
+    import torch
+    header, host, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        host.append(t)
+        offset += size
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for t in host:
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(text) + offset
+
+
+def write_part(base: Path, state, form: str) -> int:
+    """One module's state dict at `base` (no suffix): "st" as safetensors in
+    its dtypes, "bin" by torch.save. Returns the file's bytes."""
+    import torch
+    base.parent.mkdir(parents=True, exist_ok=True)
+    if form == "st":
+        return write_safetensors(base.with_suffix(".safetensors"), state)
+    torch.save({k: v.detach().cpu() for k, v in state.items()},
+               base.with_suffix(".bin"))
+    return base.with_suffix(".bin").stat().st_size
+
+
+def vae_old_names(state) -> dict:
+    """A VAE state dict with its attention in diffusers' older naming
+    (`norm`, `query`, `key`, `value`, `proj_attn`)."""
+    pat = re.compile(r"^(.*\.mid_block\.attentions\.\d+)\."
+                     r"(group_norm|to_q|to_k|to_v|to_out\.0)\.(\w+)$")
+    out = {}
+    for k, v in state.items():
+        m = pat.match(k)
+        out[f"{m.group(1)}.{VAE_OLD_NAMES[m.group(2)]}.{m.group(3)}"
+            if m else k] = v
+    return out
+
+
+def equal_modules(pairs) -> tuple:
+    """(tensors compared, whether each pair of modules has the same state
+    dict, dtype and bits)."""
+    import torch
+    n, same = 0, True
+    for a, b in pairs:
+        sa, sb = a.state_dict(), b.state_dict()
+        n += len(sa)
+        same = same and sa.keys() == sb.keys() and all(
+            sa[k].dtype == sb[k].dtype
+            and torch.equal(sa[k], sb[k].to(sa[k].device)) for k in sa)
+    return n, same
+
+
+def stack_from_dirs(cpu_stack, device, seed: int):
+    """A tiny depth or Paint-by-Example stack on `device` read by its
+    `create(model_dir=...)` from directories `cpu_stack` is written into
+    (UNet and text tower as F32 safetensors, the VAE as .bin in the older
+    attention naming, the exemplar encoder as `image_encoder/model`; for
+    depth also a 9-channel inpainting UNet drawn from `seed`, read by
+    `use_inpaint=True, inpaint_model_dir=...`), held equal bit for bit to
+    its sources."""
+    import tempfile
+    import torch
+    from tpunerf_torch.guidance.depth import StableDiffusionDepthGuidance
+    from tpunerf_torch.guidance.paint_by_example import \
+        PaintByExampleGuidance
+    from tpunerf_torch.guidance.stable_diffusion import _build
+    from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
+    depth = isinstance(cpu_stack, StableDiffusionDepthGuidance)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiny_") as tmp:
+        root = Path(tmp)
+        write_part(root / "unet" / "diffusion_pytorch_model",
+                   cpu_stack.unet.state_dict(), "st")
+        write_part(root / "vae" / "diffusion_pytorch_model",
+                   vae_old_names(cpu_stack.vae.state_dict()), "bin")
+        pairs = [(cpu_stack.unet, "unet"), (cpu_stack.vae, "vae")]
+        if depth:
+            write_part(root / "text_encoder" / "model",
+                       cpu_stack.text_encoder.state_dict(), "st")
+            inpaint = _build(UNet2DCondition, UNetConfig.tiny(in_channels=9),
+                             torch.device("cpu"),
+                             torch.Generator().manual_seed(seed))
+            write_part(root / "inpaint" / "unet" / "diffusion_pytorch_model",
+                       inpaint.state_dict(), "st")
+            stack = StableDiffusionDepthGuidance.create(
+                tiny=True, model_dir=root, use_inpaint=True,
+                inpaint_model_dir=root / "inpaint", unet_dtype="float32",
+                device=device)
+            pairs += [(cpu_stack.text_encoder, "text_encoder"),
+                      (inpaint, "inpaint_unet")]
+        else:
+            write_part(root / "image_encoder" / "model",
+                       cpu_stack.image_encoder.state_dict(), "st")
+            stack = PaintByExampleGuidance.create(
+                tiny=True, model_dir=root, unet_dtype="float32",
+                device=device)
+            pairs += [(cpu_stack.image_encoder, "image_encoder")]
+    n, same = equal_modules([(a, getattr(stack, name)) for a, name in pairs])
+    label = "depth (+ inpainting UNet)" if depth else "Paint-by-Example"
+    print(f"tiny {label} stack on the card from create(model_dir=...): "
+          f"{n} tensors of {', '.join(name for _, name in pairs)} equal to "
+          f"their sources bit for bit: {same}")
+    if not same:
+        fail(f"the tiny {label} stack read from its directories differs "
+             f"from the stack written")
+    return stack
+
+
+def write_sd_dir(root: Path, guidance) -> int:
+    """The SD-v1 stack in diffusers' layout, in mixed forms: the bf16 UNet
+    as BF16 safetensors, the VAE as F32 safetensors in the older attention
+    naming, the text tower as `text_encoder/pytorch_model.bin` with the
+    `text_model.` prefix and a stray `position_ids`. Returns the bytes
+    written."""
+    import torch
+    n = write_part(root / "unet" / "diffusion_pytorch_model",
+                   guidance.unet.state_dict(), "st")
+    n += write_part(root / "vae" / "diffusion_pytorch_model",
+                    vae_old_names(guidance.vae.state_dict()), "st")
+    text = {f"text_model.{k}": v
+            for k, v in guidance.text_encoder.state_dict().items()}
+    text["text_model.embeddings.position_ids"] = torch.arange(
+        guidance.text_encoder.config.max_length)[None]
+    n += write_part(root / "text_encoder" / "pytorch_model", text, "bin")
+    return n
+
+
+def weights_phase(seed: int, guidance) -> dict:
+    """Pretrained weights at full width: the SD-v1 stack (the 859M UNet in
+    bf16, the VAE and the ViT-L/14 text tower in f32) written as a
+    diffusers-layout directory (`write_sd_dir`), read back on the card by
+    `StableDiffusionGuidance.create(model_dir=...)` (every parameter equal
+    to its source bit for bit, one CFG pass of the loaded UNet equal to the
+    source's on the same inputs, with #4's launches), the latent-NeRF CLI
+    from `--guide.model_dir` at sand_castle.yaml's settings for
+    WEIGHTS_STEPS steps (evals, images and the export cut; finite losses,
+    #1-#4 launched), and the port's `convert_sd_weights --dtype bfloat16`
+    on the directory (its count in the JAX script's line). Prints bytes,
+    seconds and GB/s beside the card. The directory goes after the phase;
+    a temporary filesystem without room for it fails by name. Returns the
+    CLI run's launches."""
+    import contextlib as ctx
+    import io
+    import shutil
+    import tempfile
+    import torch
+    from tpunerf_torch import train_latent_nerf
+    from tpunerf_torch.guidance import sds as sds_lib
+    from tpunerf_torch.guidance.stable_diffusion import \
+        StableDiffusionGuidance
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.scripts import convert_sd_weights
+    from tpunerf_torch.training import trainer as trainer_lib
+
+    t_phase = time.perf_counter()
+    parts = ("unet", "vae", "text_encoder")
+    n_params = {n: sum(p.numel() for p in getattr(guidance, n).parameters())
+                for n in parts}
+    sizes = {n: sum(p.numel() * p.element_size()
+                    for p in getattr(guidance, n).parameters())
+             for n in parts}
+    need = sum(sizes.values()) + 2 * sum(n_params.values())   # + bf16 .npz
+    tmp = Path(tempfile.gettempdir())
+    free = shutil.disk_usage(tmp).free
+    print(f"pretrained weights: parameters {n_params}, the directory "
+          f"{sum(sizes.values()) / 1e9:.3f} GB and the bf16 .npz "
+          f"{2 * sum(n_params.values()) / 1e9:.3f} GB under {tmp} "
+          f"({free / 1e9:.1f} GB free)")
+    if free < 1.1 * need:
+        fail(f"pretrained weights phase: {tmp} has {free / 1e9:.2f} GB "
+             f"free, the phase writes {need / 1e9:.2f} GB")
+    smi = nvidia_smi("name,power.limit")
+    card = smi[0] if smi else "unavailable"
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_weights_", dir=tmp))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = write_sd_dir(root, guidance)
+        write_s = time.perf_counter() - t0
+        files = sorted(p for p in root.rglob("*") if p.is_file())
+        on_disk = sum(p.stat().st_size for p in files)
+        print(f"pretrained weights, written ({card}): {written} bytes in "
+              f"{write_s:.3f} s ({written / write_s / 1e9:.3f} GB/s): "
+              + ", ".join(f"{p.relative_to(root)} {p.stat().st_size}"
+                          for p in files))
+
+        # the stack resident on the card, read back
+        t0 = time.perf_counter()
+        loaded = StableDiffusionGuidance.create(
+            model_dir=root, unet_dtype="auto", device=torch.device("cuda"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n, same = equal_modules([(getattr(guidance, p), getattr(loaded, p))
+                                 for p in parts])
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        lat = torch.randn((1, 64, 64, 4), generator=gen, device="cuda")
+        emb = guidance.get_text_embeds(["a highly detailed sandcastle"])
+        t = torch.tensor(500, device="cuda")
+        with torch.no_grad():
+            eps_src = sds_lib.cfg_eps(guidance.unet_apply, lat, t, emb, 100.0)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            eps_new = sds_lib.cfg_eps(loaded.unet_apply, lat, t, emb, 100.0)
+            torch.cuda.synchronize()
+        cfg_attn = _build.LAUNCHES.get(at.ATTN, 0)
+        same_eps = torch.equal(eps_src, eps_new) and bool(
+            torch.isfinite(eps_new).all())
+        print(f"pretrained weights, read ({card}): create(model_dir=...) to "
+              f"the stack resident on the card {load_s:.3f} s, {on_disk} "
+              f"bytes read ({on_disk / load_s / 1e9:.3f} GB/s; the files "
+              f"just written, a warm read); {n} tensors equal to their "
+              f"sources bit for bit (dtype too): {same}; UNet dtype "
+              f"{loaded.unet.conv_in.weight.dtype}; one CFG pass (batch 2) "
+              f"of the loaded UNet equal to the source's bit for bit: "
+              f"{same_eps}, #4 launched {cfg_attn} times in it")
+        if not (same and same_eps and cfg_attn > 0):
+            fail("the SD-v1 stack read from its directory differs from its "
+                 "source, or its CFG pass does, or it never launched #4")
+        del loaded, eps_src, eps_new
+        _free_card()
+
+        # the latent-NeRF CLI from --guide.model_dir
+        argv = ["--config_path", str(SAND_CASTLE), "--guide.model_dir",
+                str(root), "--optim.iters", str(WEIGHTS_STEPS),
+                "--optim.seed", str(seed), "--log.exp_root",
+                str(ROOT / "experiments" / "chip_smoke"), "--log.exp_name",
+                "weights_cli", "--log.eval_size", "0",
+                "--log.full_eval_size", "0", "--log.save_mesh", "false",
+                "--log.log_images", "false", "--log.save_interval", "100",
+                "--device", "cuda"]
+        real_step = trainer_lib.Trainer.train_step
+        losses, stamps = [], []
+
+        def step(self):
+            out = real_step(self)
+            losses.append(float(out[0]))       # synchronises
+            stamps.append(time.perf_counter())
+            return out
+
+        trainer_lib.Trainer.train_step = step
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            train_latent_nerf.main(argv)
+        finally:
+            trainer_lib.Trainer.train_step = real_step
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = dict(_build.LAUNCHES)
+        first = stamps[0] - t0 if stamps else float("nan")
+        print(f"latent-NeRF CLI from --guide.model_dir ({card}): "
+              f"{' '.join(argv[:-2])} (cut: iters {WEIGHTS_STEPS} of 5000, no "
+              f"evals, images or export): {first:.3f} s to the end of its "
+              f"first step (the stack read, the field, the text embeddings), "
+              f"{cli_s:.3f} s in all; losses "
+              + " ".join(f"{v:+.4e}" for v in losses)
+              + f"; launches {cli_launches}")
+        path_kernels = (hg.FWD, hg.BWD, og.LOOKUP, at.ATTN)
+        if not (len(losses) == WEIGHTS_STEPS
+                and all(math.isfinite(v) for v in losses)
+                and all(cli_launches.get(k, 0) > 0 for k in path_kernels)):
+            fail("the latent-NeRF CLI from --guide.model_dir missed steps, "
+                 "gave a non-finite loss or never launched one of #1-#4")
+        _free_card()
+
+        # the converter, as a user runs it
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with ctx.redirect_stdout(out):
+            convert_sd_weights.main(["--model_dir", str(root), "--out",
+                                     str(root / "sd_v1.npz"), "--dtype",
+                                     "bfloat16"])
+        conv_s = time.perf_counter() - t0
+        line = out.getvalue().strip().splitlines()[-1]
+        m = re.search(r": (\d+) tensors, ([\d.]+)M params, dtype=bfloat16$",
+                      line)
+        npz = (root / "sd_v1.npz").stat().st_size
+        print(f"convert_sd_weights --dtype bfloat16: {conv_s:.3f} s, "
+              f"{npz} bytes; its line: {line}")
+        want = sum(n_params.values()) / 1e6
+        if not (m and abs(float(m.group(2)) - want) < 0.1
+                and 1060 < float(m.group(2)) < 1070):
+            fail(f"convert_sd_weights printed {line!r}, not "
+                 f"{want:.1f}M params")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"pretrained weights phase: {phase_s:.1f} s (budget "
+          f"{WEIGHTS_PHASE_S} s); the directory removed: {not root.exists()}")
+    if phase_s > WEIGHTS_PHASE_S:
+        fail(f"the pretrained weights phase took {phase_s:.1f} s, over its "
+             f"{WEIGHTS_PHASE_S} s")
+    return cli_launches
 
 
 def build_guidance(seed: int):
@@ -5226,6 +5570,9 @@ def main() -> int:
     mark("the SD-v1 stack; graphed steps (a)")
     guidance = build_guidance(args.seed)
     check_graphed_steps(args.seed, guidance)
+    mark("pretrained weights (guide.model_dir)")
+    weights_launches = weights_phase(args.seed, guidance)
+    _free_card()
     mark("stage 1")
     eager_launches, app, trainer, captured = train_full_width(
         STEPS, args.seed, guidance)
@@ -5368,8 +5715,9 @@ def main() -> int:
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
                "refine CLI (chunked)": refine_launches,
                "config #3": sketch_eager,
-               "config #3 chunked": sketch_chunked, **paint_paths,
-               **grad_launches}
+               "config #3 chunked": sketch_chunked,
+               "latent-NeRF CLI from guide.model_dir": weights_launches,
+               **paint_paths, **grad_launches}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,

@@ -40,6 +40,8 @@ def _modules():
 
 
 def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    """Nor the packages the port reads pretrained weights without:
+    `safetensors`, `transformers` and `ml_dtypes`."""
     mods = _modules()
     for m in ("train_latent_nerf", "train_latent_paint", "core.obj_io",
               "meshrep.uv_unwrap", "meshrep.textured_mesh", "guidance.vae",
@@ -48,14 +50,16 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
               "training.latent_paint_mesh", "meshrep.laplacian",
               "meshrep.displacement_mlp", "scripts.exp_hash_bwd",
               "profiling", "training.trainer", "train_latent_nerf_mesh",
-              "fields.sketch_shape", "fields.marching", "native"):
+              "fields.sketch_shape", "fields.marching", "native",
+              "safetensors_io", "guidance.weights",
+              "scripts.convert_sd_weights"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'tpunerf' or "
-            "m.startswith('tpunerf.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'tpunerf', 'safetensors', 'transformers', "
+            "'ml_dtypes'))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -64,7 +68,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
 
 def test_no_module_names_jax_or_the_jax_package():
     pat = re.compile(r"\bimport jax\b|\bfrom jax\b|\btpunerf\.|"
-                     r"\bimport tpunerf\b|\bfrom tpunerf\b")
+                     r"\bimport tpunerf\b|\bfrom tpunerf\b|"
+                     r"\b(import|from) (safetensors|transformers|ml_dtypes)\b")
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]

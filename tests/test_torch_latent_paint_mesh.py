@@ -25,8 +25,8 @@ from tpunerf_torch import train_latent_paint_mesh as cli
 from tpunerf_torch.core import views as tviews
 from tpunerf_torch.core.obj_io import load_obj
 from tpunerf_torch.training import config as tconfig
-from tpunerf_torch.training.latent_paint_mesh import (
-    LatentPaintMeshApp as TApp, unported_guidance_settings)
+from tpunerf_torch.training.latent_paint_mesh import \
+    LatentPaintMeshApp as TApp
 from tpunerf_torch.training.trainer import Trainer, unported_settings
 from tpunerf_torch.weights import load_flax_params
 
@@ -383,12 +383,12 @@ def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
     `guide.concept_name` (a concept directory for the SD-v1 stack, held
     against JAX in test_torch_sd_sampling.py); what stays refused around
     them is refused by name, and a concept name that is no directory
-    raises."""
+    raises. With them, `guide.clip_model_dir` is read where the JAX
+    package reads it: for the tower that `guide.image` builds."""
     cfg = _cfg(tconfig, tmp_path)
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
-    assert not unported_guidance_settings(cfg)
     if word == "depth":
         # depth-conditioned SD is ported (mode 0); its modes 1 and 2, which
         # the JAX package lacks, are refused by name
@@ -410,12 +410,21 @@ def test_slice_4_settings_are_refused_by_name(tmp_path, setting, word):
         with pytest.raises(ValueError, match="concept_name") as err:
             TApp.create(cfg, device="cpu")
         assert "not a directory" in str(err.value)
-    elif word in ("guide.image", "CLIP"):
-        # the CLIP tower's pretrained weights wait for A.8
-        cfg.guide.clip_model_dir = "clip"
-        with pytest.raises(NotImplementedError, match="CLIP") as err:
+    elif word == "guide.image":
+        # the tower of clip_loss is read from guide.clip_model_dir: one
+        # that does not exist raises as in the JAX package
+        from tpunerf_torch.utils import write_png
+        cfg.guide.image = tmp_path / "ref.png"
+        write_png(cfg.guide.image, np.full((64, 64, 3), 90, np.uint8))
+        cfg.guide.clip_model_dir = tmp_path / "clip"
+        with pytest.raises(FileNotFoundError, match="no model"):
             TApp.create(cfg, device="cpu")
-        assert "A.8" in str(err.value)
+    elif word == "CLIP":
+        # optim.use_clip without Paint-by-Example and without guide.image
+        # builds no tower, so guide.clip_model_dir is not read, as in JAX
+        cfg.guide.clip_model_dir = tmp_path / "clip"
+        app = TApp.create(cfg, device="cpu")
+        assert app.clip is None and app.ref_image is None
 
 
 def test_sampled_texture_seeds_both_textures_as_jax(guidances, tmp_path):
@@ -454,4 +463,3 @@ def test_clip_loss_text_token_opt_and_bad_mode_are_refused(guidances,
     cfg = _cfg(tconfig, tmp_path, mode=3)
     with pytest.raises(ValueError, match="optim.mode"):
         TApp.create(cfg, guidance=tapp.guidance, device="cpu")
-    assert unported_guidance_settings(_cfg(tconfig, tmp_path)) == []

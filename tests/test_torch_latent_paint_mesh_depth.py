@@ -174,18 +174,28 @@ def test_depth_mode0_loss_gradients_and_adam_step_match_jax(
 @pytest.mark.parametrize("setting,word", [
     (dict(optim=dict(mode=1)), "no such path"),
     (dict(optim=dict(mode=2)), "no such path"),
-    (dict(guide=dict(model_dir="sd2-depth")), "A.8"),
-    (dict(guide=dict(clip_model_dir="clip")), "A.8"),
+    (dict(guide=dict(model_dir="sd2-depth")), "no checkpoint"),
+    (dict(guide=dict(clip_model_dir="clip")), None),
     (dict(guide=dict(use_sd=False)), "unused"),
     (dict(guide=dict(concept_name="cat-toy")), "A.6"),
 ])
-def test_what_config_5_cannot_run_yet_is_refused_by_name(tmp_path, setting,
-                                                         word):
+def test_what_config_5_cannot_run_yet_is_refused_by_name(stacks, tmp_path,
+                                                         setting, word):
+    """What config #5 cannot run is refused by name; a `guide.model_dir`
+    that does not exist raises FileNotFoundError, and `guide.clip_model_dir`
+    without `guide.image` is not read (no CLIP tower is built), as in the
+    JAX package."""
     cfg = _cfg(tconfig, tmp_path)
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
-    with pytest.raises(NotImplementedError, match=word):
+    if word is None:
+        app = TApp.create(cfg, depth_guidance=stacks[1], device="cpu")
+        assert app.clip is None
+        return
+    exc = FileNotFoundError if word == "no checkpoint" else \
+        NotImplementedError
+    with pytest.raises(exc, match=word):
         TApp.create(cfg, device="cpu")
 
 

@@ -234,19 +234,30 @@ def test_pbe_without_an_exemplar_raises(tmp_path):
 @pytest.mark.parametrize("setting,word", [
     (dict(optim=dict(mode=1)), "no such path"),
     (dict(optim=dict(mode=2)), "no such path"),
-    (dict(guide=dict(clip_model_dir="clip")), "A.8"),
-    (dict(guide=dict(model_dir="pbe")), "A.8"),
+    (dict(guide=dict(clip_model_dir="clip")), "no model"),
+    (dict(guide=dict(model_dir="pbe")), "no checkpoint"),
     (dict(guide=dict(diffusion_name="sd-depth")), "unused"),
     (dict(guide=dict(concept_name="cat-toy")), "A.6"),
 ])
 def test_what_paint_by_example_cannot_run_is_refused_by_name(
-        tmp_path, setting, word):
+        stacks, tmp_path, setting, word):
+    """What Paint-by-Example cannot run is refused by name. As in the JAX
+    package, a `guide.model_dir` that does not exist raises
+    FileNotFoundError; `guide.clip_model_dir` is read only for the tower of
+    `optim.use_clip`, and one that does not exist then raises too."""
     cfg = _cfg(tconfig, tmp_path, True, _png(tmp_path / "e.png", 64, 4))
     for section, kv in setting.items():
         for k, v in kv.items():
             setattr(getattr(cfg, section), k, v)
-    with pytest.raises(NotImplementedError, match=word):
-        TApp.create(cfg, device="cpu")
+    if word == "no model":
+        cfg.optim.use_clip = False
+        assert TApp.create(cfg, pbe=stacks[1], device="cpu").clip is None
+        cfg.optim.use_clip = True
+    exc = FileNotFoundError if word in ("no model", "no checkpoint") \
+        else NotImplementedError
+    with pytest.raises(exc, match=word):
+        TApp.create(cfg, pbe=stacks[1] if word == "no model" else None,
+                    device="cpu")
 
 
 def test_cli_trains_paint_by_example_with_clip_evaluates_and_exports(

@@ -6,10 +6,10 @@ w = 1 − ᾱ_t and a NaN guard (`train_step_loss`); single-step and masked
 iterative img2img (`img2img_single_step`, `img2img_step`: strength-truncated
 DDIM walk, update and check masks, and inside the inpaint window the
 9-channel inpainting UNet on [latent, mask, masked latent]); depth-channel
-txt2img (`prompt_to_img`). The stack is random-initialised from a generator
-(pretrained weights are ROADMAP.md item A.8). Every random draw can be
-passed in; otherwise it comes from `generator`, in the order each method
-lists.
+txt2img (`prompt_to_img`). The stack is read from diffusers-layout
+directories (`model_dir`, the inpainting UNet's `inpaint_model_dir`) or
+random-initialised from a generator. Every random draw can be passed in;
+otherwise it comes from `generator`, in the order each method lists.
 """
 from __future__ import annotations
 
@@ -20,13 +20,14 @@ import torch
 
 from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance import vae as vae_lib
+from tpunerf_torch.guidance import weights
 from tpunerf_torch.guidance.clip_text import (CLIPTextConfig, CLIPTextModel,
                                               make_tokenizer)
 from tpunerf_torch.guidance.schedulers import (NoiseSchedule, ddim_step,
                                                ddim_timesteps,
                                                strength_timesteps)
 from tpunerf_torch.guidance.stable_diffusion import (
-    ROADMAP_A8, SDStack, _build, init_text_positions_)
+    SDStack, _build, _on_meta, init_text_positions_)
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.utils import resolve_device, resolve_dtype
@@ -68,19 +69,20 @@ class StableDiffusionDepthGuidance(SDStack):
     @classmethod
     def create(cls, tiny: bool = False, model_dir=None,
                min_step: float = 0.02, max_step: float = 0.98,
-               use_inpaint: bool = False, unet_dtype: str = "float32",
+               use_inpaint: bool = False, inpaint_model_dir=None,
+               unet_dtype: str = "float32",
                device: Optional[torch.device] = None,
                generator: Optional[torch.Generator] = None
                ) -> "StableDiffusionDepthGuidance":
         """Build the depth UNet, the text tower, the VAE and (with
         `use_inpaint`) the inpainting UNet on `device` (CUDA unless the
-        caller names another), random-initialised like flax from
-        `generator` in that order. `unet_dtype` is the UNets' weight and
-        compute dtype ("auto" = bf16 on CUDA, f32 on the CPU); the VAE and
-        the text tower stay f32."""
-        if model_dir is not None:
-            raise NotImplementedError(
-                f"guide.model_dir for the depth backend: {ROADMAP_A8}")
+        caller names another): the first three read from the
+        diffusers-layout `model_dir` (its tokenizer too, where it has one)
+        and the inpainting UNet from `inpaint_model_dir` where they are
+        given, else random-initialised like flax from `generator` in that
+        order. `unet_dtype` is the UNets' weight and compute dtype ("auto" =
+        bf16 on CUDA, f32 on the CPU); the VAE and the text tower stay
+        f32."""
         device = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(in_channels=5)
@@ -94,18 +96,29 @@ class StableDiffusionDepthGuidance(SDStack):
             tcfg = TEXT_WIDE
             latent_size, image_size = 64, 512
         dtype = resolve_dtype(unet_dtype, device)
-        unet = _build(UNet2DCondition, ucfg, device, generator).to(dtype)
-        text = init_text_positions_(
-            _build(CLIPTextModel, tcfg, device, generator), generator)
-        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
+        if model_dir is not None:
+            unet, vae, text = weights.load_sd_params(
+                model_dir, _on_meta(UNet2DCondition, ucfg, dtype),
+                _on_meta(vae_lib.AutoencoderKL, vcfg),
+                _on_meta(CLIPTextModel, tcfg), device)
+        else:
+            unet = _build(UNet2DCondition, ucfg, device, generator).to(dtype)
+            text = init_text_positions_(
+                _build(CLIPTextModel, tcfg, device, generator), generator)
+            vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
         inpaint = None
-        if use_inpaint:
-            inpaint = _build(UNet2DCondition,
-                             dataclasses.replace(ucfg, in_channels=9),
-                             device, generator).to(dtype)
+        icfg = dataclasses.replace(ucfg, in_channels=9)
+        if use_inpaint and inpaint_model_dir is not None:
+            inpaint = weights.load_unet_params(
+                inpaint_model_dir, _on_meta(UNet2DCondition, icfg, dtype),
+                device)
+        elif use_inpaint:
+            inpaint = _build(UNet2DCondition, icfg, device,
+                             generator).to(dtype)
         sched = NoiseSchedule.scaled_linear(device=device)
         return cls(unet=unet, vae=vae, text_encoder=text,
-                   tokenizer=make_tokenizer(None, vocab_size=tcfg.vocab_size,
+                   tokenizer=make_tokenizer(model_dir,
+                                            vocab_size=tcfg.vocab_size,
                                             max_length=tcfg.max_length),
                    sched=sched,
                    min_step=int(sched.num_train_timesteps * min_step),

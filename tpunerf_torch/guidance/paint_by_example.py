@@ -13,9 +13,10 @@ full-schedule DDIM step from the noised latents, the VAE decode and the
 CLIP image loss against the exemplar, differentiated back to the latents).
 `latent_forward` and `forward` are the DDIM inpainting samplers in latent
 and image space; `approx_latent2rgb` fits a 4×3 latent→RGB matrix. The
-stack is random-initialised from a generator (pretrained weights are
-ROADMAP.md item A.8). Every random draw can be passed in; otherwise it comes
-from `generator`, in the order each method lists.
+stack is read from a diffusers-layout directory (`model_dir`: unet/, vae/,
+image_encoder/) or random-initialised from a generator. Every random draw
+can be passed in; otherwise it comes from `generator`, in the order each
+method lists.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch import nn
 
 from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance import vae as vae_lib
+from tpunerf_torch.guidance import weights
 from tpunerf_torch.guidance.clip_vision import (CLIPVisionConfig,
                                                 CLIPVisionModel,
                                                 clip_preprocess,
@@ -35,8 +37,8 @@ from tpunerf_torch.guidance.clip_vision import (CLIPVisionConfig,
                                                 init_vision_embeddings_)
 from tpunerf_torch.guidance.schedulers import (NoiseSchedule, ddim_step,
                                                ddim_timesteps)
-from tpunerf_torch.guidance.stable_diffusion import (LATENT_GRAY, ROADMAP_A8,
-                                                     VAEStack, _build)
+from tpunerf_torch.guidance.stable_diffusion import (LATENT_GRAY, VAEStack,
+                                                     _build, _on_meta)
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.utils import resolve_device, resolve_dtype
@@ -147,13 +149,11 @@ class PaintByExampleGuidance(VAEStack):
                ) -> "PaintByExampleGuidance":
         """Build the 9-channel UNet (in `unet_dtype`: "auto" = bf16 on CUDA,
         f32 on the CPU), the f32 VAE and the exemplar encoder (ViT-L/14,
-        f32) on `device` (CUDA unless the caller names another),
+        f32) on `device` (CUDA unless the caller names another): read from
+        the diffusers-layout `model_dir` where one is given, else
         random-initialised like flax from `generator`, in that order (the
         encoder's class token, positions and `uncond_vector`, N(0, 0.02²),
         after its layers)."""
-        if model_dir is not None:
-            raise NotImplementedError(
-                f"guide.model_dir for Paint-by-Example: {ROADMAP_A8}")
         device = resolve_device(device)
         if tiny:
             ucfg = UNetConfig.tiny(in_channels=9)
@@ -165,14 +165,23 @@ class PaintByExampleGuidance(VAEStack):
             vcfg = vae_lib.VAEConfig.sd_v1()
             vis, proj = CLIPVisionConfig.vit_l_14(), 768
             latent_size, image_size = 64, 512
-        unet = _build(UNet2DCondition, ucfg, device, generator).to(
-            resolve_dtype(unet_dtype, device))
-        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
-        enc = _build(lambda c: PaintByExampleImageEncoder(c, proj), vis,
-                     device, generator)
-        init_vision_embeddings_(enc.model.vision_model, generator)
-        with torch.no_grad():
-            enc.uncond_vector.normal_(0.0, 0.02, generator=generator)
+        dtype = resolve_dtype(unet_dtype, device)
+
+        def encoder(c):
+            return PaintByExampleImageEncoder(c, proj)
+
+        if model_dir is not None:
+            unet, vae, enc = weights.load_pbe_params(
+                model_dir, _on_meta(UNet2DCondition, ucfg, dtype),
+                _on_meta(vae_lib.AutoencoderKL, vcfg), _on_meta(encoder, vis),
+                device)
+        else:
+            unet = _build(UNet2DCondition, ucfg, device, generator).to(dtype)
+            vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
+            enc = _build(encoder, vis, device, generator)
+            init_vision_embeddings_(enc.model.vision_model, generator)
+            with torch.no_grad():
+                enc.uncond_vector.normal_(0.0, 0.02, generator=generator)
         sched = NoiseSchedule.scaled_linear(device=device)
         T = sched.num_train_timesteps
         return cls(vae=vae, sched=sched, unet=unet, image_encoder=enc,

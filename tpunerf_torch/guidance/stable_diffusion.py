@@ -9,8 +9,9 @@ with a start-index skip (`produce_latents`, `embeds_to_img`,
 `prompt_to_img`), DDIM inversion and null-text inversion (`invert`,
 `null_optimization`), textual-inversion concept tokens (`load_concept*`),
 VAE encode/decode with the 0.18215 latent scaling, and the fixed
-latent→RGB preview matrix. Pretrained-weight loading comes with a later
-slice of the port (ROADMAP.md item A.8).
+latent→RGB preview matrix. `create(model_dir=...)` reads pretrained weights
+from a diffusers-layout directory (guidance/weights.py); without one the
+stack is random-initialised like flax.
 
 The sampling and inversion loops run the UNet in the caller's grad mode:
 `null_optimization` differentiates through it (the attention kernels'
@@ -29,6 +30,7 @@ import torch
 
 from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance import vae as vae_lib
+from tpunerf_torch.guidance import weights
 from tpunerf_torch.guidance.clip_text import (CLIPTextConfig, CLIPTextModel,
                                               make_tokenizer)
 from tpunerf_torch.guidance.schedulers import (NoiseSchedule,
@@ -67,8 +69,18 @@ def rgb_to_latent_init(rgb: torch.Tensor, regularizer: float = 1e-2
     return rgb @ M.T
 
 
-ROADMAP_A8 = ("the loaders of pretrained SD weights are not ported yet: "
-              "ROADMAP.md item A.8")
+CONCEPT_BPE_REFUSAL = (
+    "guide.concept_name with a guide.model_dir that holds tokenizer/ "
+    "(vocab.json, merges.txt): the BPE tokenizer takes no added token (in "
+    "the JAX package the pair ends in an AttributeError)")
+
+
+def _on_meta(module_cls, cfg, dtype: torch.dtype = torch.float32
+             ) -> torch.nn.Module:
+    """A module without storage, for `guidance/weights.py` to fill: no
+    random draw and no init for a loaded module."""
+    with torch.device("meta"):
+        return module_cls(cfg).to(dtype)
 
 
 def _build(module_cls, cfg, device: torch.device,
@@ -173,22 +185,28 @@ class StableDiffusionGuidance(SDStack):
                generator: Optional[torch.Generator] = None
                ) -> "StableDiffusionGuidance":
         """Build the UNet, the text tower and the VAE on `device` (CUDA
-        unless the caller names another), random-initialised like flax from
-        `generator`, in that order. `unet_dtype` is the weight/compute
-        dtype of the frozen UNet ("auto" = bf16 on CUDA, f32 on the CPU);
-        the VAE and the text tower stay f32."""
-        if model_dir is not None:
-            raise NotImplementedError(f"guide.model_dir: {ROADMAP_A8}")
+        unless the caller names another): read from the diffusers-layout
+        `model_dir` where one is given (its tokenizer too, where it has
+        one), else random-initialised like flax from `generator`, in that
+        order. `unet_dtype` is the weight/compute dtype of the frozen UNet
+        ("auto" = bf16 on CUDA, f32 on the CPU); the VAE and the text tower
+        stay f32."""
         device = resolve_device(device)
         ucfg = UNetConfig.tiny() if tiny else UNetConfig.sd_v1()
         vcfg = vae_lib.VAEConfig.tiny() if tiny else vae_lib.VAEConfig.sd_v1()
         tcfg = CLIPTextConfig.tiny() if tiny else CLIPTextConfig.vit_l_14()
         latent_size, image_size = (16, 64) if tiny else (64, 512)
-        unet = _build(UNet2DCondition, ucfg, device, generator)
-        unet = unet.to(resolve_dtype(unet_dtype, device))
-        text = init_text_positions_(
-            _build(CLIPTextModel, tcfg, device, generator), generator)
-        vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
+        dtype = resolve_dtype(unet_dtype, device)
+        if model_dir is not None:
+            unet, vae, text = weights.load_sd_params(
+                model_dir, _on_meta(UNet2DCondition, ucfg, dtype),
+                _on_meta(vae_lib.AutoencoderKL, vcfg),
+                _on_meta(CLIPTextModel, tcfg), device)
+        else:
+            unet = _build(UNet2DCondition, ucfg, device, generator).to(dtype)
+            text = init_text_positions_(
+                _build(CLIPTextModel, tcfg, device, generator), generator)
+            vae = _build(vae_lib.AutoencoderKL, vcfg, device, generator)
         tokenizer = make_tokenizer(model_dir, vocab_size=tcfg.vocab_size,
                                    max_length=tcfg.max_length)
         sched = NoiseSchedule.scaled_linear(device=device)
@@ -365,7 +383,10 @@ class StableDiffusionGuidance(SDStack):
     # ------------------------------------------------------------------ #
     def load_concept(self, token: str, embedding) -> None:
         """Add `token` to the tokenizer and its learned row (D,) to the end
-        of the text tower's token table."""
+        of the text tower's token table. Refused for a `model_dir`'s BPE
+        tokenizer, which takes no added token."""
+        if not hasattr(self.tokenizer, "add_token"):
+            raise NotImplementedError(CONCEPT_BPE_REFUSAL)
         self.tokenizer.add_token(token)
         emb = self.text_encoder.embeddings
         old = emb.token_embedding.weight

@@ -11,7 +11,7 @@ against the CPU's with it; the trainer does not use it.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,11 +33,15 @@ GRAD_TOL = 2e-4
 Step = Tuple[float, Dict[str, torch.Tensor]]
 
 
-def tiny_depth_steps(device: torch.device, seed: int
+def tiny_depth_steps(device: torch.device, seed: int,
+                     load_stack: Optional[Callable] = None
                      ) -> Tuple[Step, Step, float]:
     """One step of the tiny config #5 on the CPU and on `device`. The
     weights, the scene's parameters (the displacement made non-zero) and the
     SDS draws come from one CPU generator seeded with `seed`, in that order.
+    `load_stack(cpu_stack, device)`, where given, builds `device`'s stack
+    holding the CPU stack's weights (from a directory it writes); else they
+    are copied by `load_state_dict`.
     Returns (loss, {name: gradient on the CPU}) of the CPU's step and of
     `device`'s, and Σ|latents·∂loss/∂latents| of the CPU's SDS term: the
     scale that its signed sum, and so the loss, is read on."""
@@ -48,12 +52,16 @@ def tiny_depth_steps(device: torch.device, seed: int
         "--guide.texture_resolution", "32", "--render.train_grid_size", "24",
         "--render.body_prob", "0.5"])
     gen = torch.Generator().manual_seed(seed)
-    stacks = {d: StableDiffusionDepthGuidance.create(
-        tiny=True, unet_dtype="float32", device=d,
-        generator=gen if d == cpu else None) for d in (cpu, device)}
-    for name in ("unet", "text_encoder", "vae"):
-        getattr(stacks[device], name).load_state_dict(
-            getattr(stacks[cpu], name).state_dict())
+    stacks = {cpu: StableDiffusionDepthGuidance.create(
+        tiny=True, unet_dtype="float32", device=cpu, generator=gen)}
+    if load_stack is not None:
+        stacks[device] = load_stack(stacks[cpu], device)
+    else:
+        stacks[device] = StableDiffusionDepthGuidance.create(
+            tiny=True, unet_dtype="float32", device=device)
+        for name in ("unet", "text_encoder", "vae"):
+            getattr(stacks[device], name).load_state_dict(
+                getattr(stacks[cpu], name).state_dict())
     apps = {d: LatentPaintMeshApp.create(cfg, depth_guidance=stacks[d],
                                          device=d) for d in (cpu, device)}
     scene = apps[cpu].scene

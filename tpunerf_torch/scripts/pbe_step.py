@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import tempfile
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,8 @@ BRANCH_LATENT = {"clip": 16, "sds": 64}
 Step = Tuple[float, Dict[str, torch.Tensor]]
 
 
-def tiny_pbe_steps(device: torch.device, seed: int
+def tiny_pbe_steps(device: torch.device, seed: int,
+                   load_stack: Optional[Callable] = None
                    ) -> Dict[str, Tuple[Step, Step, float]]:
     """One step of the tiny Paint-by-Example cell on the CPU and on
     `device` for each branch. The weights, the exemplar (a 64² PNG), the
@@ -54,15 +55,21 @@ def tiny_pbe_steps(device: torch.device, seed: int
     tower is the CPU app's. Returns, by branch, (loss, {name: gradient on
     the CPU}) of the CPU's step and of `device`'s, and the scale the loss is
     read on: max(|main term|, Σ|latents·∂main/∂latents|) of the CPU's
-    guidance term."""
+    guidance term. `load_stack(cpu_stack, device)`, where given, builds
+    `device`'s stack holding the CPU stack's weights (from a directory it
+    writes); else they are copied by `load_state_dict`."""
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(seed)
-    stacks = {d: PaintByExampleGuidance.create(
-        tiny=True, unet_dtype="float32", device=d,
-        generator=gen if d == cpu else None) for d in (cpu, device)}
-    for name in ("unet", "vae", "image_encoder"):
-        getattr(stacks[device], name).load_state_dict(
-            getattr(stacks[cpu], name).state_dict())
+    stacks = {cpu: PaintByExampleGuidance.create(
+        tiny=True, unet_dtype="float32", device=cpu, generator=gen)}
+    if load_stack is not None:
+        stacks[device] = load_stack(stacks[cpu], device)
+    else:
+        stacks[device] = PaintByExampleGuidance.create(
+            tiny=True, unet_dtype="float32", device=device)
+        for name in ("unet", "vae", "image_encoder"):
+            getattr(stacks[device], name).load_state_dict(
+                getattr(stacks[cpu], name).state_dict())
     exemplar = (torch.rand((64, 64, 3), generator=gen) * 255).to(torch.uint8)
     with tempfile.TemporaryDirectory(prefix="pbe_step_") as tmp:
         image = Path(tmp) / "exemplar.png"

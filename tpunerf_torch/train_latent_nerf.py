@@ -12,7 +12,10 @@ so the procedural sphere stands in for it):
         --guide.shape_path sphere
 
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
-given. Under `<log.exp_root>/<log.exp_name>/` a run writes
+given. `--guide.model_dir DIR` reads the SD-v1 stack from a diffusers-layout
+directory (unet/, vae/, text_encoder/ in .safetensors or .bin, and
+tokenizer/ where it has one); without it the stack is random-initialised
+from `optim.seed`. Under `<log.exp_root>/<log.exp_name>/` a run writes
 `checkpoints/step_%06d.ckpt` every `log.save_interval` steps with the eval
 frames `vis/eval/step_%06d_%03d_rgb.png`, train-render images
 `vis/train/step_%06d.png` (PNG, where the JAX package writes JPEG), and

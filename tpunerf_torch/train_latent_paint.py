@@ -7,7 +7,8 @@ Usage:
 
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
 given. `guide.shape_path` takes a procedural name (`sphere`, `icosphere`)
-or an OBJ/OFF file. Checkpoints, eval frames, train-render images, the
+or an OBJ/OFF file; `--guide.model_dir` reads the SD-v1 stack as in
+`train_latent_nerf`. Checkpoints, eval frames, train-render images, the
 final orbit and the mesh export land as in `train_latent_nerf`;
 `--optim.resume true` and `--log.eval_only true` work the same way.
 """

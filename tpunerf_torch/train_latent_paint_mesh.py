@@ -24,11 +24,13 @@ CLIP branch of `optim.use_clip` at low t:
         --guide.image exemplar.png --optim.use_clip true \\
         --guide.shape_path sphere
 
-`guide.sampled_texture` seeds the textures from a PNG. The stacks are
-random-initialised from `optim.seed` (pretrained weights are ROADMAP.md
-item A.8); `guide.concept_name` names a textual-inversion concept
-directory (`learned_embeds.bin`, `token_identifier.txt`) for the SD-v1
-stack.
+`guide.sampled_texture` seeds the textures from a PNG. The stack is read
+from `--guide.model_dir` (the diffusers-layout directory of the backend
+the flags choose: SD v1, SD2-depth or Paint-by-Example) and the CLIP tower
+from `--guide.clip_model_dir` (a transformers CLIP vision directory);
+without them they are random-initialised from `optim.seed`.
+`guide.concept_name` names a textual-inversion concept directory
+(`learned_embeds.bin`, `token_identifier.txt`) for the SD-v1 stack.
 Checkpoints, eval frames, train-render images, the final orbit and the
 export of the displaced mesh land as in `train_latent_nerf`;
 `--optim.resume true` and `--log.eval_only true` work the same way.

@@ -20,10 +20,11 @@ the exemplar at low t. `guide.image` also gives `clip_loss` a reference;
 `guide.sampled_texture` seeds the textures from an image;
 `guide.concept_name` loads a textual-inversion concept directory into the
 text-guided SD stack the app builds (a name that is not a directory, or a
-concept with the depth or Paint-by-Example backend, raises). Refused by
-name: pretrained weights (`guide.model_dir`, `guide.clip_model_dir`:
-ROADMAP.md item A.8) and the chunked trainer (`optim.train_chunk > 1`,
-`chunk_refusal`: A.12).
+concept with the depth or Paint-by-Example backend, raises).
+`guide.model_dir` names the diffusers-layout directory of whichever
+backend the app builds, `guide.clip_model_dir` the CLIP tower's
+(guidance/weights.py). Refused by name: the chunked trainer
+(`optim.train_chunk > 1`, `chunk_refusal`: A.12).
 The texture and the dome colours train at `optim.lr`, the displacement and
 the lights at `optim.disp_lr`.
 
@@ -49,7 +50,8 @@ from tpunerf_torch.guidance.depth import (StableDiffusionDepthGuidance,
 from tpunerf_torch.guidance.paint_by_example import PaintByExampleGuidance
 from tpunerf_torch.guidance.schedulers import ddim_step, ddim_timesteps
 from tpunerf_torch.guidance.stable_diffusion import (
-    StableDiffusionGuidance, _build, latent_to_rgb_preview)
+    StableDiffusionGuidance, _build, _on_meta, latent_to_rgb_preview)
+from tpunerf_torch.guidance.weights import load_clip_vision_params
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.meshrep.mesh import Mesh
 from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
@@ -90,26 +92,19 @@ PBE_IMAGE_REFUSAL = (
     "CLIP loss compares against")
 
 
-def unported_guidance_settings(cfg: TrainConfig) -> list:
-    """The settings of `cfg` that need what the port does not have yet,
-    each with the ROADMAP.md item that brings it."""
-    guide = cfg.guide
-    asks = {
-        "guide.clip_model_dir (pretrained CLIP vision weights) comes with "
-        "ROADMAP.md item A.8": guide.clip_model_dir is not None,
-    }
-    return [k for k, v in asks.items() if v]
-
-
 def make_clip_embedder(cfg: TrainConfig, device: torch.device
                        ) -> CLIPImageEmbedder:
     """The CLIP vision tower of the image losses (ViT-L/14; tiny with
-    `guide.tiny_diffusion`), random-initialised like flax from
-    `optim.seed`: pretrained weights (`guide.clip_model_dir`) are ROADMAP.md
-    item A.8, so at full width its loss is noise guidance and a warning
-    says so."""
+    `guide.tiny_diffusion`): read from `guide.clip_model_dir` (a
+    transformers `CLIPVisionModelWithProjection` directory) where it is
+    set, else random-initialised like flax from `optim.seed`, and then at
+    full width its loss is noise guidance and a warning says so."""
     vcfg = (CLIPVisionConfig.tiny() if cfg.guide.tiny_diffusion
             else CLIPVisionConfig.vit_l_14())
+    if cfg.guide.clip_model_dir is not None:
+        return load_clip_vision_params(
+            cfg.guide.clip_model_dir, _on_meta(CLIPImageEmbedder, vcfg),
+            device)
     gen = make_generator(cfg.optim.seed, device)
     embedder = _build(CLIPImageEmbedder, vcfg, device, gen)
     init_vision_embeddings_(embedder.vision_model, gen)
@@ -153,9 +148,6 @@ class LatentPaintMeshApp:
         and, for the CLIP losses, their tower) and the scene on `device`
         (CUDA unless the caller names another; raises when there is no
         card). `mesh` overrides `guide.shape_path`."""
-        missing = unported_guidance_settings(cfg)
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
         mode = cfg.optim.mode
         if mode not in (0, 1, 2):
             raise ValueError(f"unknown optim.mode {mode}")

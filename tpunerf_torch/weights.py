@@ -15,6 +15,10 @@ transformers-style) names. The textured-mesh scene's parameters (`background_sph
 `displacement` and `lights`) keep their layout: the port holds textures
 NHWC, dome colours (1, F, 3, C) and displacements (V, 3), exactly as the JAX
 package does, so nothing is transposed.
+
+`flax_leaves` is the inverse for a UNet, a VAE and a CLIP text tower: the
+JAX package's tree paths and layouts of a port module's parameters (what
+`scripts/convert_sd_weights.py` writes).
 """
 from __future__ import annotations
 
@@ -157,6 +161,70 @@ def flax_entries(tree: Mapping[str, Any], kind: str
             for old, new in _UNET_FF:
                 name = name.replace(old, new)
         yield name, value
+
+
+# the inverse renames of the module kinds `flax_leaves` takes: applied to a
+# port name without its leaf, in this order, before it splits on dots
+_INVERSE = {
+    "unet": [
+        (r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_res_\3"),
+        (r"(down|up)_blocks\.(\d+)\.attentions\.(\d+)", r"\1_\2_attn_\3"),
+        (r"down_blocks\.(\d+)\.downsamplers\.0", r"down_\1_downsample"),
+        (r"up_blocks\.(\d+)\.upsamplers\.0", r"up_\1_upsample"),
+        (r"mid_block\.resnets\.(\d+)", r"mid_res_\1"),
+        (r"mid_block\.attentions\.0", r"mid_attn"),
+        (r"transformer_blocks\.(\d+)", r"block_\1"),
+        (r"to_out\.0", r"to_out"),
+        (r"ff\.net\.0\.proj", r"ff.proj"),
+        (r"ff\.net\.2", r"ff.out"),
+    ],
+    "vae": [
+        (r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_res_\3"),
+        (r"down_blocks\.(\d+)\.downsamplers\.0\.conv", r"down_\1_downsample"),
+        (r"up_blocks\.(\d+)\.upsamplers\.0\.conv", r"up_\1_upsample"),
+        (r"mid_block\.resnets\.(\d+)", r"mid_res_\1"),
+        (r"mid_block\.attentions\.0", r"mid_attn"),
+        (r"to_out\.0", r"to_out"),
+    ],
+    "clip_text": [
+        (r"encoder\.layers\.(\d+)", r"layer_\1"),
+        (r"mlp\.fc(\d)", r"fc\1"),
+        (r"embeddings\.token_embedding", r"token_embedding"),
+    ],
+}
+
+
+def flax_leaves(module: torch.nn.Module, kind: str
+                ) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """The inverse of `flax_entries` for a UNet ("unet"), a VAE ("vae") or
+    a CLIP text tower ("clip_text"): each parameter's path in the JAX
+    package's tree (under "params") and its value in flax's layout — a
+    Linear weight as the (in, out) kernel, a Conv2d weight as HWIO, a norm
+    weight as `scale`, an Embedding's as `embedding` — as views, copying
+    nothing."""
+    if kind not in _INVERSE:
+        raise ValueError(f"no inverse for module kind {kind!r}")
+    owners = dict(module.named_modules())
+    for name, p in module.named_parameters():
+        prefix, leaf = name.rsplit(".", 1)
+        owner = owners[prefix]
+        if kind == "clip_text" and name == \
+                "embeddings.position_embedding.weight":
+            yield ("params", "position_embedding"), p.detach()
+            continue
+        for pat, rep in _INVERSE[kind]:
+            prefix = re.sub(pat, rep, prefix)
+        value = p.detach()
+        if leaf == "weight":
+            if isinstance(owner, torch.nn.Linear):
+                leaf, value = "kernel", value.T
+            elif isinstance(owner, torch.nn.Conv2d):
+                leaf, value = "kernel", value.permute(2, 3, 1, 0)
+            elif isinstance(owner, torch.nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "scale"
+        yield ("params", *prefix.split("."), leaf), value
 
 
 def load_flax_params(module: torch.nn.Module, tree: Mapping[str, Any],
