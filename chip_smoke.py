@@ -189,9 +189,9 @@
     fault planted in one layer's backward) and each of its 19 backward
     calls against `attention_bwd_plain` on the call's own inputs, and two
     profiled steps with #12 + #13's share of the device's busy time;
-    null-text inversion at
-    its defaults (`invert` over 50 DDIM steps, `null_optimization` 50 x 10)
-    with its seconds, peak and launches, the fitted embeddings' retrace
+    null-text inversion at its defaults but 5 inner steps (`invert` over
+    50 DDIM steps, `null_optimization` 50 x 5, cut from 50 x 10) with its
+    seconds, peak and launches, the fitted embeddings' retrace
     and a profiled 2 x 5 run (#12 + #13's share of its busy time); `prompt_to_img` (50 steps) and one DDS step, timed.
 13. Pretrained weights, after the SD-v1 stack is built (`weights_phase`):
     the stack written as a diffusers-layout directory (the bf16 UNet as
@@ -205,6 +205,20 @@
     on the directory; the bytes and seconds of the write, the read and the
     CLI's first step, beside the card's name and power limit. At most 90 s;
     the directory is removed after it.
+14. The bin-overflow choice on the device (`check_gates`, after 2): each of
+    #5-#10 at the eval chunk's shapes with its gate open (equal to plain
+    and to the ungated call) and shut (its output untouched), and the ms a
+    launch costs in a CUDA graph shut and open. Then latent-paint-mesh with
+    `--optim.train_chunk 8` (`chunked_mesh_phase`, after 9; and at the
+    ends of 10 and 11 on their own stacks): mode 0, mode 1 at 512² (bins
+    hold) and 256² (its judged step on a view whose selection bins
+    overflow), mode 2, config #5 and Paint-by-Example with `use_clip` (a
+    draw graph and a step graph a branch, judged once on each branch):
+    each graphed step against two eager runs (`judge_graphed`), 16 steps
+    in chunks of 8 with every launch accounted for by the replays' recorded
+    launches, the step in turns (eager, graph, graph, eager), profiled
+    replays with the idle share, the launches a replay (by branch) and the
+    peak memory.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -2996,8 +3010,9 @@ def train_paint_full_width(steps: int, seed: int, guidance):
         if scene.texture_img_rgb_finetune.abs().max().item() != 0:
             fail("the frozen RGB texture was updated")
         # the path's kernels, and the binned sweep rather than its fallback:
-        # two dense launches per step and none from the eval render
-        want = {at.ATTN: 5 * steps, rz.DENSE: 2 * steps, rz.BINNED: 1}
+        # two dense launches per step, and the eval render's one behind its
+        # shut gate beside the binned one
+        want = {at.ATTN: 5 * steps, rz.DENSE: 2 * steps + 1, rz.BINNED: 1}
         print("latent-paint launches: " + json.dumps(launches))
         for name, n in want.items():
             if launches.get(name, 0) != n:
@@ -3087,7 +3102,7 @@ def train_paint_chunked(steps: int, seed: int, guidance):
         if per_replay != {at.ATTN: 5, rz.DENSE: 2}:
             fail(f"the captured latent-paint step records {per_replay}, "
                  f"not 5 attention and 2 dense selection launches")
-        want = {at.ATTN: 5 * (steps + 1), rz.DENSE: 2 * (steps + 1),
+        want = {at.ATTN: 5 * (steps + 1), rz.DENSE: 2 * (steps + 1) + 1,
                 rz.BINNED: 1}
         for name, n in want.items():
             if launches.get(name, 0) != n:
@@ -3154,9 +3169,10 @@ def refine_paint(cfg, guidance, trainer, tmp: str) -> None:
     if (torch.equal(got, scene.texture_img_rgb_finetune.detach())
             or not results):
         fail("the latent-paint refine did not train or write its frames")
-    # 8 replays and the warm-up step, and the eval chunk's binned selection
+    # 8 replays and the warm-up step, and the eval chunk's gated pair
     want = {name: 9 * n for name, n in rtrainer.graph.launches.items()}
     want[rz.BINNED] = 1
+    want[rz.DENSE] += 1
     if (rtrainer.graph.launches != {at.ATTN: 5, rz.DENSE: 2}
             or any(launches.get(n, 0) != c for n, c in want.items())):
         fail(f"the latent-paint refine launched {launches}, expected {want}")
@@ -3261,17 +3277,16 @@ def train_mesh_full_width(steps: int, seed: int, guidance):
         if scene.texture_img_rgb_finetune.abs().max().item() != 0:
             fail("the frozen RGB texture was updated")
         # per step: both cameras render (2 soft forwards, 2 mesh selections)
-        # and the dome (1 selection); the eval chunk: both cameras at 512²
-        # (binned unless a camera's bins overflow, which the lines above
-        # foretell for the soft ones); no loss reads the soft mask, so no
-        # backward kernel runs
+        # and the dome (1 selection); the eval chunk: both cameras at 512²,
+        # each a gated pair (dense and binned launched, the one the bins'
+        # overflow names open, which the lines above foretell for the soft
+        # ones); no loss reads the soft mask, so no backward kernel runs
         n = lambda name: launches.get(name, 0)  # noqa: E731
         print("latent-paint-mesh launches: " + json.dumps(launches))
         if not (n(at.ATTN) == 5 * steps
-                and n(rz.DENSE) + n(rz.BINNED) == 3 * steps + 2
-                and n(rz.DENSE) >= 3 * steps
-                and n(rz.SOFT_FWD_DENSE) == 2 * steps + n_over
-                and n(rz.SOFT_FWD_BINNED) == 2 - n_over
+                and n(rz.DENSE) == 3 * steps + 2 and n(rz.BINNED) == 2
+                and n(rz.SOFT_FWD_DENSE) == 2 * steps + 2
+                and n(rz.SOFT_FWD_BINNED) == 2
                 and n(rz.SOFT_BWD_DENSE) == n(rz.SOFT_BWD_BINNED) == 0):
             fail("latent-paint-mesh launched its kernels an unexpected "
                  "number of times")
@@ -3330,8 +3345,10 @@ def train_mesh_full_width(steps: int, seed: int, guidance):
                 fail(f"mode {mode} gave the lights no gradient")
             soft = (mlaunch.get(rz.SOFT_FWD_DENSE, 0)
                     + mlaunch.get(rz.SOFT_FWD_BINNED, 0))
-            # mode 1: two UNet passes a step (image and blended latents)
-            if soft != 2 * extra_steps or mlaunch.get(at.ATTN, 0) != \
+            # mode 1: two UNet passes a step (image and blended latents),
+            # the 512² soft forwards as gated pairs (both kernels launched)
+            if soft != 2 * extra_steps * (2 if mode == 1 else 1) \
+                    or mlaunch.get(at.ATTN, 0) != \
                     5 * extra_steps * (2 if mode == 1 else 1):
                 fail(f"mode {mode} launched its kernels an unexpected "
                      f"number of times")
@@ -3760,9 +3777,13 @@ def text_token_phase(seed: int, guidance) -> dict:
     return counts
 
 
+NULL_INNER = 5    # null_optimization's inner steps, cut from its default 10
+
+
 def null_text_phase(seed: int, guidance) -> dict:
     """`invert` (50 DDIM steps), then `null_optimization` at its defaults
-    (50 x 10 Adam steps on the uncond embedding, through the UNet), timed,
+    but NULL_INNER inner steps (50 x 5 Adam steps on the uncond embedding,
+    through the UNet, cut from 50 x 10 to keep the script's time), timed,
     with its peak and launches; the CFG sampling with the fitted
     embeddings retraces the trajectory from its end (finite); a profiled
     run of 2 x 5."""
@@ -3787,7 +3808,8 @@ def null_text_phase(seed: int, guidance) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
-    uncond = guidance.null_optimization(traj, emb)
+    uncond = guidance.null_optimization(traj, emb,
+                                        num_inner_steps=NULL_INNER)
     torch.cuda.synchronize()
     t_null = time.perf_counter() - t0
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
@@ -3799,9 +3821,11 @@ def null_text_phase(seed: int, guidance) -> dict:
                                   torch.cat([uncond[i], cond]), 7.5)
             lat = ddim_step(guidance.sched, eps, t, lat, 50).prev_sample
         mse = torch.mean((lat - traj[0]) ** 2).item()
-    print(f"null-text inversion (50 x 10, defaults): invert {t_inv:.3f} s, "
-          f"null_optimization {t_null:.3f} s ({1e3 * t_null / 500:.2f} ms an "
-          f"inner step), peak {peak:.3f} GiB; retraced latents finite: "
+    inner = 50 * NULL_INNER
+    print(f"null-text inversion (50 x {NULL_INNER}, the defaults but the "
+          f"inner steps): invert {t_inv:.3f} s, null_optimization "
+          f"{t_null:.3f} s ({1e3 * t_null / inner:.2f} ms an inner step), "
+          f"peak {peak:.3f} GiB; retraced latents finite: "
           f"{bool(torch.isfinite(lat).all())}, MSE to the trajectory's first "
           f"{mse:.4e}")
     print(f"null-text launches: {json.dumps(counts)}")
@@ -3812,7 +3836,8 @@ def null_text_phase(seed: int, guidance) -> dict:
     # an inner step is one CFG pass: 5 forwards, 4 backwards (the first
     # self-attention reads nothing that depends on the embedding); each of
     # the 50 steps ends with one more pass
-    want = {at.ATTN: 5 * 550, at.ATTN_DKV: 4 * 500, at.ATTN_DQ: 4 * 500}
+    want = {at.ATTN: 5 * (inner + 50), at.ATTN_DKV: 4 * inner,
+            at.ATTN_DQ: 4 * inner}
     if not (bool(torch.isfinite(lat).all())
             and bool(torch.isfinite(uncond).all())
             and uncond.shape == (50, 1, 77, 768)
@@ -3912,14 +3937,14 @@ def check_step_raster_kernels(render_fn, batch: int, label: str):
     calls = {rz.DENSE: [], rz.SOFT_FWD_DENSE: []}
     select, soft = rz.select_faces_dense_cuda, rz.soft_prod_dense_cuda
 
-    def rec_select(rows, pix, width=0):
+    def rec_select(rows, pix, width=0, *gate):
         calls[rz.DENSE].append((rows.clone(), pix.clone(), width))
-        return select(rows, pix, width)
+        return select(rows, pix, width, *gate)
 
-    def rec_soft(rows, pix, sigma, width=0):
+    def rec_soft(rows, pix, sigma, width=0, *gate):
         calls[rz.SOFT_FWD_DENSE].append((rows.clone(), pix.clone(), sigma,
                                          width))
-        return soft(rows, pix, sigma, width)
+        return soft(rows, pix, sigma, width, *gate)
 
     rz.select_faces_dense_cuda, rz.soft_prod_dense_cuda = rec_select, rec_soft
     try:
@@ -4097,12 +4122,13 @@ def train_depth_full_width(steps: int, seed: int):
               + json.dumps(launches))
         # a step: one UNet pass (5 long self-attentions over the batch of
         # 4), the mesh and the dome selections, the mesh's soft forward;
-        # an eval chunk: the mesh's selection and soft forward at 512²
+        # an eval chunk: the mesh's selection and soft forward at 512², each
+        # a gated pair
         if not (n(at.ATTN) == 5 * steps
-                and n(rz.DENSE) + n(rz.BINNED) == 2 * steps + n_chunks
-                and n(rz.DENSE) >= 2 * steps and n(rz.BINNED) > 0
-                and n(rz.SOFT_FWD_DENSE) == steps + over * n_chunks
-                and n(rz.SOFT_FWD_BINNED) == (1 - over) * n_chunks
+                and n(rz.DENSE) == 2 * steps + n_chunks
+                and n(rz.BINNED) == n_chunks
+                and n(rz.SOFT_FWD_DENSE) == steps + n_chunks
+                and n(rz.SOFT_FWD_BINNED) == n_chunks
                 and n(rz.SOFT_BWD_DENSE) == n(rz.SOFT_BWD_BINNED) == 0
                 and n_chunks == 3):
             fail("config #5 launched its kernels an unexpected number of "
@@ -4186,7 +4212,21 @@ def train_depth_full_width(steps: int, seed: int):
         if not (img.shape == (1, 512, 512, 3)
                 and bool(torch.isfinite(img).all())):
             fail("config #5 txt2img gave no finite 512² image")
-    return launches, b2
+        del trainer, app, img, out
+        _free_card()
+        # the chunked trainer on the same stack
+        chunked = chunked_mesh_case("config #5 (depth, B = 2)", parse(
+            TrainConfig, [
+                "--config_path", str(NASCAR_DEPTH), "--guide.shape_path",
+                "sphere", "--optim.iters", str(MESH_CHUNK_STEPS),
+                "--optim.seed", str(seed), "--log.exp_root", tmp,
+                "--log.exp_name", "depth_chunked", "--log.eval_size", "0",
+                "--log.full_eval_size", "0", "--log.save_mesh", "false",
+                "--log.log_images", "false", "--log.save_interval",
+                str(MESH_CHUNK_STEPS + 1), "--optim.train_chunk", "8"]),
+            lambda c: LatentPaintMeshApp.create(c, device=dev,
+                                                depth_guidance=dg))
+    return launches, b2, chunked
 
 
 def _pct(values, q: float) -> float:
@@ -4291,9 +4331,9 @@ def train_pbe_full_width(steps: int, seed: int):
         branches, chunks = [], []
         loss_fn, eval_render = app.loss_fn, app.eval_render
 
-        def recorded(views, draws=None, generator=None):
-            loss, aux = loss_fn(views, draws, generator)
-            branches.append(aux["clip_branch"])
+        def recorded(views, draws=None, generator=None, branch=None):
+            loss, aux = loss_fn(views, draws, generator, branch)
+            branches.append(bool(aux["clip_branch"]))
             return loss, aux
 
         app.loss_fn = recorded
@@ -4335,12 +4375,12 @@ def train_pbe_full_width(steps: int, seed: int):
         # a step: one UNet pass (5 long self-attentions; the CLIP branch's
         # decode and tower are plain), both cameras' mesh selections and
         # soft forwards, the dome's selection; an eval chunk: both cameras
-        # at 512²
+        # at 512², each a gated pair
         if not (n(at.ATTN) == 5 * steps and n_chunks == 3
-                and n(rz.DENSE) + n(rz.BINNED) == 3 * steps + 2 * n_chunks
-                and n(rz.DENSE) >= 3 * steps and n(rz.BINNED) > 0
-                and n(rz.SOFT_FWD_DENSE) == 2 * steps + n_over * n_chunks
-                and n(rz.SOFT_FWD_BINNED) == (2 - n_over) * n_chunks
+                and n(rz.DENSE) == 3 * steps + 2 * n_chunks
+                and n(rz.BINNED) == 2 * n_chunks
+                and n(rz.SOFT_FWD_DENSE) == 2 * (steps + n_chunks)
+                and n(rz.SOFT_FWD_BINNED) == 2 * n_chunks
                 and n(rz.SOFT_BWD_DENSE) == n(rz.SOFT_BWD_BINNED) == 0):
             fail("the Paint-by-Example run launched its kernels an "
                  "unexpected number of times")
@@ -4358,8 +4398,9 @@ def train_pbe_full_width(steps: int, seed: int):
         # one profiled step of each branch (t forced through the draws)
         for label, t in (("SDS", 500), ("CLIP", 250)):
             forced = torch.tensor(t, device=dev)
-            app.loss_fn = lambda v, draws=None, generator=None: loss_fn(
-                v, {"t": forced}, generator)
+            # the trainer's drawn t and its branch give way to the forced t
+            app.loss_fn = lambda v, draws=None, generator=None, branch=None: \
+                loss_fn(v, {"t": forced}, generator)
             try:
                 trainer.train_step()        # warm
                 profile_steps(trainer, f"Paint-by-Example {label} (t = {t})",
@@ -4410,7 +4451,23 @@ def train_pbe_full_width(steps: int, seed: int):
                 and bool(torch.isfinite(img.grad).all())):
             fail("the CLIP branch's layers gave no finite gradient")
         trainer.close()
-    return launches
+        del trainer, x, img, eps
+        _free_card()
+        # the chunked trainer on the same stack: a draw graph, a step graph
+        # a branch
+        chunked = chunked_mesh_case("Paint-by-Example (use_clip)", parse(
+            TrainConfig, [
+                "--guide.use_sd", "false", "--guide.image", str(image),
+                "--optim.use_clip", "true", "--guide.shape_path", "sphere",
+                "--render.body_prob", "0.7", "--optim.iters",
+                str(MESH_CHUNK_STEPS), "--optim.seed", str(seed),
+                "--log.exp_root", tmp, "--log.exp_name", "pbe_chunked",
+                "--log.eval_size", "0", "--log.full_eval_size", "0",
+                "--log.save_mesh", "false", "--log.log_images", "false",
+                "--log.save_interval", str(MESH_CHUNK_STEPS + 1),
+                "--optim.train_chunk", "8"]),
+            lambda c: LatentPaintMeshApp.create(c, pbe=g, device=dev))
+    return launches, chunked
 
 
 def silhouette_phase(app, trainer, guidance):
@@ -4436,11 +4493,16 @@ def silhouette_phase(app, trainer, guidance):
     captured, captured_dense = [], []
 
     def spy_on(fn, store, gi, pi):
+        # a call whose kernel's gate is shut (the other of its pair ran)
+        # is not recorded, and the gate is not kept with the inputs
         def spy(*args):
+            n = pi + 3                    # up to sigma and width
+            gate = args[n] if len(args) > n else None
             live = int((args[gi] * args[pi] != 0).sum().item())
-            if not store or live > store[0]:
+            if (gate is None or not int(gate)) and (not store
+                                                     or live > store[0]):
                 store[:] = [live] + [a.clone() if torch.is_tensor(a) else a
-                                     for a in args]
+                                     for a in args[:n]]
             return fn(*args)
         return spy
 
@@ -4710,9 +4772,10 @@ def check_graphed_steps(seed: int, guidance) -> None:
     (`graphed_against_eager`): stage 1 at sand_castle.yaml's defaults and
     the refine stage (an RGB field) and config #3 (the sketch shape's
     loss), each on step 1, which carries the occupancy refresh (its draws
-    follow the replay's), and latent-paint.
-    The loss and the generator must be equal bit for bit. Where the two
-    eager runs agree on everything, so must the replay. Where they differ,
+    follow the replay's), and latent-paint (`judge_graphed`).
+    The generator must be equal bit for bit. Where the two eager runs
+    agree on everything, so must the replay. Where they differ (the loss
+    too, in latent-paint-mesh's mode 1, whose forward varies),
     the step is judged once more, captured and run under
     `torch.use_deterministic_algorithms(True, warn_only=True)`, which names
     the operations that have no deterministic form: where it names none
@@ -4724,14 +4787,10 @@ def check_graphed_steps(seed: int, guidance) -> None:
     algorithms two eager runs do not bound a tensor's spread."""
     import dataclasses
     import tempfile
-    import warnings
-    import torch
     from tpunerf_torch.core.config import parse
     from tpunerf_torch.training.config import TrainConfig
     from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
     from tpunerf_torch.training.latent_paint import LatentPaintApp
-    from tpunerf_torch.scripts.graph_check import (TOL, graph_agreement,
-                                                   graphed_against_eager)
     from tpunerf_torch.training.trainer import Trainer
 
     rgb_guidance = dataclasses.replace(guidance, latent_mode=False)
@@ -4760,69 +4819,110 @@ def check_graphed_steps(seed: int, guidance) -> None:
                     config_path=LEGO_MAN)),
         }
 
-        def compare(label, app_cls, g, cfg):
-            trainer = Trainer(cfg, app_cls.create(cfg, guidance=g,
-                                                  device="cuda"),
-                              device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            launches = trainer.capture().launches
-            torch.cuda.synchronize()
-            capture_s = time.perf_counter() - t0
-            d = graphed_against_eager(trainer)
-            verdict = graph_agreement(d)
-            print(f"graphed step (a), {label}: warm-up and capture "
-                  f"{capture_s:.2f} s, launches a replay "
-                  f"{json.dumps(launches)}")
-            for group, v in verdict.items():
-                print(f"  {group}: {v['equal']}/{v['tensors']} tensors equal "
-                      f"bit for bit to the eager step; largest |replay - "
-                      f"eager| {v['replay']:.3e}; two eager runs differ by "
-                      f"{v['eager']:.3e}; largest |value| {v['scale']:.3e}; "
-                      f"largest share of a tensor's allowance (4x its eager "
-                      f"difference or {TOL:g} of its largest |value|) "
-                      f"{v['worst']:.3g}; agreed {v['ok']}")
-            del trainer
-            _free_card()
-            return d, verdict
-
         for label, (app_cls, g, cfg) in cases.items():
-            d, verdict = compare(label, app_cls, g, cfg)
-            if not (d["replay"]["loss"] == 0.0
-                    and d["replay"]["generator"] == 0.0):
-                fail(f"the graphed step differs from the eager one ({label})")
-            if all(v == 0.0 for v in d["eager"].values()):
-                if not all(v["ok"] for v in verdict.values()):
-                    fail(f"the graphed step differs from the eager one "
-                         f"({label})")
-                continue
-            # not deterministic: two eager runs do not bound a tensor's
-            # spread from run to run, so the judge is the step under
-            # deterministic algorithms, which also names the cause
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.use_deterministic_algorithms(True, warn_only=True)
-                try:
-                    d2, verdict2 = compare(
-                        f"{label}, deterministic algorithms", app_cls, g,
-                        cfg)
-                finally:
-                    torch.use_deterministic_algorithms(False)
-            named = sorted({str(w.message).split(" does not have")[0][:80]
-                            for w in caught
-                            if "deterministic" in str(w.message)})
-            print(f"  the eager runs differ; operations without a "
-                  f"deterministic form in this step: {named}; under "
-                  f"deterministic algorithms the eager runs differ by "
-                  f"{max(d2['eager'].values()):.3e}, the replay by "
-                  f"{max(d2['replay'].values()):.3e}")
-            if not all(v["ok"] for v in verdict2.values()):
-                fail(f"the graphed step differs from the eager one ({label},"
-                     f" deterministic algorithms)")
-            if not named and max(max(d2["replay"].values()),
-                                 max(d2["eager"].values())) != 0.0:
-                fail(f"under deterministic algorithms the graphed step is "
-                     f"not the eager one bit for bit ({label})")
+            judge_graphed(label, lambda: Trainer(
+                cfg, app_cls.create(cfg, guidance=g, device="cuda"),
+                device="cuda"))
+
+
+def judge_graphed(label: str, make_trainer, prepare=None,
+                  branch=None) -> dict:
+    """`check_graphed_steps`' judgement of one step: a fresh trainer from
+    `make_trainer()` (positioned by `prepare(trainer)` where given, as the
+    next step's branch is chosen), captured, its replay against two eager
+    runs (`graphed_against_eager`); where the eager runs differ, again
+    under `torch.use_deterministic_algorithms(True, warn_only=True)` with a
+    fresh trainer (where that capture fails, as with an operation whose
+    deterministic form reads the host, it is said, and the first run's
+    spread judges). `branch`, where given, is the branch the judged step
+    must have replayed. Fails where the step does not agree; returns the
+    verdict that decided (its groups, "deterministic" and the operations
+    named)."""
+    import warnings
+    import torch
+    from tpunerf_torch.scripts.graph_check import (TOL, graph_agreement,
+                                                   graphed_against_eager)
+
+    def compare(label):
+        trainer = make_trainer()
+        if prepare is not None:
+            prepare(trainer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = trainer.capture()
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        d = graphed_against_eager(trainer)
+        verdict = graph_agreement(d)
+        if branch is not None and graph.branch != branch:
+            fail(f"the judged step of {label} replayed the {graph.branch} "
+                 f"branch")
+        launches = {str(b): n for b, n in graph.launches_by_branch.items()}
+        print(f"graphed step (a), {label}: warm-up and capture "
+              f"{capture_s:.2f} s, launches a replay "
+              + (json.dumps(graph.launches) if list(launches) == ["None"]
+                 else f"by branch (False: SDS, True: CLIP) "
+                      f"{json.dumps(launches)}, this step's branch "
+                      f"{graph.branch}"))
+        for group, v in verdict.items():
+            print(f"  {group}: {v['equal']}/{v['tensors']} tensors equal "
+                  f"bit for bit to the eager step; largest |replay - "
+                  f"eager| {v['replay']:.3e}; two eager runs differ by "
+                  f"{v['eager']:.3e}; largest |value| {v['scale']:.3e}; "
+                  f"largest share of a tensor's allowance (4x its eager "
+                  f"difference or {TOL:g} of its largest |value|) "
+                  f"{v['worst']:.3g}; against the eager update on the "
+                  f"replay's gradients {v['update']:.3e}; agreed {v['ok']}")
+        del trainer, graph
+        _free_card()
+        return d, verdict
+
+    d, verdict = compare(label)
+    if d["replay"]["generator"] != 0.0:
+        fail(f"the graphed step draws other numbers than the eager one "
+             f"({label})")
+    if all(v == 0.0 for v in d["eager"].values()):
+        if not all(v["ok"] for v in verdict.values()):
+            fail(f"the graphed step differs from the eager one ({label})")
+        return {"groups": verdict, "deterministic": False, "named": []}
+    # not deterministic (the loss too, where a forward's algorithms vary):
+    # two eager runs do not bound a tensor's spread from run to run, so the
+    # judge is the step under deterministic algorithms, which also names
+    # the cause
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            d2, verdict2 = compare(f"{label}, deterministic algorithms")
+        except RuntimeError as exc:
+            d2 = None
+            refused = str(exc).splitlines()[0][:200]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if d2 is None:
+        _free_card()
+        print(f"  the eager runs differ; under deterministic algorithms the "
+              f"step cannot be captured ({refused}): judged by the eager "
+              f"runs' own spread")
+        if not all(v["ok"] for v in verdict.values()):
+            fail(f"the graphed step differs from the eager one beyond the "
+                 f"eager runs' spread ({label})")
+        return {"groups": verdict, "deterministic": None, "named": []}
+    named = sorted({str(w.message).split(" does not have")[0][:80]
+                    for w in caught if "deterministic" in str(w.message)})
+    print(f"  the eager runs differ; operations without a deterministic form "
+          f"in this step: {named}; under deterministic algorithms the eager "
+          f"runs differ by {max(d2['eager'].values()):.3e}, the replay by "
+          f"{max(d2['replay'].values()):.3e}")
+    if not (d2["replay"]["generator"] == 0.0
+            and all(v["ok"] for v in verdict2.values())):
+        fail(f"the graphed step differs from the eager one ({label}, "
+             f"deterministic algorithms)")
+    if not named and max(max(d2["replay"].values()),
+                         max(d2["eager"].values())) != 0.0:
+        fail(f"under deterministic algorithms the graphed step is not the "
+             f"eager one bit for bit ({label})")
+    return {"groups": verdict2, "deterministic": True, "named": named}
 
 
 def timed_chunks(trainer):
@@ -4860,10 +4960,13 @@ def timed_chunks(trainer):
     return chunks, losses, dict(_build.LAUNCHES)
 
 
-def steady_graph_vs_eager(trainer, label: str, n: int = 10, rounds: int = 2):
+def steady_graph_vs_eager(trainer, label: str, n: int = 10, rounds: int = 2,
+                          before_step=None):
     """The step body eager and replayed, `n` each in turns (eager, graph,
     graph, eager, …), each step between synchronisations: the median and
-    spread of each (the state trains on; no refresh runs)."""
+    spread of each (the state trains on; no refresh runs). `before_step()`,
+    where given, runs untimed before each step (as moving the generator on
+    to a branch)."""
     import torch
     graph = trainer.capture()
     opt = trainer.optimizer
@@ -4877,6 +4980,8 @@ def steady_graph_vs_eager(trainer, label: str, n: int = 10, rounds: int = 2):
     for kind in order:
         fn = eager if kind == "eager" else graph.replay
         for _ in range(n // 2):
+            if before_step is not None:
+                before_step()
             torch.cuda.synchronize()
             t = time.perf_counter()
             fn()
@@ -5297,9 +5402,9 @@ def bridge_selection(app, trainer, dims) -> dict:
 
     real, calls = rz.select_faces_dense_cuda, []
 
-    def record(rows, pix, width=0):
+    def record(rows, pix, width=0, *gate):
         calls.append((rows.clone(), pix.clone(), width))
-        return real(rows, pix, width)
+        return real(rows, pix, width, *gate)
 
     dev, cfg = trainer.device, trainer.cfg
     rz.select_faces_dense_cuda = record
@@ -5466,9 +5571,19 @@ def bridge_phase(seed: int, guidance, ckpt: Path, rows, paint_rows) -> dict:
           f"{timed['UV build'][0]:.1f} ms; texture "
           f"{tuple(app.scene.texture_img.shape)}")
     tex0 = app.scene.texture_img.detach().clone()
-    _, times, tail_s, paint_launches = timed_train(trainer, paint_steps)
-    route = ("band bins (#6)" if paint_launches.get(rz.BINNED, 0)
-             else "the dense sweep (#5: the bins overflowed)")
+    # the eval chunk's selection bins: overflowing or not, read after the
+    # run (the gates choose on the device)
+    bins, bin_faces = [], rz._bin_faces
+    rz._bin_faces = lambda *a, **k: bins.append((a[4], bin_faces(*a, **k))) \
+        or bins[-1][1]
+    try:
+        _, times, tail_s, paint_launches = timed_train(trainer, paint_steps)
+    finally:
+        rz._bin_faces = bin_faces
+    over = [int(out[1]) > K for K, out in bins]
+    route = ("no band bins: the dense sweep (#5)" if not over
+             else "the dense sweep (#5; the gated #6 shut: the bins "
+                  "overflowed)" if all(over) else "band bins (#6)")
     exp = Path(paint_cfg.log.exp_dir)
     print(f"bridge paint: step ms {', '.join(f'{1e3 * t:.2f}' for t in times)}"
           f" (step 1 carries the eval chunk of 5 frames at "
@@ -5510,6 +5625,203 @@ def bridge_phase(seed: int, guidance, ckpt: Path, rows, paint_rows) -> dict:
         k: row[k] for k in ("max_abs_err", "ms", "graph_ms", "plain_ms",
                             "bound_ms", "bound_by", "share_of_bound")}
     return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 19: the gated bin-overflow kernels, the chunked latent-paint-mesh
+# ---------------------------------------------------------------------------
+
+GATE_CALLS = 20        # launches of one kernel in the graph timing its gate
+MESH_CHUNK_STEPS = 16  # a chunked paint-mesh run: two chunks of 8
+
+
+def check_gates(seed: int, rows_by_name: dict) -> None:
+    """Kernels #5-#10 behind their gates (the bin-overflow choice made on
+    the device) at the eval chunk's shapes, the sphere under 5 views of the
+    orbit at 512² (`scripts.gate_check`): with the gate open each equals
+    its plain version (#5, #6 bit for bit; #7, #8 within 5e-6, #9, #10
+    within 2e-5 of the largest value) and the ungated call bit for bit;
+    with the gate shut it leaves the output it was given unchanged. Then
+    GATE_CALLS launches of each in one CUDA graph, shut and open in turns
+    (shut, open, open, shut): the ms that a launch returning at its gate
+    costs in a step's graph, beside the open launch's. Records
+    `gate_shut_graph_ms` and `gate_open_graph_ms` (the lesser of the two
+    turns) in the kernels' rows."""
+    import torch
+    from tpunerf_torch.scripts import exp_hash_bwd as ex
+    from tpunerf_torch.scripts import gate_check as gc
+    dev = torch.device("cuda")
+    cases = gc.gated_cases(dev, n_views=5, seed=seed)
+    flags = gc.gate_flags(dev)
+    for name, case in cases.items():
+        v = gc.check_gate(case, flags)
+        fn, out = case[0], torch.empty_like(case[1])
+        times = {True: [], False: []}
+        for shut in (True, False, False, True):
+            times[shut].append(ex.graph_ms(lambda: fn(flags[shut], out),
+                                           GATE_CALLS)[0])
+        row = rows_by_name[name]
+        row["gate_shut_graph_ms"] = min(times[True])
+        row["gate_open_graph_ms"] = min(times[False])
+        print(f"gate {gc.NUMBERS[name]} {name} (5 views at 512²): shut "
+              f"wrote {v['shut_changed']} elements; open vs ungated "
+              f"{v['open_vs_ungated']} differing; open vs plain "
+              f"{v['err']:.3e} (largest |value| {v['scale']:.3e}, tol "
+              f"{gc.TOLS[name]:g}); a launch in a graph of {GATE_CALLS}: "
+              f"shut {' / '.join(f'{t:.4f}' for t in times[True])} ms, "
+              f"open {' / '.join(f'{t:.4f}' for t in times[False])} ms")
+        if not v["ok"]:
+            fail(f"the gated {name} disagrees with its plain version or "
+                 f"wrote behind a shut gate")
+
+
+def advance_to_overflow(trainer, overflow: bool, tries: int = 64):
+    """Move the trainer's generator on, one step's leading draws at a time,
+    until the next step's render has face-selection bins that overflow
+    (`overflow`) or hold; its state is otherwise left as it was. Returns
+    the draws skipped, None where none of `tries` did."""
+    import torch
+    from tpunerf_torch.kernels import rasterize as rz
+    real = rz._bin_faces
+    for skipped in range(tries):
+        state = trainer.generator.get_state()
+        views = trainer.draw()[0]
+        trainer.generator.set_state(state)
+        seen = []
+
+        def spy(*args, **kwargs):
+            ids, maxc = real(*args, **kwargs)
+            if not kwargs.get("margin"):        # the selection's bins
+                seen.append(int(maxc) > args[4])
+            return ids, maxc
+        rz._bin_faces = spy
+        try:
+            with torch.no_grad():
+                trainer.app.scene.render_train(views, with_lighting=True)
+        finally:
+            rz._bin_faces = real
+        if seen and any(seen) == overflow:
+            return skipped
+        trainer.draw()
+    return None
+
+
+def chunked_mesh_case(label: str, cfg, make_app, prepare=None) -> dict:
+    """A latent-paint-mesh configuration (`cfg`, with `--optim.train_chunk
+    8`; `make_app(cfg)` builds its app on its stack) through the chunked
+    trainer at full width: (i) its graphed step judged against eager
+    (`judge_graphed`; Paint-by-Example with `use_clip` once on each branch,
+    the generator moved on until the step takes it; else positioned by
+    `prepare`); (ii) `MESH_CHUNK_STEPS` steps in chunks of 8 replays, each
+    replay's branch recorded, every launch of the run accounted for by the
+    replays' recorded launches; (iii) the step in turns (eager, graph,
+    graph, eager: median, min, p90, max; per branch); (iv) profiled replays
+    (device busy a step, idle share under the profiler and against the
+    unprofiled graphed median); the phase's peak memory. Returns the
+    chunked run's launches."""
+    import torch
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.scripts.graph_check import advance_to_branch
+    from tpunerf_torch.training.trainer import Trainer
+
+    def make_trainer():
+        return Trainer(cfg, make_app(cfg), device=DEVICE)
+
+    torch.cuda.reset_peak_memory_stats()
+    branching = cfg.optim.use_clip and not cfg.guide.use_sd
+    branches = (False, True) if branching else (None,)
+    names = {None: "", False: ", SDS branch", True: ", CLIP branch"}
+    for b in branches:
+        judge_graphed(f"{label}{names[b]}", make_trainer,
+                      prepare if b is None
+                      else (lambda tr, b=b: advance_to_branch(tr, b)),
+                      branch=b)
+    trainer = make_trainer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = trainer.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replays = []
+    real = graph.replay
+    graph.replay = lambda: (replays.append(real()), replays[-1])[1]
+    try:
+        chunks, _, launches = timed_chunks(trainer)
+    finally:
+        del graph.replay
+    want = {}
+    for b in replays:
+        for name, n in graph.launches_by_branch[b].items():
+            want[name] = want.get(name, 0) + n
+    per_step = sorted(t / k for _, k, t in chunks)
+    by_branch = {str(b): replays.count(b) for b in branches}
+    print(f"{label} chunked (train_chunk 8, {MESH_CHUNK_STEPS} steps): "
+          f"warm-up and capture {capture_s:.2f} s; chunk ms a step "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in per_step)}; replays by "
+          f"branch {json.dumps(by_branch)}; launches a replay "
+          f"{json.dumps({str(b): n for b, n in graph.launches_by_branch.items()})}"
+          f"; the run's launches {json.dumps(launches)}")
+    if {n: c for n, c in launches.items() if c} != want:
+        fail(f"the chunked {label} run launched {launches}, its replays "
+             f"account for {want}")
+    if len(replays) != MESH_CHUNK_STEPS:
+        fail(f"the chunked {label} run replayed {len(replays)} steps")
+    heavy = cfg.optim.mode != 0 or branching
+    for b in branches:
+        before = None if b is None else (
+            lambda b=b: advance_to_branch(trainer, b))
+        turns = steady_graph_vs_eager(
+            trainer, f"{label}{names[b]}", n=4 if heavy else 10,
+            rounds=1 if heavy else 2, before_step=before)
+        step_fn = graph.replay if before is None else (
+            lambda before=before: (before(), graph.replay()))
+        busy = profile_steps(trainer, f"{label}{names[b]} graphed",
+                             steps=2 if heavy else 5, step_fn=step_fn)
+        med = turns["graph"]["median_ms"]
+        print(f"{label}{names[b]}: device busy {busy:.3f} ms a replay "
+              f"against the graphed median {med:.3f} ms: idle share "
+              f"{max(0.0, 1 - busy / med):.3f}")
+    print(f"{label}: the phase's peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    del trainer, graph
+    _free_card()
+    return launches
+
+
+def chunked_mesh_phase(seed: int, guidance) -> dict:
+    """Latent-paint-mesh with `--optim.train_chunk 8` at full width on the
+    SD-v1 stack (the sphere, `body_prob` 0.7; `chunked_mesh_case`): mode 0;
+    mode 1 at 512², where the band bins hold, its judged step on a view
+    whose selection bins hold, and at 256², on a view whose selection bins
+    overflow K = 256 (the dense branch behind the gates), where one is
+    found; mode 2. Returns {label: the chunked run's launches}."""
+    import tempfile
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+
+    def on_view(overflow, grid):
+        def prepare(trainer):
+            skipped = advance_to_overflow(trainer, overflow)
+            print(f"paint-mesh mode 1 at {grid}²: the judged step's "
+                  f"selection bins " + ("overflow" if overflow else "hold")
+                  + (f" (after {skipped} skipped draws)" if skipped
+                     is not None else ": no such view in 64 draws"))
+        return prepare
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_chunk_") as tmp:
+        for label, mode, grid, prepare in (
+                ("paint-mesh mode 0", 0, None, None),
+                ("paint-mesh mode 1 at 512²", 1, 512, on_view(False, 512)),
+                ("paint-mesh mode 1 at 256²", 1, 256, on_view(True, 256)),
+                ("paint-mesh mode 2", 2, None, None)):
+            extra = ("--optim.train_chunk", "8") + (
+                ("--render.train_grid_size", str(grid)) if grid else ())
+            cfg = _mesh_cfg(tmp, f"chunk{len(out)}", seed, mode,
+                            MESH_CHUNK_STEPS, 0, extra)
+            out[label] = chunked_mesh_case(
+                label, cfg, lambda c: LatentPaintMeshApp.create(
+                    c, guidance=guidance, device=DEVICE), prepare)
+    return out
 
 
 def main() -> int:
@@ -5562,6 +5874,7 @@ def main() -> int:
     rows = check_kernels(args.seed)
     paint_rows = check_raster_kernels(args.seed)
     soft_rows = check_soft_kernels(args.seed)
+    check_gates(args.seed, {**paint_rows, **soft_rows})
     check_slivers(args.seed)
     grad_rows = check_attention_bwd(args.seed)
     split_row, variant_row = check_hash_bwd_experiment(args.seed)
@@ -5661,12 +5974,16 @@ def main() -> int:
     mode1_launches = mode1[2] if mode1 is not None else {}
     del mapp, mtrainer, mode1
     _free_card()
+    mark("chunked latent-paint-mesh")
+    mesh_chunked = chunked_mesh_phase(args.seed, guidance)
+    _free_card()
     # the SD-v1 paths that differentiate through the UNet (#12, #13)
     mark("the SD-v1 gradient paths")
     grad_launches = sd_gradient_phases(args.seed, guidance)
     # config #5: depth-conditioned SD, B = 2 (its own stack, freed after)
     mark("config #5")
-    depth_launches, b2 = train_depth_full_width(STEPS, args.seed)
+    depth_launches, b2, depth_chunked = train_depth_full_width(STEPS,
+                                                               args.seed)
     paint_rows[rz.DENSE]["config5"] = b2[rz.DENSE]
     soft_rows[rz.SOFT_FWD_DENSE]["config5"] = b2[rz.SOFT_FWD_DENSE]
     soft_rows[rz.SOFT_FWD_DENSE]["max_abs_err"] = max(
@@ -5675,7 +5992,7 @@ def main() -> int:
     _free_card()
     # the Paint-by-Example cell (its own stack, freed after)
     mark("Paint-by-Example")
-    pbe_launches = train_pbe_full_width(STEPS, args.seed)
+    pbe_launches, pbe_chunked = train_pbe_full_width(STEPS, args.seed)
     _free_card()
     rows[at.ATTN]["config5"] = attention_at_depth_batch(
         torch.Generator(device="cuda").manual_seed(args.seed))
@@ -5709,9 +6026,20 @@ def main() -> int:
     # runs it: replays counted), beside the other paths that run them
     own_stacks = {"config #5 (depth, B = 2)": depth_launches,
                   "Paint-by-Example (use_clip)": pbe_launches}
+    # the chunked latent-paint-mesh runs: each path's own kernels
+    chunked_paths = {**{f"{k} chunked": c for k, c in mesh_chunked.items()},
+                     "config #5 chunked": depth_chunked,
+                     "Paint-by-Example (use_clip) chunked": pbe_chunked}
+    for label, counts in chunked_paths.items():
+        need = [at.ATTN, rz.DENSE, rz.SOFT_FWD_DENSE] + (
+            [rz.BINNED, rz.SOFT_FWD_BINNED] if "mode 1" in label else [])
+        missing = [n for n in need if counts.get(n, 0) <= 0]
+        if missing:
+            fail(f"the {label} path never launched {missing}")
     paint_paths = {"latent-paint eager": paint_launches,
                    "latent-paint chunked": paint_chunked_launches,
-                   "nerf→mesh bridge": bridge_launches, **own_stacks}
+                   "nerf→mesh bridge": bridge_launches, **own_stacks,
+                   **chunked_paths}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
                "refine CLI (chunked)": refine_launches,
                "config #3": sketch_eager,
@@ -5722,7 +6050,7 @@ def main() -> int:
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,
                          {"latent-paint-mesh mode 0": mesh_launches,
-                          **own_stacks}))
+                          **own_stacks, **chunked_paths}))
     # #12/#13: the text-token run, beside null-text inversion
     kernels += counted(grad_rows, grad_launches["text-token optimisation"],
                        grad_launches)

@@ -530,8 +530,9 @@ def test_binned_selection_kernel_matches_plain_and_dense_exactly():
     pix = rz.pixel_grid_ndc(H, W, dev)
     before = dict(_build.LAUNCHES)
     fid = rz._select_faces_batched(pix, fv_img, fv_z, valid, H, W)
+    # both kernels launched, the dense one behind its shut gate
     assert _build.LAUNCHES[rz.BINNED] == before.get(rz.BINNED, 0) + 1
-    assert _build.LAUNCHES.get(rz.DENSE, 0) == before.get(rz.DENSE, 0)
+    assert _build.LAUNCHES[rz.DENSE] == before.get(rz.DENSE, 0) + 1
     rows = rz._face_rows(fv_img, fv_z, valid)
     assert torch.equal(fid, rz.select_faces_dense_plain(rows, pix))
     assert torch.equal(fid, rz.select_faces_dense(rows, pix))
@@ -599,11 +600,12 @@ def test_culled_binned_selection_equals_the_sweep_and_plain(views):
     assert torch.equal(out, old)
     assert torch.equal(out, rz.select_faces_binned_cuda(rows, ids, pix, 0))
     assert torch.equal(out, rz.select_faces_binned_plain(rows, ids, pix))
-    # and through the scene's entry: the binned kernel, not the fallback
+    # and through the scene's entry: the binned kernel, the fallback's gate
+    # shut (its launch returns at once)
     before = dict(_build.LAUNCHES)
     fid = rz._select_faces_batched(pix, fv_img, fv_z, valid, H, W)
     assert _build.LAUNCHES[rz.BINNED] == before[rz.BINNED] + 1
-    assert _build.LAUNCHES.get(rz.DENSE, 0) == before.get(rz.DENSE, 0)
+    assert _build.LAUNCHES[rz.DENSE] == before.get(rz.DENSE, 0) + 1
     assert torch.equal(fid, rz.select_faces_dense(rows[:, :-1].contiguous(),
                                                   pix, W))
 
@@ -1156,8 +1158,9 @@ def test_tiny_paint_step_and_eval_go_through_the_kernels(tmp_path):
     losses = []
     trainer.train(on_step=lambda s, loss: losses.append(loss.item()))
     assert np.isfinite(losses).all()
-    # mesh and dome per step; the 512² eval render takes the band bins
-    assert _build.LAUNCHES[rz.DENSE] == 4 and _build.LAUNCHES[rz.BINNED] == 1
+    # mesh and dome per step; the 512² eval render takes the band bins,
+    # beside the dense kernel behind its shut gate
+    assert _build.LAUNCHES[rz.DENSE] == 5 and _build.LAUNCHES[rz.BINNED] == 1
     assert (tmp_path / "default" / "mesh" / "mesh.obj").exists()
 
 
@@ -1380,6 +1383,110 @@ def test_tiny_graphed_step_equals_the_eager_step(tmp_path, app_kind,
     trainer.train()
     for name, n in trainer.graph.launches.items():
         assert _build.LAUNCHES[name] == 4 * n + eager[name], name
+
+
+def _tiny_mesh_trainer(tmp_path, case, dev):
+    """A tiny latent-paint-mesh app (the sphere, a 24² train grid, 128² in
+    mode 1, where the band bins are built) and its chunked trainer on
+    `dev`: "mode0", "mode1", "mode2" with text SD, "depth" (B = 2), "pbe"
+    (Paint-by-Example with `use_clip`, 16² latents)."""
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.scripts import pbe_step
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+    from tpunerf_torch.training.trainer import Trainer
+    argv = ["--guide.tiny_diffusion", "true", "--guide.unet_dtype",
+            "float32", "--guide.shape_path", "sphere",
+            "--guide.texture_resolution", "32", "--render.body_prob", "0.7",
+            "--render.train_grid_size", "128" if case == "mode1" else "24",
+            "--optim.train_chunk", "4", "--log.exp_root", str(tmp_path),
+            "--log.exp_name", case, "--log.eval_size", "0",
+            "--log.full_eval_size", "0", "--log.save_mesh", "false",
+            "--log.log_images", "false", "--log.save_interval", "100"]
+    if case.startswith("mode"):
+        argv += ["--optim.mode", case[4]]
+    elif case == "depth":
+        argv += ["--guide.diffusion_name", "sd-depth",
+                 "--render.batch_size", "2"]
+    else:
+        image = tmp_path / "exemplar.png"
+        pbe_step.exemplar_png(image, 0, size=64)
+        argv += ["--guide.use_sd", "false", "--guide.image", str(image),
+                 "--optim.use_clip", "true"]
+    cfg = parse(TrainConfig, argv)
+    app = LatentPaintMeshApp.create(cfg, device=dev)
+    if case == "pbe":
+        app.scene.latent_size = 16
+    return Trainer(cfg, app, device=dev)
+
+
+@pytest.mark.parametrize("case", ["mode0", "mode1", "mode2", "depth",
+                                  "pbe-sds", "pbe-clip"])
+def test_tiny_paint_mesh_graphed_step_equals_the_eager_step(tmp_path, case):
+    """Latent-paint-mesh's step from one state, eager twice and replayed,
+    under deterministic algorithms: the loss and the generator bit for
+    bit, every other tensor within `graph_agreement`'s bound (the texture's
+    grid_sample backward adds with atomics); mode 1 at 128², where the
+    band bins are built and the gated kernels run; Paint-by-Example with
+    `use_clip` on each branch (the generator moved on until the step takes
+    it). Then four replays in a chunk launch the kernels that each
+    replayed branch records, and nothing else."""
+    import warnings
+    from tpunerf_torch.scripts.graph_check import (advance_to_branch,
+                                                   graph_agreement,
+                                                   graphed_against_eager)
+    dev = _card()
+    trainer = _tiny_mesh_trainer(tmp_path, case.split("-")[0], dev)
+    branch = None
+    if case.startswith("pbe"):
+        branch = case.endswith("clip")
+        advance_to_branch(trainer, branch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            d = graphed_against_eager(trainer)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert trainer.graph.branch == branch
+    assert d["replay"]["loss"] == 0.0 and d["eager"]["loss"] == 0.0
+    assert d["replay"]["generator"] == 0.0
+    for group, verdict in graph_agreement(d).items():
+        assert verdict["ok"], (group, verdict)
+    replays = []
+    graph = trainer.graph
+    real = graph.replay
+    graph.replay = lambda: replays.append(real()) or replays[-1]
+    _build.reset_launches()
+    trainer.cfg.optim.iters = trainer.train_step_idx + 4
+    trainer.train()
+    want = {}
+    for b in replays:
+        for name, n in graph.launches_by_branch[b].items():
+            want[name] = want.get(name, 0) + n
+    assert len(replays) == 4
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == want
+    if case == "mode1":
+        assert {rz.DENSE, rz.BINNED, rz.SOFT_FWD_DENSE,
+                rz.SOFT_FWD_BINNED} <= set(want)
+
+
+@pytest.mark.parametrize("kernel", [rz.DENSE, rz.BINNED, rz.SOFT_FWD_DENSE,
+                                    rz.SOFT_FWD_BINNED, rz.SOFT_BWD_DENSE,
+                                    rz.SOFT_BWD_BINNED])
+def test_gated_kernels_match_plain_open_and_write_nothing_shut(kernel):
+    """Each kernel of a gated pair at the eval chunk's shapes
+    (`scripts.gate_check`): with its gate open it equals its plain version
+    (bit for bit for the selection) and the same call without a gate bit
+    for bit; with its gate shut it leaves the output it was given as it
+    was; each call is one launch."""
+    from tpunerf_torch.scripts import gate_check
+    dev = _card()
+    case = gate_check.gated_cases(dev, n_views=2)[kernel]
+    before = _build.LAUNCHES.get(kernel, 0)
+    verdict = gate_check.check_gate(case, gate_check.gate_flags(dev))
+    assert verdict["ok"], verdict
+    assert _build.LAUNCHES[kernel] == before + 3
 
 
 def test_tiny_refine_step_on_the_card_equals_the_cpu(tmp_path, monkeypatch):

@@ -30,7 +30,6 @@ from tpunerf_torch.guidance.depth import normalize_depth
 from tpunerf_torch.training import config as tconfig
 from tpunerf_torch.training.latent_paint_mesh import \
     LatentPaintMeshApp as TApp
-from tpunerf_torch.training.trainer import Trainer
 from tpunerf_torch.weights import load_flax_params
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -229,14 +228,6 @@ def test_config_5_takes_an_image_the_clip_flag_and_a_sampled_texture(
         np.testing.assert_allclose(rgb.numpy(), 200 / 255, atol=1e-6)
     else:
         assert not rgb.any()
-
-
-def test_chunked_trainer_is_refused_with_depth(stacks, tmp_path):
-    cfg = _cfg(tconfig, tmp_path)
-    cfg.optim.train_chunk = 4
-    app = TApp.create(cfg, depth_guidance=stacks[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        Trainer(cfg, app, device="cpu")
 
 
 def test_cli_trains_nascar_depth_evaluates_and_exports(tmp_path):

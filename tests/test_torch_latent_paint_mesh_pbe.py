@@ -161,7 +161,7 @@ def test_pbe_mode0_loss_gradients_and_adam_step_match_jax(built, use_clip):
     loss_t, aux_t = tapp.loss_fn(tv, draws=draws)
     loss_t.backward()
     if use_clip:
-        assert int(draws["t"]) == 250 and aux_t["clip_branch"] is True
+        assert int(draws["t"]) == 250 and bool(aux_t["clip_branch"])
     else:
         assert "clip_branch" not in aux_t
     np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=REL)

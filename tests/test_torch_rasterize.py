@@ -163,7 +163,10 @@ def test_binned_plain_equals_pallas_binned_and_dense():
 
 def test_binned_overflow_takes_the_dense_sweep(monkeypatch):
     """Bins that overflow K must route through the dense sweep (a dropped
-    face would be silently wrong), as tests/test_rasterize.py holds JAX."""
+    face would be silently wrong), as tests/test_rasterize.py holds JAX.
+    The choice is made on the device: both sweeps run (the binned one gated
+    shut on a card), and the dense one's ids are kept, whatever the binned
+    one gives (here slots that would name wrong faces)."""
     F, K, H, W = 200, 64, 128, 128
     tri = np.array([[-0.9, -0.9], [0.9, -0.9], [0.0, 0.9]], np.float32)
     fv_img = np.broadcast_to(tri, (F, 3, 2)).copy()
@@ -175,13 +178,17 @@ def test_binned_overflow_takes_the_dense_sweep(monkeypatch):
         jnp.asarray(fv_z)[None], jnp.asarray(valid)[None], H, W, K=K,
         interpret=True)
 
-    def refuse(*a):
-        raise AssertionError("an overflowing bin was swept")
+    swept = []
 
-    monkeypatch.setattr(TR, "select_faces_binned", refuse)
+    def wrong(rows, ids, pix, width, skip):
+        swept.append(int(skip))            # the binned kernel's gate: shut
+        return torch.zeros((1, ids.shape[1], 1024), dtype=torch.int32)
+
+    monkeypatch.setattr(TR, "select_faces_binned", wrong)
     got = TR._select_faces_batched(TR.pixel_grid_ndc(H, W, torch.device("cpu")), _t(fv_img)[None],
                                    _t(fv_z)[None], _t(valid)[None], H, W, K=K)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert swept == [1]
     assert (got.numpy() == F - 1).any()       # the nearest copy wins
 
 

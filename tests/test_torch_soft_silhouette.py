@@ -171,7 +171,10 @@ def test_binned_forward_and_backward_match_jax(interpret, monkeypatch):
     g = np.random.default_rng(1).normal(size=(2, H, W)).astype(np.float32)
     v = _t(fv).requires_grad_()
     got = TR.soft_silhouette(H, W, v, sigma=sigma, bin_k=K)
-    assert calls == ["binned"]                 # not the overflow branch
+    assert calls == ["binned"]
+    # not the overflow branch: the flag the forward saved keeps the binned
+    # product
+    assert int(TR._soft_bins(v.detach(), H, W, sigma, K)[1]) <= K
     pal = JR._soft_batched_pallas(jnp.asarray(fv), H, W, sigma, K)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(pal),
                                atol=FWD_ATOL)
@@ -217,14 +220,20 @@ def test_overflowing_bins_take_the_dense_sweep_forward_and_backward(
     for name in ("soft_prod_dense_plain", "soft_prod_binned_plain",
                  "soft_grad_dense_plain", "soft_grad_binned_plain"):
         fn = getattr(TR, name)
+        # the binned branch runs (the choice is made on the device) and
+        # gives NaN here: what is kept must be the dense branch's
+        poison = "binned" in name
         monkeypatch.setattr(
-            TR, name, lambda *a, _f=fn, _n=name: calls.append(_n) or _f(*a))
+            TR, name, lambda *a, _f=fn, _n=name, _p=poison: calls.append(_n)
+            or (torch.full_like(_f(*a), float("nan")) if _p else _f(*a)))
     v = _t(fv).requires_grad_()
     got = TR.soft_silhouette(H, W, v, sigma=sigma, bin_k=K)
     g = np.random.default_rng(2).normal(size=(1, H, W)).astype(np.float32)
     (got * _t(g)).sum().backward()
-    # backward took the branch forward took
-    assert calls == ["soft_prod_dense_plain", "soft_grad_dense_plain"]
+    # backward took the branch forward took: both ran, the dense one kept
+    assert calls == ["soft_prod_dense_plain", "soft_prod_binned_plain",
+                     "soft_grad_dense_plain", "soft_grad_binned_plain"]
+    assert torch.isfinite(got).all() and torch.isfinite(v.grad).all()
     pal = JR._soft_batched_pallas(jnp.asarray(fv), H, W, sigma, K)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(pal),
                                atol=FWD_ATOL)

@@ -50,8 +50,10 @@ def look_at_transform(camera_position: torch.Tensor, look_at: torch.Tensor,
     up = up.expand_as(camera_position)
     z_axis = _normalize(camera_position - look_at)
     x_raw = _cross3(up, z_axis)
+    # filled in place: setting an element from a Python number would wrap
+    # it in a fresh host tensor
     alt_up = torch.zeros_like(up)
-    alt_up[..., 2] = 1.0
+    alt_up[..., 2].fill_(1.0)
     degenerate = torch.sum(x_raw * x_raw, dim=-1, keepdim=True) < 1e-8
     x_raw = torch.where(degenerate, _cross3(alt_up, z_axis), x_raw)
     x_axis = _normalize(x_raw)
@@ -68,9 +70,9 @@ def camera_transform_from_view(theta: torch.Tensor, phi: torch.Tensor,
     (0, look_at_height, 0), up (0, 1, 0)."""
     pos = spherical_camera_position(theta, phi, radius)
     look_at = torch.zeros_like(pos)
-    look_at[..., 1] = look_at_height
+    look_at[..., 1].fill_(look_at_height)
     up = torch.zeros_like(pos)
-    up[..., 1] = 1.0
+    up[..., 1].fill_(1.0)
     return look_at_transform(pos, look_at, up)
 
 

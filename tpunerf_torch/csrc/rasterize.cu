@@ -81,6 +81,14 @@
 // list, every pair evaluated, the slices merged in order) and
 // `select_faces_binned_sweep` (1024 threads, each sweeping all K slots).
 //
+// The gate: the dense and the binned kernel of a pair are launched one
+// after the other, each with a device flag (`skip`), and the one whose flag
+// is set returns at its entry, block by block, having written nothing. The
+// caller sets the binned kernel's flag where a bin overflowed and the dense
+// kernel's where none did, so that the choice of JAX's lax.cond is made on
+// the device and a CUDA graph holds both branches. A null flag runs the
+// kernel.
+//
 // Every launch is on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
 #include <cuda_runtime.h>
@@ -89,6 +97,11 @@
 #include "mbarrier.cuh"
 
 namespace {
+
+// True where the launch's gate is closed: the kernel returns at once.
+__device__ __forceinline__ bool gate_closed(const int* skip) {
+  return skip != nullptr && __ldg(skip) != 0;
+}
 
 constexpr int kRow = 12;        // floats per face row
 constexpr int kPix = 64;        // dense sweep: pixels per block
@@ -307,7 +320,9 @@ select_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 12)
                      const int* __restrict__ ids,     // (B, nb, K)
                      const float* __restrict__ pix,   // (P, 2)
                      int* __restrict__ out,           // (B, nb, 1024) slots
-                     int Fr, int nb, int K, int P, int width) {
+                     int Fr, int nb, int K, int P, int width,
+                     const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(16) float4 bin[];
   float4* last_row = bin + 3 * K;
   int* sid = reinterpret_cast<int*>(last_row + 3);
@@ -371,7 +386,9 @@ __global__ void __launch_bounds__(kSelTileWarps * 32)
 select_dense_tile_kernel(const float* __restrict__ rows,  // (B, F, 12)
                          const float* __restrict__ pix,   // (P, 2)
                          int* __restrict__ out,           // (B, P)
-                         int F, int P, int width) {
+                         int F, int P, int width,
+                         const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   __shared__ float4 list[kSelTileWarps][32 * 3];
   __shared__ float part_z[kSelTileWarps][32];
   __shared__ int part_i[kSelTileWarps][32];
@@ -451,7 +468,9 @@ __global__ void __launch_bounds__(kSelWarps * 32)
 select_dense_kernel(const float* __restrict__ rows,  // (B, F, 12)
                     const float* __restrict__ pix,   // (P, 2)
                     int* __restrict__ out,           // (B, P)
-                    int F, int P, int width, int NT, int ntiles) {
+                    int F, int P, int width, int NT, int ntiles,
+                    const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   float4* list = reinterpret_cast<float4*>(smem);       // kSelChunk rows
   int* list_id = reinterpret_cast<int*>(list + kSelChunk * 3);
@@ -600,9 +619,10 @@ static int sm_count() {
 // rows (B, F, 12) f32 face rows, 16-byte aligned; pix (P, 2) f32 NDC pixel
 // centres; out (B, P) int32 winning face id or -1. width: the image's width
 // where it is a multiple of 8 that divides P (8 x 4 tiles), else 0 (32
-// pixels in a row).
-int select_faces_dense(const float* rows, const float* pix, int* out, int B,
-                       int F, int P, int width, void* stream) {
+// pixels in a row). skip: the gate (a device int; null runs the kernel).
+int select_faces_dense(const float* rows, const float* pix, int* out,
+                       const int* skip, int B, int F, int P, int width,
+                       void* stream) {
   static int opened = 0;
   if (B > 0 && P > 0) {
     if (B > 65535) return (int)cudaErrorInvalidValue;
@@ -612,7 +632,7 @@ int select_faces_dense(const float* rows, const float* pix, int* out, int B,
       const dim3 grid((unsigned)tiles, (unsigned)B);
       select_dense_tile_kernel<<<grid, kSelTileWarps * 32, 0,
                                  (cudaStream_t)stream>>>(rows, pix, out, F,
-                                                         P, width);
+                                                         P, width, skip);
       return (int)cudaGetLastError();
     }
     // more tiles a block while the blocks still cover the SMs
@@ -626,7 +646,7 @@ int select_faces_dense(const float* rows, const float* pix, int* out, int B,
     const dim3 grid((unsigned)((tiles + NT - 1) / NT), (unsigned)B);
     select_dense_kernel<<<grid, kSelWarps * 32, kSelSmem,
                           (cudaStream_t)stream>>>(rows, pix, out, F, P, width,
-                                                  NT, (int)tiles);
+                                                  NT, (int)tiles, skip);
   }
   return (int)cudaGetLastError();
 }
@@ -635,10 +655,10 @@ int select_faces_dense(const float* rows, const float* pix, int* out, int B,
 // 16-byte aligned; ids (B, nb, K) int32 row index per bin slot; pix (P, 2)
 // f32; out (B, nb, 1024) int32 winning slot or -1. width: the image's width
 // where 1024 / width rows make tiles of 32 (width 32 ... 1024, dividing P),
-// else 0.
+// else 0. skip: the gate.
 int select_faces_binned(const float* rows, const int* ids, const float* pix,
-                        int* out, int B, int Fr, int nb, int K, int P,
-                        int width, void* stream) {
+                        int* out, const int* skip, int B, int Fr, int nb,
+                        int K, int P, int width, void* stream) {
   static int opened = 0;
   const size_t smem = binned_smem(K);
   const cudaError_t err =
@@ -648,7 +668,7 @@ int select_faces_binned(const float* rows, const int* ids, const float* pix,
     if (B > 65535) return (int)cudaErrorInvalidValue;
     const dim3 grid((unsigned)nb, (unsigned)B);
     select_binned_kernel<<<grid, kBand, smem, (cudaStream_t)stream>>>(
-        rows, ids, pix, out, Fr, nb, K, P, width);
+        rows, ids, pix, out, Fr, nb, K, P, width, skip);
   }
   return (int)cudaGetLastError();
 }
@@ -1078,7 +1098,9 @@ __global__ void __launch_bounds__(kDWarps * 32)
 soft_fwd_dense_kernel(const float* __restrict__ rows,  // (B, F, 16)
                       const float* __restrict__ pix,   // (P, 2)
                       float* __restrict__ out,         // (B, P) prod
-                      int F, int P, int width, float sigma, float m) {
+                      int F, int P, int width, float sigma, float m,
+                      const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* raw = reinterpret_cast<float*>(smem + 128);
@@ -1171,7 +1193,9 @@ __global__ void __launch_bounds__(kTWarps * 32)
 soft_fwd_dense_tile_kernel(const float* __restrict__ rows,  // (B, F, 16)
                            const float* __restrict__ pix,   // (P, 2)
                            float* __restrict__ out,         // (B, P) prod
-                           int F, int P, int width, float sigma, float m) {
+                           int F, int P, int width, float sigma, float m,
+                           const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   float* raw = reinterpret_cast<float*>(smem + 128);
@@ -1309,7 +1333,8 @@ soft_fwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
                        const float* __restrict__ pix,   // (P, 2)
                        float* __restrict__ out,         // (B, nb, 1024) prod
                        int Fr, int nb, int K, int P, int width, float sigma,
-                       float m) {
+                       float m, const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   float* raw = reinterpret_cast<float*>(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1583,7 +1608,8 @@ soft_bwd_binned_kernel(const float* __restrict__ rows,  // (B, Fr, 16)
                        int* __restrict__ last,          // (B, F)
                        int* __restrict__ band_live,     // (B, nb, 2)
                        int Fr, int nb, int K, int P, int width, float sigma,
-                       float m) {
+                       float m, const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   float* raw = reinterpret_cast<float*>(smem);
   float4* conv = reinterpret_cast<float4*>(smem + 2 * kBRaw);
@@ -1737,7 +1763,9 @@ soft_bwd_faces_kernel(const float* __restrict__ rows,       // (B, Fr, 16)
                       const int* __restrict__ last,         // (B, F)
                       const int* __restrict__ band_live,    // (B, nb, 2)
                       float* __restrict__ out,              // (B, F, 6)
-                      int B, int Fr, int nb, int K) {
+                      int B, int Fr, int nb, int K,
+                      const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   __shared__ float vals[kSumWarps][32][6];
   const int F = Fr - 1;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1812,7 +1840,9 @@ soft_bwd_dense_tiles_kernel(const float* __restrict__ pix,   // (P, 2)
                             float4* __restrict__ live_boxes,  // (B, S, 256)
                             int* __restrict__ counts,        // (B, S)
                             float4* __restrict__ seg_boxes,  // (B, S)
-                            int P, int width, int T) {
+                            int P, int width, int T,
+                            const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   __shared__ float4 box[kLTiles];
   __shared__ int wcount[kLTiles / 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1906,7 +1936,9 @@ soft_bwd_dense_kernel(const float* __restrict__ rows,        // (B, F, 16)
                       const int* __restrict__ counts,        // (B, S)
                       const float4* __restrict__ seg_boxes,  // (B, S)
                       float* __restrict__ out,               // (B, F, 6)
-                      int F, int P, int width, int S, float sigma, float m) {
+                      int F, int P, int width, int S, float sigma, float m,
+                      const int* __restrict__ skip) {
+  if (gate_closed(skip)) return;
   __shared__ float4 conv[kQFaces * kRQuads];   // staged rows, boxes
   __shared__ float4 tpix[kQBatch * 32];        // a batch's pixels
   __shared__ float part[kQBatch * kQFaces * 6];  // its pairs' sums
@@ -2065,10 +2097,10 @@ extern "C" {
 // rows (B, F, 16) f32 soft rows, 16-byte aligned; pix (P, 2) f32; out (B, P)
 // f32 prod. width: the image's width where it is a multiple of 8 that
 // divides P (8 x 4 tiles), else 0 (32 pixels in a row). margin: the cull's
-// sqrt(27.7 sigma).
-int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
-                   int F, int P, int width, float sigma, float margin,
-                   void* stream) {
+// sqrt(27.7 sigma). skip: the gate.
+int soft_fwd_dense(const float* rows, const float* pix, float* out,
+                   const int* skip, int B, int F, int P, int width,
+                   float sigma, float margin, void* stream) {
   static int opened = 0;
   if (B > 0 && P > 0) {
     if (B > 65535) return (int)cudaErrorInvalidValue;
@@ -2082,7 +2114,7 @@ int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
       const dim3 grid((unsigned)tiles, (unsigned)B);
       soft_fwd_dense_tile_kernel<<<grid, kTWarps * 32, kTileSmem,
                                    (cudaStream_t)stream>>>(
-          rows, pix, out, F, P, width, sigma, margin);
+          rows, pix, out, F, P, width, sigma, margin, skip);
       return (int)cudaGetLastError();
     }
     // more tiles a block while the blocks still cover the SMs
@@ -2097,7 +2129,7 @@ int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((unsigned)((tiles + NT - 1) / NT), (unsigned)B);
     soft_fwd_dense_kernel<<<grid, NT * 32, smem, (cudaStream_t)stream>>>(
-        rows, pix, out, F, P, width, sigma, margin);
+        rows, pix, out, F, P, width, sigma, margin, skip);
   }
   return (int)cudaGetLastError();
 }
@@ -2105,10 +2137,11 @@ int soft_fwd_dense(const float* rows, const float* pix, float* out, int B,
 // rows (B, Fr, 16) with the filler row last, 16-byte aligned; ids (B, nb, K)
 // int32, faces first, then the filler id Fr-1; out (B, nb, 1024) f32 prod.
 // width: the image's width where 1024 / width rows make tiles of 32 (width
-// 32 ... 1024, dividing P), else 0.
+// 32 ... 1024, dividing P), else 0. skip: the gate.
 int soft_fwd_binned(const float* rows, const int* ids, const float* pix,
-                    float* out, int B, int Fr, int nb, int K, int P,
-                    int width, float sigma, float margin, void* stream) {
+                    float* out, const int* skip, int B, int Fr, int nb,
+                    int K, int P, int width, float sigma, float margin,
+                    void* stream) {
   static int opened = 0;
   if (B > 0 && nb > 0) {
     if (B > 65535) return (int)cudaErrorInvalidValue;
@@ -2118,7 +2151,7 @@ int soft_fwd_binned(const float* rows, const int* ids, const float* pix,
     const dim3 grid((unsigned)nb, (unsigned)B);
     soft_fwd_binned_kernel<<<grid, kBand, kBinnedSmem,
                              (cudaStream_t)stream>>>(
-        rows, ids, pix, out, Fr, nb, K, P, width, sigma, margin);
+        rows, ids, pix, out, Fr, nb, K, P, width, sigma, margin, skip);
   }
   return (int)cudaGetLastError();
 }
@@ -2152,7 +2185,8 @@ int soft_fwd_binned_sweep(const float* rows, const int* ids, const float* pix,
 // where it is a multiple of 8 that divides P (8 x 4 tiles), else 0 (32
 // pixels in a row); margin the cull's sqrt(27.7 sigma). scratch: at least
 // soft_bwd_dense_scratch(B, P, width) 32-bit words, 16-byte aligned (the
-// live list with its tiles' boxes, each segment's count and box).
+// live list with its tiles' boxes, each segment's count and box). skip: the
+// gate of both kernels.
 long long soft_bwd_dense_scratch(int B, int P, int width) {
   const long long T = dense_tiles(P, width);
   const long long S = (T + kLTiles - 1) / kLTiles;
@@ -2161,8 +2195,9 @@ long long soft_bwd_dense_scratch(int B, int P, int width) {
 
 int soft_bwd_dense(const float* rows, const float* pix, const float* g,
                    const float* prod, float* out, int* scratch,
-                   long long scratch_words, int B, int F, int P, int width,
-                   float sigma, float margin, void* stream) {
+                   const int* skip, long long scratch_words, int B, int F,
+                   int P, int width, float sigma, float margin,
+                   void* stream) {
   if (B <= 0 || F <= 0) return (int)cudaGetLastError();
   if (B > 65535 || P < 0 ||
       scratch_words < soft_bwd_dense_scratch(B, P, width)) {
@@ -2179,14 +2214,15 @@ int soft_bwd_dense(const float* rows, const float* pix, const float* g,
   if (S > 0) {
     soft_bwd_dense_tiles_kernel<<<dim3((unsigned)S, (unsigned)B),
                                   kLWarps * 32, 0, st>>>(
-        pix, g, prod, live, live_boxes, counts, seg_boxes, P, width, (int)T);
+        pix, g, prod, live, live_boxes, counts, seg_boxes, P, width, (int)T,
+        skip);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((unsigned)((F + kQFaces - 1) / kQFaces), (unsigned)B);
   soft_bwd_dense_kernel<<<grid, kQThreads, 0, st>>>(
       rows, pix, g, prod, live, live_boxes, counts, seg_boxes, out, F, P,
-      width, S, sigma, margin);
+      width, S, sigma, margin, skip);
   return (int)cudaGetLastError();
 }
 
@@ -2230,12 +2266,13 @@ int soft_bwd_binned_sweep(const float* rows, const int* ids, const float* pix,
 // band's rows, at the filled slots of the halves with a live pixel
 // (nothing else); slot_of (B, Fr-1, nb) int32 at each face's bands; span
 // (2, B, Fr-1) int32: each face's first and last band (first > last: in no
-// band); band_live (B, nb, 2) int32, each half's.
+// band); band_live (B, nb, 2) int32, each half's. skip: the gate (the
+// span's fill runs either way).
 int soft_bwd_binned(const float* rows, const int* ids, const float* pix,
                     const float* g, const float* prod, float* slot_rows,
-                    int* slot_of, int* span, int* band_live, int B, int Fr,
-                    int nb, int K, int P, int width, float sigma,
-                    float margin, void* stream) {
+                    int* slot_of, int* span, int* band_live, const int* skip,
+                    int B, int Fr, int nb, int K, int P, int width,
+                    float sigma, float margin, void* stream) {
   static int opened = 0;
   if (B <= 0 || nb <= 0) return (int)cudaGetLastError();
   if (B > 65535) return (int)cudaErrorInvalidValue;
@@ -2254,16 +2291,17 @@ int soft_bwd_binned(const float* rows, const int* ids, const float* pix,
   soft_bwd_binned_kernel<<<grid, kRWarps * 32, kBwdSmem,
                            (cudaStream_t)stream>>>(
       rows, ids, pix, g, prod, slot_rows, slot_of, span, span + faces,
-      band_live, Fr, nb, K, P, width, sigma, margin);
+      band_live, Fr, nb, K, P, width, sigma, margin, skip);
   return (int)cudaGetLastError();
 }
 
 // The vertex gradient out (B, Fr-1, 6) f32 of each face: the slot rows,
 // slot_of, span and band_live of soft_bwd_binned (same rows and ids) summed
-// band by band in band order.
+// band by band in band order. skip: the gate.
 int soft_bwd_faces(const float* rows, const int* ids, const float* slot_rows,
                    const int* slot_of, const int* span, const int* band_live,
-                   float* out, int B, int Fr, int nb, int K, void* stream) {
+                   float* out, const int* skip, int B, int Fr, int nb, int K,
+                   void* stream) {
   const long long faces = (long long)B * (Fr - 1);
   if (faces > 0) {
     const long long blocks = (faces + kSumWarps - 1) / kSumWarps;
@@ -2271,7 +2309,7 @@ int soft_bwd_faces(const float* rows, const int* ids, const float* slot_rows,
     soft_bwd_faces_kernel<<<(unsigned)blocks, kSumWarps * 32, 0,
                             (cudaStream_t)stream>>>(
         rows, ids, slot_rows, slot_of, span, span + faces, band_live, out, B,
-        Fr, nb, K);
+        Fr, nb, K, skip);
   }
   return (int)cudaGetLastError();
 }

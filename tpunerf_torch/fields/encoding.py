@@ -9,6 +9,7 @@ the CUDA kernels live in kernels/hashgrid.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -63,14 +64,22 @@ def init_hash_table(cfg: HashGridConfig, device: torch.device,
     return u * 2e-4 - 1e-4
 
 
+@functools.lru_cache(maxsize=16)
+def _level_tables(cfg: HashGridConfig, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each level's resolution (int64) and dense flag, on `device`, made
+    once: an upload inside a step is what a CUDA graph's capture refuses."""
+    res = torch.as_tensor(cfg.level_resolutions().astype(np.int64),
+                          device=device)
+    return res, torch.as_tensor(cfg.dense_levels(), device=device)
+
+
 def corner_indices_and_weights(x: torch.Tensor, cfg: HashGridConfig
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (N, 3) in [0,1]³ → (idx8 (L, N, 8) int64 table slots,
     w8 (L, N, 8) trilinear weights). The hash is computed in int64 and
     masked with T−1, whose low bits equal the uint32 arithmetic."""
-    res_np = cfg.level_resolutions()
-    res = torch.as_tensor(res_np.astype(np.int64), device=x.device)   # (L,)
-    dense = torch.as_tensor(cfg.dense_levels(), device=x.device)       # (L,)
+    res, dense = _level_tables(cfg, x.device)                          # (L,)
     xl = x[None, :, :] * res[:, None, None].to(x.dtype)               # (L,N,3)
     x0f = torch.floor(xl)
     w = xl - x0f

@@ -61,9 +61,9 @@ def generate_rays(theta: torch.Tensor, phi: torch.Tensor,
     # constants filled on the device: a host→device copy would wait for
     # the stream
     look_at = torch.zeros_like(pos)
-    look_at[..., 1] = look_at_height
+    look_at[..., 1].fill_(look_at_height)
     up = torch.zeros_like(pos)
-    up[..., 1] = 1.0
+    up[..., 1].fill_(1.0)
     M = cam.look_at_transform(pos, look_at, up)                  # (B, 4, 3)
     R = M[..., :3, :]            # rows: world→cam; columns map cam→world
 

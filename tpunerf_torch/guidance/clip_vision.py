@@ -16,6 +16,7 @@ upstream's spelling —, `vision_model.encoder.layers.{i}.self_attn.q_proj`,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -143,9 +144,17 @@ def clip_preprocess(images01: torch.Tensor, size: int = 224) -> torch.Tensor:
     and CLIP-normalised."""
     if images01.shape[1:3] != (size, size):
         images01 = texk.resize_bilinear(images01, size, size)
-    mean = torch.from_numpy(CLIP_IMAGE_MEAN).to(images01)
-    std = torch.from_numpy(CLIP_IMAGE_STD).to(images01)
+    mean, std = _clip_norm(images01.device, images01.dtype)
     return (images01 - mean) / std
+
+
+@functools.lru_cache(maxsize=8)
+def _clip_norm(device: torch.device, dtype: torch.dtype):
+    """CLIP's mean and std on `device` in `dtype`, copied once: a copy from
+    the host inside a training step is what a CUDA graph's capture
+    refuses."""
+    return (torch.from_numpy(CLIP_IMAGE_MEAN).to(device, dtype),
+            torch.from_numpy(CLIP_IMAGE_STD).to(device, dtype))
 
 
 def _unit(z: torch.Tensor) -> torch.Tensor:

@@ -46,8 +46,7 @@ def normalize_depth(depth: torch.Tensor,
         lo = depth.amin(dim=dims, keepdim=True)
         hi = depth.amax(dim=dims, keepdim=True)
     else:
-        inf = torch.tensor(float("inf"), dtype=depth.dtype,
-                           device=depth.device)
+        inf = float("inf")      # a Python scalar: nothing to upload
         lo = torch.where(mask > 0, depth, inf).amin(dim=dims, keepdim=True)
         hi = torch.where(mask > 0, depth, -inf).amax(dim=dims, keepdim=True)
     d = (depth - lo) / torch.clamp(hi - lo, min=1e-6)

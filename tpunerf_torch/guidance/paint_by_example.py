@@ -37,8 +37,8 @@ from tpunerf_torch.guidance.clip_vision import (CLIPVisionConfig,
                                                 init_vision_embeddings_)
 from tpunerf_torch.guidance.schedulers import (NoiseSchedule, ddim_step,
                                                ddim_timesteps)
-from tpunerf_torch.guidance.stable_diffusion import (LATENT_GRAY, VAEStack,
-                                                     _build, _on_meta)
+from tpunerf_torch.guidance.stable_diffusion import (VAEStack, _build,
+                                                     _on_meta, latent_gray)
 from tpunerf_torch.guidance.unet import UNet2DCondition, UNetConfig
 from tpunerf_torch.kernels import texture as texk
 from tpunerf_torch.utils import resolve_device, resolve_dtype
@@ -212,10 +212,14 @@ class PaintByExampleGuidance(VAEStack):
         ctx = image_embeds.repeat_interleave(B, dim=0)  # [uncond×B; cond×B]
         return sds_lib.cfg_eps(self.unet, inp, t, ctx, guidance_scale)
 
-    def takes_clip_branch(self, t: torch.Tensor) -> bool:
+    def clip_branch_flag(self, t: torch.Tensor) -> torch.Tensor:
         """With `use_clip`, whether a drawn t takes the CLIP branch
-        (t ≤ 0.4·T; reads t on the host)."""
-        return int(t) <= (4 * self.sched.num_train_timesteps) // 10
+        (t ≤ 0.4·T), a bool tensor beside t: nothing is read back."""
+        return t <= (4 * self.sched.num_train_timesteps) // 10
+
+    def takes_clip_branch(self, t: torch.Tensor) -> bool:
+        """`clip_branch_flag` read on the host."""
+        return bool(self.clip_branch_flag(torch.as_tensor(t)))
 
     def train_step_loss(self, latents: torch.Tensor, mask: torch.Tensor,
                         image_embeds: torch.Tensor,
@@ -236,8 +240,8 @@ class PaintByExampleGuidance(VAEStack):
         ddim_step(ε̂, add_noise(latents, ε, t))), ref_image01), with the
         gradient through the noising, the DDIM step (ε̂ held), the VAE
         decode and `clip_embed_fn`. A caller that has read the branch of
-        its t already passes it as `clip_branch`; otherwise t is read on the
-        host here. Draws: `t`, then `noise`."""
+        its t already (`clip_branch_flag`) passes it as `clip_branch`;
+        otherwise t is read on the host here. Draws: `t`, then `noise`."""
         with torch.no_grad():
             lat = latents.detach()
             if t is None:
@@ -249,7 +253,8 @@ class PaintByExampleGuidance(VAEStack):
                                     device=lat.device)
             noise = noise.to(lat)
             mask = mask.to(lat)
-            masked = lat * (1 - mask) + LATENT_GRAY.to(lat) * mask
+            masked = lat * (1 - mask) + latent_gray(lat.device,
+                                                    lat.dtype) * mask
             lat_noisy = self.sched.add_noise(lat, noise, t)
             eps_hat = self._unet_9ch(lat_noisy, masked, 1.0 - mask, t,
                                      image_embeds, guidance_scale)
@@ -285,7 +290,8 @@ class PaintByExampleGuidance(VAEStack):
         renoising of `latents` to the first step (strength < 1), as the JAX
         package draws both from one key."""
         dev = latents.device
-        masked = latents * (1 - mask) + LATENT_GRAY.to(latents) * mask
+        masked = latents * (1 - mask) + latent_gray(
+            latents.device, latents.dtype) * mask
         start = int(num_inference_steps * (1.0 - strength))
         ts = ddim_timesteps(num_inference_steps, device=dev)[start:]
         if noise is None:

@@ -107,12 +107,13 @@ class DDIMStepOutput(NamedTuple):
 def ddim_step(sched: NoiseSchedule, eps: torch.Tensor, t: torch.Tensor,
               sample: torch.Tensor, num_inference_steps: int
               ) -> DDIMStepOutput:
-    """Deterministic DDIM update x_t → x_{t−Δ} (ε-prediction, η = 0)."""
+    """Deterministic DDIM update x_t → x_{t−Δ} (ε-prediction, η = 0). ᾱ
+    of t and of the previous step are gathered on the device."""
     step = sched.num_train_timesteps // num_inference_steps
+    t = torch.as_tensor(t, device=sample.device)
     prev_t = t - step
-    a_t = sched.alphas_cumprod[t]
-    a_prev = torch.where(prev_t >= 0,
-                         sched.alphas_cumprod[prev_t.clamp(min=0)],
+    a_t = sched._alpha_bar(t)
+    a_prev = torch.where(prev_t >= 0, sched._alpha_bar(prev_t.clamp(min=0)),
                          sched.final_alpha_cumprod)
     shape = (1,) * sample.ndim
     a_t, a_prev = a_t.reshape(shape), a_prev.reshape(shape)

@@ -22,6 +22,7 @@ backward on the card), as text-token optimisation does
 from __future__ import annotations
 
 import dataclasses
+import functools
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
@@ -53,6 +54,13 @@ LINEAR_RGB_ESTIMATOR = torch.tensor([
 # The latent of a mid-grey image.
 LATENT_GRAY = torch.tensor([0.9071, -0.7711, 0.7437, 0.1510],
                            dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def latent_gray(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`LATENT_GRAY` on `device` in `dtype`, copied once: a copy from the
+    host inside a training step is what a CUDA graph's capture refuses."""
+    return LATENT_GRAY.to(device, dtype)
 
 
 def latent_to_rgb_preview(latents: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,14 @@ the box of a tile's live pixels (g·prod ≠ 0), where each skipped share is
 below |g·prod|·2e^−27.7·m/σ, skip tiles with no live pixel whole, and sum
 to faces in a fixed order (`_soft_bwd_kept` and `_slots_to_faces_ordered`
 are the binned one's twins, `_soft_bwd_dense_kept` the dense one's).
+
+Where bins are built, the choice between the binned and the dense branch
+(JAX's `lax.cond` on a bin overflow) is made on the device, so that a CUDA
+graph holds both: each kernel of a pair takes a device flag, `skip`
+(`_gates`), and returns at its entry where the flag is set, writing
+nothing; both results are formed and the overflow flag picks one with
+`torch.where`. The plain versions on CPU tensors compute both branches and
+pick alike, with no read of the flag on the host.
 """
 from __future__ import annotations
 
@@ -240,6 +248,39 @@ def _check_ids(rows: torch.Tensor, ids: torch.Tensor, pix: torch.Tensor
                          "pixels")
 
 
+def _gates(over: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' flags from the 0-dim bool `over` (a bin overflowed),
+    each a device int32 (1,): (the dense kernel's skip, the binned kernel's
+    skip). The dense branch runs where a bin overflowed, the binned one
+    elsewhere."""
+    o = over.to(torch.int32).reshape(1)
+    return 1 - o, o
+
+
+def _gate_ptr(skip: Optional[torch.Tensor], like: torch.Tensor
+              ) -> Optional[int]:
+    """The address of a kernel's gate (None, a null pointer, runs it)."""
+    if skip is None:
+        return None
+    if skip.dtype != torch.int32 or skip.numel() != 1 \
+            or skip.device != like.device:
+        raise ValueError(f"a gate is one int32 on the kernel's device, got "
+                         f"{skip.dtype} {tuple(skip.shape)} on "
+                         f"{skip.device}")
+    return skip.data_ptr()
+
+
+def _out(out: Optional[torch.Tensor], shape, dtype, device) -> torch.Tensor:
+    """A kernel's output: `out` where given (checked), else empty."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype \
+            or out.device != device or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous {dtype} {tuple(shape)} on "
+                         f"{device}, got {out.dtype} {tuple(out.shape)}")
+    return out
+
+
 def _entry(name: str, ptrs: int, ints: int, floats: int = 0):
     """The C entry `name` of csrc/rasterize.cu taking `ptrs` pointers,
     `ints` ints, `floats` floats and the stream."""
@@ -251,38 +292,45 @@ def _entry(name: str, ptrs: int, ints: int, floats: int = 0):
 
 
 def select_faces_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
-                            width: int = 0) -> torch.Tensor:
+                            width: int = 0,
+                            skip: Optional[torch.Tensor] = None,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Kernel #5, culled by warp tiles of 8 × 4 pixels where `width` (the
-    image's) allows, else 32 in a row."""
+    image's) allows, else 32 in a row. Where the gate `skip` is set the
+    kernel writes nothing (into `out`, where given)."""
     _check_rows(rows, pix)
     _build.check_cuda(rows, pix)
     B, F, _ = rows.shape
     P = pix.shape[0]
-    out = torch.empty((B, P), dtype=torch.int32, device=rows.device)
-    err = _entry(DENSE, 3, 4)(
-        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
-        _soft_tile_width(P, width, False), _build.stream_ptr(rows.device))
+    out = _out(out, (B, P), torch.int32, rows.device)
+    err = _entry(DENSE, 4, 4)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        _gate_ptr(skip, rows), B, F, P, _soft_tile_width(P, width, False),
+        _build.stream_ptr(rows.device))
     _build.check(err, DENSE)
     _build.count_launch(DENSE)
     return out
 
 
 def select_faces_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
-                             pix: torch.Tensor, width: int = 0
+                             pix: torch.Tensor, width: int = 0,
+                             skip: Optional[torch.Tensor] = None,
+                             out: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """Kernel #6, culled by warp tiles of 16 × 2 pixels at a width of 512
-    (see `_soft_tile_width`)."""
+    (see `_soft_tile_width`); gated as #5."""
     _check_rows(rows, pix)
     _check_ids(rows, ids, pix)
     _build.check_cuda(rows, ids, pix)
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
     P = pix.shape[0]
-    out = torch.empty((B, nb, _BAND), dtype=torch.int32, device=rows.device)
-    err = _entry(BINNED, 4, 6)(
+    out = _out(out, (B, nb, _BAND), torch.int32, rows.device)
+    err = _entry(BINNED, 5, 6)(
         rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
-        B, Fr, nb, K, P, _soft_tile_width(P, width, True),
-        _build.stream_ptr(rows.device))
+        _gate_ptr(skip, rows), B, Fr, nb, K, P,
+        _soft_tile_width(P, width, True), _build.stream_ptr(rows.device))
     _build.check(err, BINNED)
     _build.count_launch(BINNED)
     return out
@@ -325,20 +373,24 @@ def select_faces_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
 
 
 def select_faces_dense(rows: torch.Tensor, pix: torch.Tensor,
-                       width: int = 0) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
-    image's, only shapes the kernel's tiles."""
+                       width: int = 0, skip: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Kernel on CUDA tensors (gated by `skip`), plain version on CPU
+    tensors (computed whatever `skip` says). `width`, the image's, only
+    shapes the kernel's tiles."""
     if rows.is_cuda:
-        return select_faces_dense_cuda(rows, pix, width)
+        return select_faces_dense_cuda(rows, pix, width, skip)
     return select_faces_dense_plain(rows, pix)
 
 
 def select_faces_binned(rows: torch.Tensor, ids: torch.Tensor,
-                        pix: torch.Tensor, width: int = 0) -> torch.Tensor:
-    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
-    image's, only shapes the kernel's tiles."""
+                        pix: torch.Tensor, width: int = 0,
+                        skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel on CUDA tensors (gated by `skip`), plain version on CPU
+    tensors (computed whatever `skip` says). `width`, the image's, only
+    shapes the kernel's tiles."""
     if rows.is_cuda:
-        return select_faces_binned_cuda(rows, ids, pix, width)
+        return select_faces_binned_cuda(rows, ids, pix, width, skip)
     return select_faces_binned_plain(rows, ids, pix)
 
 
@@ -436,7 +488,8 @@ def _select_faces_batched(pix: torch.Tensor, fv_img: torch.Tensor,
                           ) -> torch.Tensor:
     """Batched per-pixel winning face ids (B, P) int32, with band binning
     and the dense sweep when a bin overflows (a bin that dropped a face
-    would give a wrong image). The overflow count is read on the host."""
+    would give a wrong image), chosen on the device (`_gates`): JAX's
+    `lax.cond` with nothing read back."""
     B, F = valid.shape
     P = pix.shape[0]
     rows = _face_rows(fv_img, fv_z, valid)                    # (B, F, 12)
@@ -445,13 +498,17 @@ def _select_faces_batched(pix: torch.Tensor, fv_img: torch.Tensor,
     nb = -(-P // _BAND)
     ylo, yhi = _band_ranges(height, width, nb, pix.device)
     ids, maxc = _bin_faces(fv_img, valid, ylo, yhi, K)
-    if int(maxc) > K:
-        return select_faces_dense(rows, pix, width)
+    over = maxc > K
+    skip_dense, skip_binned = _gates(over)
+    dense = select_faces_dense(rows, pix, width, skip_dense)
     rows = torch.cat([rows, _filler_row(rows.device).expand(B, 1, 12)], dim=1)
-    slots = select_faces_binned(rows, ids, pix, width)        # (B, nb, 1024)
-    fid = torch.gather(ids, 2, slots.clamp(min=0).long())
+    slots = select_faces_binned(rows, ids, pix, width,
+                                skip_binned)                  # (B, nb, 1024)
+    # a closed kernel leaves its slots unwritten: clamped into the bin so
+    # that the gather stays in bounds whatever they hold
+    fid = torch.gather(ids, 2, slots.clamp(0, K - 1).long())
     fid = torch.where((slots >= 0) & (fid < F), fid, fid.new_full((), -1))
-    return fid.reshape(B, nb * _BAND)[:, :P]
+    return torch.where(over, dense, fid.reshape(B, nb * _BAND)[:, :P])
 
 
 # --------------------------------------------------------------------------
@@ -745,8 +802,7 @@ def _soft_cull_boxes(rows: torch.Tensor, sigma: float) -> torch.Tensor:
     σ ≥ 1e-6 in NDC. A degenerate face (normals 0, edge0 ≡ −1) never tests
     inside and keeps its box."""
     vx, vy = rows[..., 9:15:2], rows[..., 10:15:2]           # (..., F, 3)
-    m = torch.tensor(_soft_margin(sigma), dtype=torch.float32,
-                     device=rows.device)
+    m = _soft_margin(sigma)          # an f32 value: the f32 subtraction
     box = torch.stack([vx.amin(-1) - m, vx.amax(-1) + m,
                        vy.amin(-1) - m, vy.amax(-1) + m], dim=-1)
     nx, ny = rows[..., 0:9:3], rows[..., 1:9:3]              # (..., F, 3)
@@ -909,38 +965,44 @@ def _soft_fwd_call(name: str, ptrs: int, ints: int):
 
 
 def soft_prod_dense_cuda(rows: torch.Tensor, pix: torch.Tensor, sigma: float,
-                         width: int = 0) -> torch.Tensor:
+                         width: int = 0, skip: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel #7: ∏ (1 − p_f) per pixel, culled by warp tiles of 8 × 4
-    pixels where `width` (the image's) allows, else 32 in a row."""
+    pixels where `width` (the image's) allows, else 32 in a row. Where the
+    gate `skip` is set the kernel writes nothing (into `out`, where
+    given)."""
     _check_soft(rows, pix)
     B, F, _ = rows.shape
     P = pix.shape[0]
-    out = torch.empty((B, P), dtype=torch.float32, device=rows.device)
-    err = _soft_fwd_call(SOFT_FWD_DENSE, 3, 4)(
-        rows.data_ptr(), pix.data_ptr(), out.data_ptr(), B, F, P,
-        _soft_tile_width(P, width, False), float(sigma), _soft_margin(sigma),
-        _build.stream_ptr(rows.device))
+    out = _out(out, (B, P), torch.float32, rows.device)
+    err = _soft_fwd_call(SOFT_FWD_DENSE, 4, 4)(
+        rows.data_ptr(), pix.data_ptr(), out.data_ptr(),
+        _gate_ptr(skip, rows), B, F, P, _soft_tile_width(P, width, False),
+        float(sigma), _soft_margin(sigma), _build.stream_ptr(rows.device))
     _build.check(err, SOFT_FWD_DENSE)
     _build.count_launch(SOFT_FWD_DENSE)
     return out
 
 
 def soft_prod_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
-                          pix: torch.Tensor, sigma: float, width: int = 0
+                          pix: torch.Tensor, sigma: float, width: int = 0,
+                          skip: Optional[torch.Tensor] = None,
+                          out: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Kernel #8. `ids` holds each band's face ids first and the filler id
     (the last row) from there to the end, as `_bin_faces` makes them: the
     kernel stops a band's sweep at its first filler. Warp tiles of 16 × 2
-    pixels at a width of 512 (see `_soft_tile_width`)."""
+    pixels at a width of 512 (see `_soft_tile_width`); gated as #7."""
     _check_soft(rows, pix, ids=ids)
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
     P = pix.shape[0]
-    out = torch.empty((B, nb, _BAND), dtype=torch.float32, device=rows.device)
-    err = _soft_fwd_call(SOFT_FWD_BINNED, 4, 6)(
+    out = _out(out, (B, nb, _BAND), torch.float32, rows.device)
+    err = _soft_fwd_call(SOFT_FWD_BINNED, 5, 6)(
         rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), out.data_ptr(),
-        B, Fr, nb, K, P, _soft_tile_width(P, width, True), float(sigma),
-        _soft_margin(sigma), _build.stream_ptr(rows.device))
+        _gate_ptr(skip, rows), B, Fr, nb, K, P,
+        _soft_tile_width(P, width, True), float(sigma), _soft_margin(sigma),
+        _build.stream_ptr(rows.device))
     _build.check(err, SOFT_FWD_BINNED)
     _build.count_launch(SOFT_FWD_BINNED)
     return out
@@ -988,7 +1050,7 @@ def _soft_bwd_dense_entries():
     size.argtypes = [_build.INT] * 3
     size.restype = _build.LONG
     fn = lib.soft_bwd_dense
-    fn.argtypes = ([_build.VOIDP] * 6 + [_build.LONG] + [_build.INT] * 4
+    fn.argtypes = ([_build.VOIDP] * 7 + [_build.LONG] + [_build.INT] * 4
                    + [_build.FLOAT] * 2 + [_build.VOIDP])
     fn.restype = _build.INT
     return size, fn
@@ -996,10 +1058,13 @@ def _soft_bwd_dense_entries():
 
 def soft_grad_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
                          g: torch.Tensor, prod: torch.Tensor, sigma: float,
-                         width: int = 0) -> torch.Tensor:
+                         width: int = 0, skip: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel #9 (with its first pass over the tiles): the vertex
     gradients (B, F, 6), culled by warp tiles of 8 × 4 pixels where
-    `width` (the image's) allows, else 32 in a row; deterministic."""
+    `width` (the image's) allows, else 32 in a row; deterministic. Where
+    the gate `skip` is set both kernels write nothing (into `out`, where
+    given)."""
     _check_soft(rows, pix, g, prod)
     B, F, _ = rows.shape
     P = pix.shape[0]
@@ -1008,10 +1073,10 @@ def soft_grad_dense_cuda(rows: torch.Tensor, pix: torch.Tensor,
     words = size(B, P, w)
     scratch = torch.empty((max(words, 4),), dtype=torch.int32,
                           device=rows.device)
-    out = torch.empty((B, F, 6), dtype=torch.float32, device=rows.device)
+    out = _out(out, (B, F, 6), torch.float32, rows.device)
     err = fn(rows.data_ptr(), pix.data_ptr(), g.data_ptr(), prod.data_ptr(),
-             out.data_ptr(), scratch.data_ptr(), scratch.numel(), B, F, P, w,
-             float(sigma), _soft_margin(sigma),
+             out.data_ptr(), scratch.data_ptr(), _gate_ptr(skip, rows),
+             scratch.numel(), B, F, P, w, float(sigma), _soft_margin(sigma),
              _build.stream_ptr(rows.device))
     _build.check(err, SOFT_BWD_DENSE)
     _build.count_launch(SOFT_BWD_DENSE)
@@ -1038,7 +1103,8 @@ def soft_grad_dense_sweep_cuda(rows: torch.Tensor, pix: torch.Tensor,
 
 def _soft_bwd_binned_rows(rows: torch.Tensor, ids: torch.Tensor,
                           pix: torch.Tensor, g: torch.Tensor,
-                          prod: torch.Tensor, sigma: float, width: int = 0):
+                          prod: torch.Tensor, sigma: float, width: int = 0,
+                          skip: Optional[torch.Tensor] = None):
     """The first of #10's two kernels → (slot rows (B, nb, 2, K, 6) of
     each half band, written only at the filled slots of the halves with a
     live pixel; slot_of (B, F, nb), each face's slot in each band that
@@ -1054,10 +1120,11 @@ def _soft_bwd_binned_rows(rows: torch.Tensor, ids: torch.Tensor,
     slot_of = torch.empty((B, Fr - 1, nb), dtype=torch.int32, device=dev)
     span = torch.empty((2, B, Fr - 1), dtype=torch.int32, device=dev)
     live = torch.empty((B, nb, 2), dtype=torch.int32, device=dev)
-    err = _entry(SOFT_BWD_BINNED, 9, 6, 2)(
+    err = _entry(SOFT_BWD_BINNED, 10, 6, 2)(
         rows.data_ptr(), ids.data_ptr(), pix.data_ptr(), g.data_ptr(),
         prod.data_ptr(), slot_rows.data_ptr(), slot_of.data_ptr(),
-        span.data_ptr(), live.data_ptr(), B, Fr, nb, K, P,
+        span.data_ptr(), live.data_ptr(), _gate_ptr(skip, rows), B, Fr, nb,
+        K, P,
         _soft_tile_width(P, width, True), float(sigma), _soft_margin(sigma),
         _build.stream_ptr(dev))
     _build.check(err, SOFT_BWD_BINNED)
@@ -1066,29 +1133,34 @@ def _soft_bwd_binned_rows(rows: torch.Tensor, ids: torch.Tensor,
 
 def _soft_bwd_faces(rows: torch.Tensor, ids: torch.Tensor,
                     slot_rows: torch.Tensor, slot_of: torch.Tensor,
-                    span: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+                    span: torch.Tensor, live: torch.Tensor,
+                    skip: Optional[torch.Tensor] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The second: each face's slot rows summed in band order → (B, F, 6)."""
     B, Fr, _ = rows.shape
     _, nb, K = ids.shape
-    out = torch.empty((B, Fr - 1, 6), dtype=torch.float32, device=rows.device)
-    err = _entry("soft_bwd_faces", 7, 4)(
+    out = _out(out, (B, Fr - 1, 6), torch.float32, rows.device)
+    err = _entry("soft_bwd_faces", 8, 4)(
         rows.data_ptr(), ids.data_ptr(), slot_rows.data_ptr(),
         slot_of.data_ptr(), span.data_ptr(), live.data_ptr(), out.data_ptr(),
-        B, Fr, nb, K, _build.stream_ptr(rows.device))
+        _gate_ptr(skip, rows), B, Fr, nb, K, _build.stream_ptr(rows.device))
     _build.check(err, SOFT_BWD_BINNED)
     return out
 
 
 def soft_grad_binned_cuda(rows: torch.Tensor, ids: torch.Tensor,
                           pix: torch.Tensor, g: torch.Tensor,
-                          prod: torch.Tensor, sigma: float, width: int = 0
+                          prod: torch.Tensor, sigma: float, width: int = 0,
+                          skip: Optional[torch.Tensor] = None,
+                          out: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Kernel #10 and its face sum → the vertex gradients (B, F, 6). `ids`
     holds each band's face ids ascending, then the filler id (the last
     row), as `_bin_faces` makes them; tiles as `soft_prod_binned_cuda`'s.
-    Deterministic."""
-    parts = _soft_bwd_binned_rows(rows, ids, pix, g, prod, sigma, width)
-    out = _soft_bwd_faces(rows, ids, *parts)
+    Deterministic; both kernels gated as #9."""
+    parts = _soft_bwd_binned_rows(rows, ids, pix, g, prod, sigma, width,
+                                  skip)
+    out = _soft_bwd_faces(rows, ids, *parts, skip=skip, out=out)
     _build.count_launch(SOFT_BWD_BINNED)
     return out
 
@@ -1114,35 +1186,41 @@ def soft_grad_binned_sweep_cuda(rows: torch.Tensor, ids: torch.Tensor,
     return _slots_to_faces(slot_rows, ids, Fr - 1)
 
 
-def soft_prod_dense(rows, pix, sigma, width: int = 0):
-    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
-    image's, only shapes the kernel's tiles."""
+def soft_prod_dense(rows, pix, sigma, width: int = 0, skip=None):
+    """Kernel on CUDA tensors (gated by `skip`), plain version on CPU
+    tensors (computed whatever `skip` says). `width`, the image's, only
+    shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_prod_dense_cuda(rows, pix, sigma, width)
+        return soft_prod_dense_cuda(rows, pix, sigma, width, skip)
     return soft_prod_dense_plain(rows, pix, sigma)
 
 
-def soft_prod_binned(rows, ids, pix, sigma, width: int = 0):
-    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
-    image's, only shapes the kernel's tiles."""
+def soft_prod_binned(rows, ids, pix, sigma, width: int = 0, skip=None):
+    """Kernel on CUDA tensors (gated by `skip`), plain version on CPU
+    tensors (computed whatever `skip` says). `width`, the image's, only
+    shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_prod_binned_cuda(rows, ids, pix, sigma, width)
+        return soft_prod_binned_cuda(rows, ids, pix, sigma, width, skip)
     return soft_prod_binned_plain(rows, ids, pix, sigma)
 
 
-def soft_grad_dense(rows, pix, g, prod, sigma, width: int = 0):
-    """Kernel on CUDA tensors, plain version on CPU tensors. `width`, the
-    image's, only shapes the kernel's tiles."""
+def soft_grad_dense(rows, pix, g, prod, sigma, width: int = 0, skip=None):
+    """Kernel on CUDA tensors (gated by `skip`), plain version on CPU
+    tensors (computed whatever `skip` says). `width`, the image's, only
+    shapes the kernel's tiles."""
     if rows.is_cuda:
-        return soft_grad_dense_cuda(rows, pix, g, prod, sigma, width)
+        return soft_grad_dense_cuda(rows, pix, g, prod, sigma, width, skip)
     return soft_grad_dense_plain(rows, pix, g, prod, sigma)
 
 
-def soft_grad_binned(rows, ids, pix, g, prod, sigma, width: int = 0):
+def soft_grad_binned(rows, ids, pix, g, prod, sigma, width: int = 0,
+                     skip=None):
     """The vertex gradients (B, F, 6): kernel and its face sum on CUDA
-    tensors, the plain rows and `_slots_to_faces` on CPU tensors."""
+    tensors (gated by `skip`), the plain rows and `_slots_to_faces` on CPU
+    tensors (computed whatever `skip` says)."""
     if rows.is_cuda:
-        return soft_grad_binned_cuda(rows, ids, pix, g, prod, sigma, width)
+        return soft_grad_binned_cuda(rows, ids, pix, g, prod, sigma, width,
+                                     skip)
     return _slots_to_faces(soft_grad_binned_plain(rows, ids, pix, g, prod,
                                                   sigma),
                            ids, rows.shape[1] - 1)
@@ -1178,9 +1256,11 @@ def _band_maps(a: torch.Tensor, nb: int) -> torch.Tensor:
 
 class _SoftSilhouette(torch.autograd.Function):
     """mask = 1 − ∏(1 − p_f), (B, H, W), with the closed-form gradient to
-    the vertex positions. Forward decides between the binned and the dense
-    sweep (the bin counts are read on the host); backward takes the branch
-    forward took, with forward's bins and forward's prod."""
+    the vertex positions. Where bins are built, forward runs the binned and
+    the dense sweep gated on the overflow flag (`_gates`) and keeps the
+    open one's prod; it saves the flag, and backward gates its two kernels
+    by it, so that it takes the branch forward took, with forward's bins
+    and forward's prod."""
 
     @staticmethod
     def forward(ctx, fv_img, height: int, width: int, sigma: float, K: int):
@@ -1189,36 +1269,41 @@ class _SoftSilhouette(torch.autograd.Function):
         pix = pixel_grid_ndc(height, width, fv.device)
         P = pix.shape[0]
         rows = _soft_rows(fv)
-        ids = None
         if uses_bins(height, width, F, K):
             ids, maxc = _soft_bins(fv, height, width, sigma, K)
-            if int(maxc) > K:      # a bin that dropped a face: dense sweep
-                ids = None
-        if ids is None:
-            prod = soft_prod_dense(rows, pix, sigma, width)
+            over = maxc > K        # a bin that dropped a face: dense sweep
+            skip_dense, skip_binned = _gates(over)
+            dense = soft_prod_dense(rows, pix, sigma, width, skip_dense)
+            binned = soft_prod_binned(_with_filler(rows), ids, pix, sigma,
+                                      width, skip_binned)
+            prod = torch.where(over, dense, binned.reshape(B, -1)[:, :P])
+            ctx.save_for_backward(rows, prod, ids, over)
         else:
-            prod = soft_prod_binned(_with_filler(rows), ids, pix, sigma,
-                                    width)
-            prod = prod.reshape(B, -1)[:, :P].contiguous()
-        ctx.save_for_backward(rows, prod, *(() if ids is None else (ids,)))
+            prod = soft_prod_dense(rows, pix, sigma, width)
+            ctx.save_for_backward(rows, prod)
         ctx.dims = (height, width, sigma)
         return (1.0 - prod).reshape(B, height, width)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        rows, prod, *ids = ctx.saved_tensors
+        rows, prod, *bins = ctx.saved_tensors
         height, width, sigma = ctx.dims
         B, F = rows.shape[:2]
         pix = pixel_grid_ndc(height, width, rows.device)
         g = g.reshape(B, -1).contiguous()
-        if not ids:
+        if not bins:
             grad = soft_grad_dense(rows, pix, g, prod, sigma, width)
         else:
-            nb = ids[0].shape[1]
-            grad = soft_grad_binned(
-                _with_filler(rows), ids[0], pix, _band_maps(g, nb),
-                _band_maps(prod, nb), sigma, width)
+            ids, over = bins
+            skip_dense, skip_binned = _gates(over)
+            nb = ids.shape[1]
+            dense = soft_grad_dense(rows, pix, g, prod, sigma, width,
+                                    skip_dense)
+            binned = soft_grad_binned(
+                _with_filler(rows), ids, pix, _band_maps(g, nb),
+                _band_maps(prod, nb), sigma, width, skip_binned)
+            grad = torch.where(over, dense, binned)
         return grad.reshape(B, F, 3, 2), None, None, None, None
 
 

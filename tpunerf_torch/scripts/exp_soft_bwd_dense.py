@@ -73,7 +73,7 @@ def entry(lib: ctypes.CDLL):
     """#9 of a build, with the contract of `rz.soft_grad_dense_cuda`."""
     size, fn = lib.soft_bwd_dense_scratch, lib.soft_bwd_dense
     size.argtypes, size.restype = [_build.INT] * 3, _build.LONG
-    fn.argtypes = ([_build.VOIDP] * 6 + [_build.LONG] + [_build.INT] * 4
+    fn.argtypes = ([_build.VOIDP] * 7 + [_build.LONG] + [_build.INT] * 4
                    + [_build.FLOAT] * 2 + [_build.VOIDP])
     fn.restype = _build.INT
 
@@ -85,7 +85,7 @@ def entry(lib: ctypes.CDLL):
         out = torch.empty((B, F, 6), dtype=torch.float32, device=rows.device)
         _build.check(fn(rows.data_ptr(), pix.data_ptr(), g.data_ptr(),
                         prod.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                        scratch.numel(), B, F, P, width, SIGMA,
+                        None, scratch.numel(), B, F, P, width, SIGMA,
                         rz._soft_margin(SIGMA),
                         _build.stream_ptr(rows.device)), "soft_bwd_dense")
         return out

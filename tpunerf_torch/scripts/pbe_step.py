@@ -105,7 +105,7 @@ def tiny_pbe_steps(device: torch.device, seed: int,
             app.scene.zero_grad(set_to_none=True)
             loss, aux = app.loss_fn(views.to(d), draws={
                 k: v.to(d) for k, v in draws.items()})
-            if aux["clip_branch"] != (branch == "clip"):
+            if bool(aux["clip_branch"]) != (branch == "clip"):
                 raise AssertionError(f"t = {t} did not take the {branch} "
                                      "branch")
             loss.backward()

@@ -33,7 +33,10 @@ without them they are random-initialised from `optim.seed`.
 (`learned_embeds.bin`, `token_identifier.txt`) for the SD-v1 stack.
 Checkpoints, eval frames, train-render images, the final orbit and the
 export of the displaced mesh land as in `train_latent_nerf`;
-`--optim.resume true` and `--log.eval_only true` work the same way.
+`--optim.resume true`, `--log.eval_only true` and `--optim.train_chunk k`
+(chunks of k replays of the step captured in a CUDA graph on the card, in
+every mode and with every backend; k eager steps on the CPU) work the same
+way.
 """
 from __future__ import annotations
 

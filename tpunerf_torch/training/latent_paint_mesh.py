@@ -23,10 +23,16 @@ text-guided SD stack the app builds (a name that is not a directory, or a
 concept with the depth or Paint-by-Example backend, raises).
 `guide.model_dir` names the diffusers-layout directory of whichever
 backend the app builds, `guide.clip_model_dir` the CLIP tower's
-(guidance/weights.py). Refused by name: the chunked trainer
-(`optim.train_chunk > 1`, `chunk_refusal`: A.12).
+(guidance/weights.py).
 The texture and the dome colours train at `optim.lr`, the displacement and
 the lights at `optim.disp_lr`.
+
+The chunked trainer (`optim.train_chunk > 1`) runs every mode and backend:
+on a card a step is a CUDA graph that reads nothing back. The band bins'
+overflow of the ≥ 128² renders is decided on the device (the gated kernels
+of kernels/rasterize.py). Paint-by-Example's CLIP branch is decided by the
+trainer: it draws t before the step through the app's hook (`branches`,
+`draw_branch`), reads the flag and replays that branch's step graph.
 
 Every random draw can be passed in through `draws` (see `loss_fn`).
 """
@@ -62,12 +68,6 @@ from tpunerf_torch.utils import load_image, make_generator, resolve_device
 
 SOFT_MASK_SIGMA = 1e-4
 SDEDIT_STEP_INDEX = 40       # mode 2 renoises at this DDIM step
-CHUNK_REFUSAL = (
-    "optim.train_chunk > 1 (a CUDA-graph step) for latent-paint-mesh comes "
-    "with ROADMAP.md item A.12: mode 1's 512² renders read a bin-overflow "
-    "count on the host (face selection and the soft silhouette's forward, "
-    "kernels/rasterize.py), and modes 0 and 2 have not been tried under "
-    "capture")
 DEPTH_MODES_REFUSAL = (
     "optim.mode {mode} with 'depth' in guide.diffusion_name: the JAX "
     "package has no such path (its TADA and SDEdit losses use the "
@@ -123,7 +123,6 @@ class LatentPaintMeshApp:
     # Paint-by-Example with guide.use_sd false
     guidance: Union[StableDiffusionGuidance, StableDiffusionDepthGuidance,
                     PaintByExampleGuidance]
-    chunk_refusal = CHUNK_REFUSAL
     text_z: torch.Tensor                 # body prompts (D, 2, L, E)
     text_z_head: torch.Tensor            # head prompts (D, 2, L, E)
     # from guide.image: Paint-by-Example's (2, 1, D) exemplar embedding,
@@ -251,25 +250,49 @@ class LatentPaintMeshApp:
         sel2 = torch.cat([sel, sel])[:, None, None]
         return body * sel2 + head * (1.0 - sel2)
 
+    def branches(self) -> bool:
+        """Whether the step's loss branches on a draw: Paint-by-Example
+        with `optim.use_clip`, whose t takes the CLIP branch or the SDS
+        one. The trainer then draws t through `draw_branch` before the
+        step."""
+        return (isinstance(self.guidance, PaintByExampleGuidance)
+                and self.cfg.optim.use_clip and self.clip is not None)
+
+    def draw_branch(self, generator: Optional[torch.Generator] = None
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The draw the step branches on, {"t": t}, and its branch flag (a
+        bool tensor on the device: t takes the CLIP branch)."""
+        g = self.guidance
+        t = sds_lib.sample_timestep(g.min_step, g.max_step,
+                                    self.scene.device, generator)
+        return {"t": t}, g.clip_branch_flag(t)
+
     def loss_fn(self, views: ViewBatch,
                 draws: Optional[Mapping[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                branch: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Render → the mode's guidance loss + the displacement's
         regularisers. Each random draw is taken from `draws` where it is
-        there and from `generator` otherwise, in the order listed:
+        there and from `generator` otherwise, in the order listed (the
+        render draws nothing):
         mode 0: `t`, `noise` (B, h, w, 4) of the SDS term (with depth and
-        Paint-by-Example too; with Paint-by-Example and `optim.use_clip`,
-        `aux["clip_branch"]` says whether t took the CLIP branch);
+        Paint-by-Example too). With Paint-by-Example and `optim.use_clip`
+        the trainer draws `t` before the step (`draw_branch`, right after
+        the poses: the same place in the generator's order) and passes it
+        in with `branch`, the branch it read from the flag (a replay of the
+        graph of that branch); without `branch` the flag is read here.
+        `aux["clip_branch"]` is the flag, a bool tensor;
         mode 1: `vae_noise_img`, `vae_noise_nrm` (the two encodes'
         posterior samples), `t_img`, `noise_img`, `t_nrm`, `noise_nrm`;
-        mode 2: `vae_noise`, `noise`."""
+        mode 2: `vae_noise`, `noise`.
+        Every entry of the returned aux is a tensor."""
         cfg, mode = self.cfg, self.cfg.optim.mode
         draws = dict(draws or {})
         render = self.scene.render_train(views, with_lighting=mode != 0)
         aux: Dict[str, Any] = {"image": render["image"].detach()}
         if mode == 0 and isinstance(self.guidance, PaintByExampleGuidance):
-            main = self._pbe_loss(render, draws, generator, aux)
+            main = self._pbe_loss(render, draws, generator, aux, branch)
         elif mode == 0:
             depth = ()           # the depth backend's condition
             if isinstance(self.guidance, StableDiffusionDepthGuidance):
@@ -289,19 +312,24 @@ class LatentPaintMeshApp:
         aux["laplacian_loss"] = render["laplacian_loss"].detach()
         return loss, aux
 
-    def _pbe_loss(self, render, draws, generator, aux) -> torch.Tensor:
+    def _pbe_loss(self, render, draws, generator, aux,
+                  branch: Optional[bool]) -> torch.Tensor:
         """Paint-by-Example's SDS term on the latent render and its
-        detached mask; with `optim.use_clip`, the CLIP branch at low t."""
+        detached mask; with `optim.use_clip`, the CLIP branch at low t
+        (`branch` where the caller read it, else read here)."""
         g = self.guidance
         image = render["image"]
         t = draws.get("t")
         if t is None:
             t = sds_lib.sample_timestep(g.min_step, g.max_step, image.device,
                                         generator)
-        use_clip = self.cfg.optim.use_clip and self.clip is not None
+        use_clip = self.branches()
         clip_branch = None
         if use_clip:
-            clip_branch = aux["clip_branch"] = g.takes_clip_branch(t)
+            t = torch.as_tensor(t, device=image.device)
+            aux["clip_branch"] = g.clip_branch_flag(t)
+            clip_branch = (bool(aux["clip_branch"]) if branch is None
+                           else branch)
         return g.train_step_loss(
             image, render["mask"].detach(), self.image_embeds,
             guidance_scale=self.cfg.guide.guidance_scale, use_clip=use_clip,

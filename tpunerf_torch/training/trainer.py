@@ -49,7 +49,12 @@ Around the step, as the JAX package's trainer does (`<exp_dir>/` below):
   chunk is k replays with no host synchronisation between them, the
   app's `post_step` (the occupancy refresh) running eagerly between
   replays; a card that cannot capture raises, the trainer never falls
-  back to eager steps there. On the CPU a chunk is k eager steps;
+  back to eager steps there. An app whose loss branches on a draw (its
+  `branches()`: Paint-by-Example's CLIP branch at low t) gives that draw
+  through its `draw_branch` hook: the poses and it are a small graph of
+  their own, the step one graph a branch, and a replay reads the branch
+  flag between the two (one read from the device a step). On the CPU a
+  chunk is k eager steps;
 * `log.trace_steps` [a, b): a `torch.profiler` trace of those steps into
   `<exp_dir>/trace/trace.json`, started and stopped at chunk granularity
   in a chunked run, and stopped as well at the end of the run (an upper
@@ -62,17 +67,16 @@ Image files are written by a pool of two threads. Every write is joined
 before a failure is raised, and the pool is shut down, with the checkpoint
 writer joined, at the end of `train()` and of `full_eval()`, and by
 `close()`, which a run that raises reaches too. `optim.use_opt_txt` is
-refused (the JAX package's trainer never reads it; text-token optimisation
-is the function `training.text_token_opt.optimize_text_token`), and an app
-with a `chunk_refusal` refuses `optim.train_chunk > 1`: such a config is
-refused at construction.
+refused at construction (the JAX package's trainer never reads it;
+text-token optimisation is the function
+`training.text_token_opt.optimize_text_token`).
 """
 from __future__ import annotations
 
 import concurrent.futures
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,10 +96,8 @@ METRIC_INTERVAL = 50
 
 
 def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
-    """The settings of `cfg` that need what the port does not have yet,
-    each with the ROADMAP.md item that brings it (an app's `chunk_refusal`
-    for `optim.train_chunk > 1`), and the eval settings where the app has
-    no `eval_render`."""
+    """The settings of `cfg` that the port does not run: `optim.use_opt_txt`,
+    and the eval settings where the app has no `eval_render`."""
     log, optim = cfg.log, cfg.optim
     no_eval = not hasattr(app, "eval_render")
     asks = {
@@ -110,9 +112,6 @@ def unported_settings(cfg: TrainConfig, app: Any = None) -> list:
         "log.save_mesh (the mesh export) needs an app with an eval_render":
             log.save_mesh and no_eval,
     }
-    refusal = getattr(app, "chunk_refusal", None)
-    if refusal is not None:
-        asks[refusal] = optim.train_chunk > 1
     return [k for k, v in asks.items() if v]
 
 
@@ -184,14 +183,39 @@ class Trainer:
                                         torch.float32)
 
     # ------------------------------------------------------------------ #
-    def step_body(self) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def branches(self) -> bool:
+        """Whether the app's loss branches on a draw (its `branches()`)."""
+        hook = getattr(self.app, "branches", None)
+        return hook is not None and hook()
+
+    def draw(self) -> Tuple[Any, Dict[str, torch.Tensor],
+                            Optional[torch.Tensor]]:
+        """The step's leading draws: the poses and, where the app's loss
+        branches on a draw, that draw (`app.draw_branch`) and the branch
+        flag, a bool on the device (else {} and None)."""
+        views = rand_poses(self.cfg.render.batch_size, self.view_cfg,
+                           self.device, generator=self.generator)
+        if not self.branches():
+            return views, {}, None
+        lead, flag = self.app.draw_branch(self.generator)
+        return views, lead, flag
+
+    def step_body(self, drawn: Optional[Tuple] = None,
+                  branch: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """A step as a CUDA graph captures it: poses → loss → backward →
         Adam. The gradients must be unset (`zero_grad(set_to_none=True)`)
-        before. Returns the loss and the app's aux, as device tensors."""
-        gen = self.generator
-        views = rand_poses(self.cfg.render.batch_size, self.view_cfg,
-                           self.device, generator=gen)
-        loss, aux = self.app.loss_fn(views, generator=gen)
+        before. `drawn` is `draw()`'s result (drawn here where not given);
+        where the app branches, `branch` is the branch its flag names (read
+        here from the flag where not given). Returns the loss and the app's
+        aux, as device tensors."""
+        views, lead, flag = self.draw() if drawn is None else drawn
+        kwargs: Dict[str, Any] = {}
+        if flag is not None:
+            kwargs = dict(draws=lead,
+                          branch=bool(flag) if branch is None else branch)
+        loss, aux = self.app.loss_fn(views, generator=self.generator,
+                                     **kwargs)
         loss.backward()
         self.optimizer.step()
         return loss.detach(), aux
@@ -267,12 +291,14 @@ class Trainer:
         losses = torch.empty(k, device=self.device)
         if self.graphed():
             graph = self.capture()
+            replays: Dict[Optional[bool], int] = {}
             for i in range(k):
                 self.train_step_idx += 1
-                graph.replay()
+                branch = graph.replay()
+                replays[branch] = replays.get(branch, 0) + 1
                 losses[i].copy_(graph.loss)
                 self.post_step()
-            graph.count_launches(k)
+            graph.count_launches(replays)
             aux = {n: v.clone() if torch.is_tensor(v) else v
                    for n, v in graph.aux.items()}
             return losses, aux
@@ -574,6 +600,27 @@ class Trainer:
                 "mem_mb": torch.cuda.memory_allocated(self.device) / 2 ** 20}
 
 
+class _Captured:
+    """One captured step graph and its static outputs: the loss, the app's
+    aux, the gradients' global norm, the gradients, and the repo's kernels
+    one replay launches."""
+
+    def __init__(self, trainer: "Trainer", body: Callable, pool=None):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(trainer.generator)
+        before = dict(_build.CAPTURED)
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = body()
+        # the static gradients: an eager step between replays unsets the
+        # parameters' .grad, the graph goes on writing these
+        self.grads = [p.grad for p in trainer.params]
+        self.launches = {n: c - before.get(n, 0)
+                         for n, c in _build.CAPTURED.items()
+                         if c > before.get(n, 0)}
+
+
 class GraphedStep:
     """One training step of a trainer (`Trainer.step_body`: poses, render,
     guidance, backward, Adam) captured in a CUDA graph.
@@ -591,7 +638,17 @@ class GraphedStep:
     norm, which only the graph computes every step) and `aux` are the step's
     static outputs, which the next replay overwrites. `launches` counts the
     repo's kernels one replay runs (`_build.CAPTURED` during the capture):
-    `count_launches(k)` adds k replays' worth to `_build.LAUNCHES`."""
+    `count_launches` adds the replays' worth to `_build.LAUNCHES`.
+
+    Where the app's loss branches on a draw (`Trainer.branches`), the
+    step's leading draws (`Trainer.draw`: the poses, the draw and its flag)
+    are a graph of their own, `draw_graph`, whose static outputs the step
+    graphs read, and there is a step graph for each branch, warmed up and
+    captured from the same state (each in its own memory). `replay` replays
+    the draw graph, reads the flag (one read from the device) and replays
+    that branch's step graph; the static outputs and `launches` are then
+    the last replayed branch's (`branch`), and `launches_by_branch` holds
+    each branch's."""
 
     def __init__(self, trainer: "Trainer"):
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
@@ -601,34 +658,77 @@ class GraphedStep:
                 f"which optim.train_chunk > 1 needs on a card: run with "
                 f"--optim.train_chunk 1")
         dev, opt = trainer.device, trainer.optimizer
+        branches = (False, True) if trainer.branches() else (None,)
         saved = trainer.snapshot()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            opt.zero_grad(set_to_none=True)
-            trainer.step_body()
-            trainer.grad_norm()
+            for branch in branches:
+                opt.zero_grad(set_to_none=True)
+                trainer.step_body(branch=branch)
+                trainer.grad_norm()
+                trainer.restore(saved)
         torch.cuda.current_stream(dev).wait_stream(side)
-        trainer.restore(saved)
         del saved
-        opt.zero_grad(set_to_none=True)
-        self.graph = torch.cuda.CUDAGraph()
-        self.graph.register_generator_state(trainer.generator)
-        before = dict(_build.CAPTURED)
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.loss, self.aux = trainer.step_body()
-            self.grad_norm = trainer.grad_norm()
-        # the static gradients: an eager step between replays unsets the
-        # parameters' .grad, the graph goes on writing these
-        self.grads = [p.grad for p in trainer.params]
-        self.launches = {n: c - before.get(n, 0)
-                         for n, c in _build.CAPTURED.items()
-                         if c > before.get(n, 0)}
+        self.draw_graph: Optional[torch.cuda.CUDAGraph] = None
+        self.flag: Optional[torch.Tensor] = None
+        drawn = None
+        if branches != (None,):
+            self.draw_graph = torch.cuda.CUDAGraph()
+            self.draw_graph.register_generator_state(trainer.generator)
+            with torch.cuda.graph(self.draw_graph,
+                                  capture_error_mode="thread_local"):
+                drawn = trainer.draw()
+            self.flag = drawn[2]
 
-    def replay(self) -> None:
-        self.graph.replay()
+        def body(branch):
+            def run():
+                loss, aux = trainer.step_body(drawn, branch)
+                return loss, aux, trainer.grad_norm()
+            return run
 
-    def count_launches(self, replays: int) -> None:
-        for name, n in self.launches.items():
-            _build.count_launch(name, n * replays)
+        self.steps = {b: _Captured(trainer, body(b)) for b in branches}
+        self.launches_by_branch = {b: c.launches
+                                   for b, c in self.steps.items()}
+        self.branch: Optional[bool] = branches[0]
 
+    @property
+    def _last(self) -> _Captured:
+        return self.steps[self.branch]
+
+    @property
+    def loss(self) -> torch.Tensor:
+        return self._last.out[0]
+
+    @property
+    def aux(self) -> Dict[str, Any]:
+        return self._last.out[1]
+
+    @property
+    def grad_norm(self) -> torch.Tensor:
+        return self._last.out[2]
+
+    @property
+    def grads(self) -> List[Optional[torch.Tensor]]:
+        return self._last.grads
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        return self._last.launches
+
+    def replay(self) -> Optional[bool]:
+        """One step: the step graph (after the draw graph and the read of
+        its flag, where the step branches). Returns the branch replayed
+        (None where the step does not branch)."""
+        if self.draw_graph is not None:
+            self.draw_graph.replay()
+            self.branch = bool(self.flag)
+        self._last.graph.replay()
+        return self.branch
+
+    def count_launches(self, replays: Mapping[Optional[bool], int]) -> None:
+        """Add the launches of `replays` (replays by branch) to
+        `_build.LAUNCHES`."""
+        for branch, k in replays.items():
+            for name, n in self.launches_by_branch[branch].items():
+                _build.count_launch(name, n * k)
