@@ -219,6 +219,18 @@
     launches, the step in turns (eager, graph, graph, eager), profiled
     replays with the idle share, the launches a replay (by branch) and the
     peak memory.
+15. The distribution layer (`dist_phase`, after 14's chunked
+    latent-paint-mesh): (a) stage 1 with `--optim.train_chunk 8` for 16
+    steps in a process group of one rank over NCCL, bit for bit against
+    the same run without a process group (losses, parameters, buffers,
+    Adam), the captured step's NCCL all-reduce counted in its trace; (b)
+    two ranks spawned on cuda:0 over gloo (`chip_smoke.py --dist-worker`),
+    eager, latent-NeRF at (data 2, rays 1) and (data 1, rays 2) with
+    `render.batch_size 2` and latent-paint-mesh mode 0 at (data 1, rays
+    2), 4 steps each against the one-rank run here (losses within 1e-5 of
+    their scale, every state tensor within 1e-5 of its largest value, the
+    ranks bit-equal), with the step at one and two ranks and the
+    all-reduce's bytes and ms; (c) `scripts/bench_scaling.py` at one rank.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -2547,9 +2559,10 @@ def weights_phase(seed: int, guidance) -> dict:
     return cli_launches
 
 
-def build_guidance(seed: int):
+def build_guidance(seed: int, unet_dtype: str = "auto"):
     """The full-width guidance stack, built once for both apps: SD-v1 UNet
-    (bf16), CLIP ViT-L/14 and the SD-v1 VAE (f32), random from the seed."""
+    (bf16, or `unet_dtype`), CLIP ViT-L/14 and the SD-v1 VAE (f32), random
+    from the seed."""
     import torch
     from tpunerf_torch.guidance.stable_diffusion import \
         StableDiffusionGuidance
@@ -2557,7 +2570,8 @@ def build_guidance(seed: int):
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     guidance = StableDiffusionGuidance.create(
-        unet_dtype="auto", device=dev, generator=make_generator(seed, dev))
+        unet_dtype=unet_dtype, device=dev,
+        generator=make_generator(seed, dev))
     torch.cuda.synchronize()
     print(f"setup (UNet + CLIP + VAE build): {time.perf_counter() - t0:.2f} s")
     for name in ("unet", "text_encoder", "vae"):
@@ -5141,7 +5155,8 @@ def train_chunked_full_width(steps: int, seed: int, guidance,
           f"{json.dumps(counted)}")
     if not (all(counts.values()) and counts == want == counted):
         fail(f"the trace's kernels of #1-#4 are not the window's replays "
-             f"and refreshes ({label})")
+             f"and refreshes ({label}): in the trace {counts}, replays and "
+             f"refreshes {want}, counted {counted}")
     steady = steady_graph_vs_eager(trainer, label)
     busy = profile_steps(trainer, f"{label} graphed", steps=5,
                          step_fn=trainer.graph.replay)
@@ -5824,9 +5839,382 @@ def chunked_mesh_phase(seed: int, guidance) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the distribution layer (dist/mesh.py): (a) world 1 under NCCL, (b) two
+# gloo ranks sharing the card, (c) the scaling harness at one rank
+# --------------------------------------------------------------------------
+
+DIST_STEPS = 4            # (b)'s steps a case
+DIST_CHUNKED_STEPS = 16   # (a)'s steps, in chunks of 8
+DIST_TOL = 1e-5           # (b): of the loss's scale, of each tensor's max
+# (b), paint-mesh's losses of steps 2-4, of their scale: Adam's first
+# updates move an element whose gradient sums to about 0 by 2·lr on either
+# sign, and the mesh's readings then run 2e-5 to 9.9e-4 (three runs of this
+# phase on an H100 80GB HBM3 at 700 W; the one-rank run's step-2 loss
+# itself moves by 8e-4 between runs); a draw out of step changes t or the
+# noise, and the loss by its scale
+DIST_MESH_LATER_TOL = 1e-2
+# (b) in f32: a bf16 UNet at another batch, or a bf16 field MLP's partial
+# sums, round 1e-3 apart from the one-rank run whatever the split
+DIST_F32 = ("--guide.unet_dtype", "float32", "--render.mlp_dtype",
+            "float32")
+# (b)'s cases: (label, app, batch size, rays axis)
+DIST_CASES = (("latent-NeRF (data 2, rays 1)", "nerf", 2, 1),
+              ("latent-NeRF (data 1, rays 2)", "nerf", 2, 2),
+              ("latent-paint-mesh mode 0 (data 1, rays 2)", "mesh", 1, 2))
+
+
+def _dist_trainer(case: str, seed: int, guidance, tmp: str, batch: int,
+                  rays: int, *extra: str):
+    """A full-width trainer of `case` ("nerf": stage 1 of sand_castle.yaml;
+    "mesh": latent-paint-mesh mode 0 on the sphere at body_prob 0.7) with
+    `batch` views a step and the rays axis `rays`, evals, images, the export
+    and checkpoints cut."""
+    from tpunerf_torch.core.config import parse
+    from tpunerf_torch.training.config import TrainConfig
+    from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
+    from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
+    from tpunerf_torch.training.trainer import Trainer
+    cut = ["--render.batch_size", str(batch), "--dist.rays_axis", str(rays),
+           "--log.exp_root", tmp, "--log.eval_size", "0",
+           "--log.full_eval_size", "0", "--log.save_mesh", "false",
+           "--log.log_images", "false", "--optim.seed", str(seed), *extra]
+    if case == "nerf":
+        cfg = parse(TrainConfig, ["--log.save_interval", "1000", *cut],
+                    config_path=SAND_CASTLE)
+        app = LatentNeRFApp.create(cfg, guidance=guidance, device="cuda")
+    else:
+        cfg = _mesh_cfg(tmp, "dist_mesh", seed, 0, DIST_STEPS, 0, cut)
+        app = LatentPaintMeshApp.create(cfg, guidance=guidance,
+                                        device="cuda")
+    return Trainer(cfg, app, device="cuda")
+
+
+def _dist_run(trainer, steps: int) -> dict:
+    """`steps` steps of `trainer` (its own `train()`, eager): the losses,
+    the step ms (synchronised), the launches, the state (parameters,
+    buffers, Adam) on the host, the all-reduce's bytes and ms, and the
+    trainer's generator state after each step."""
+    import torch
+    from tpunerf_torch.dist import mesh as dist_mesh
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.scripts.card import cuda_ms
+    trainer.cfg.optim.iters = steps
+    stamps, losses, first_grads, gen = [], [], [], []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+        gen.append(trainer.generator.get_state())
+        if not first_grads and not trainer.graphed():
+            # the first step's gradients (the world's sum on a mesh)
+            first_grads.extend(
+                p.grad.detach().float().cpu() for p in trainer.params
+                if p.grad is not None)
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(on_step=on_step)
+    ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    launches = dict(_build.LAUNCHES)
+    state = [t.detach().float().cpu() for t in dist_mesh.state_tensors(
+        trainer.app.state_dict(), trainer.optimizer)]
+    grads = [p.grad for p in trainer.params if p.grad is not None]
+    nbytes = sum(g.numel() * g.element_size() for g in grads) + 4
+    reduce_ms = None
+    if trainer.layout is not None:
+        loss = torch.zeros((), device="cuda")
+        reduce_ms = cuda_ms(
+            lambda: dist_mesh.all_reduce_grads(trainer.params, loss), 10)
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "state": state, "grads": first_grads, "reduce_bytes": nbytes,
+            "reduce_ms": reduce_ms, "generator": gen}
+
+
+def dist_worker(spec_path: str) -> None:
+    """One of (b)'s two ranks on cuda:0 (RANK, WORLD_SIZE from the
+    environment): the SD-v1 stack from the seed, then each case's
+    DIST_STEPS steps on the mesh over gloo; its results into the spec's
+    directory."""
+    import torch
+    from tpunerf_torch.dist import mesh as dist_mesh
+    spec = json.loads(Path(spec_path).read_text())
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_mesh.initialize("gloo", spec["init"], device="cuda",
+                         timeout_s=300)
+    rank = dist_mesh.rank()
+    guidance = build_guidance(spec["seed"], "float32")
+    out = {}
+    for label, case, batch, rays in DIST_CASES:
+        trainer = _dist_trainer(case, spec["seed"], guidance,
+                                f"{spec['dir']}/ranks", batch, rays,
+                                *DIST_F32)
+        if trainer.layout is None or trainer.layout.n_rays != rays:
+            fail(f"{label}: the trainer built no ({2 // rays}, {rays}) mesh")
+        out[label] = _dist_run(trainer, DIST_STEPS)
+        del trainer
+        _free_card()
+    torch.save(out, f"{spec['dir']}/rank{rank}.pt")
+    dist_mesh.barrier()
+    dist_mesh.dist.destroy_process_group()
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _in_turns(fns: dict, n: int = 6, rounds: int = 2) -> dict:
+    """Each of `fns` (name → a step) `n` times a turn, the names in turns
+    (a, b, b, a for two) over `rounds`, each call between synchronisations:
+    the median ms by name."""
+    import torch
+    names = list(fns)
+    times = {k: [] for k in names}
+    for _ in range(rounds):
+        for k in names + names[::-1]:
+            for _ in range(n // 2):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fns[k]()
+                torch.cuda.synchronize()
+                times[k].append(1e3 * (time.perf_counter() - t))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def _dist_world1(seed: int, guidance, tmp: str, card: str) -> dict:
+    """The dist phase's (a) (see `dist_phase`); the launches by path."""
+    import torch
+    from tpunerf_torch import profiling
+    from tpunerf_torch.dist import launch
+    from tpunerf_torch.dist import mesh as dist_mesh
+    extra = ("--optim.train_chunk", "8")
+    runs, trainers, window, reduces = {}, {}, [], []
+    real = (profiling.start_trace, profiling.stop_trace)
+    real_reduce = dist_mesh.all_reduce_grads
+
+    def counted_reduce(*args):
+        # the gradient sums the trainer calls, by whether a capture ran
+        reduces.append(torch.cuda.is_current_stream_capturing())
+        return real_reduce(*args)
+
+    def at_window(fn):
+        def run(*args, **kwargs):
+            window.append(trainers["nccl"].train_step_idx)
+            return fn(*args, **kwargs)
+        return run
+
+    def eager(trainer):
+        def step():
+            trainer.optimizer.zero_grad(set_to_none=True)
+            trainer.step_body()
+        return step
+
+    try:
+        for name in ("plain", "nccl"):
+            if name == "nccl":
+                dist_mesh.initialize(
+                    "nccl", launch.rendezvous_file(Path(tmp)), rank_=0,
+                    world=1)
+                profiling.start_trace = at_window(real[0])
+                profiling.stop_trace = at_window(real[1])
+                dist_mesh.all_reduce_grads = counted_reduce
+            trainers[name] = _dist_trainer(
+                "nerf", seed, guidance, f"{tmp}/{name}", 1, 1, *extra,
+                *(("--log.trace_steps", "5,9") if name == "nccl" else ()))
+            runs[name] = _dist_run(trainers[name], DIST_CHUNKED_STEPS)
+            profiling.start_trace, profiling.stop_trace = real
+            dist_mesh.all_reduce_grads = real_reduce
+        p, n = runs["plain"], runs["nccl"]
+        equal = (p["losses"] == n["losses"]
+                 and len(p["state"]) == len(n["state"])
+                 and all(torch.equal(a, b)
+                         for a, b in zip(p["state"], n["state"])))
+        # the steady step of both trainers in turns (the state trains on)
+        graphed = _in_turns({k: t.graph.replay for k, t in trainers.items()})
+        eagerly = _in_turns({k: eager(t) for k, t in trainers.items()})
+        layout = trainers["nccl"].layout
+        per_replay = trainers["nccl"].graph.launches
+    finally:
+        profiling.start_trace, profiling.stop_trace = real
+        dist_mesh.all_reduce_grads = real_reduce
+        trainers.clear()
+        if dist_mesh.initialized():
+            dist_mesh.dist.destroy_process_group()
+        _free_card()
+    trace = Path(tmp) / "nccl" / "sand_castle" / "trace" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"] \
+        if trace.exists() else []
+    nccl = [e for e in events if e.get("cat") == "kernel"
+            and "nccl" in str(e.get("name")).lower()]
+    replays = window[1] - window[0] if len(window) == 2 else 0
+    print(f"dist (a) world 1 over NCCL ({card}): stage 1, train_chunk 8, "
+          f"{DIST_CHUNKED_STEPS} steps; mesh "
+          f"{(layout.n_data, layout.n_rays)}; losses, parameters, buffers "
+          f"and Adam state ({len(n['state'])} tensors) equal to the run "
+          f"without a process group bit for bit: {equal}; launches a "
+          f"replay {json.dumps(per_replay)}; the trace of steps {window}: "
+          f"{replays} replays, NCCL kernels executed {len(nccl)} (NCCL's "
+          f"in-place sum on one rank launches none); gradient sums called "
+          f"{len(reduces)} times, {sum(reduces)} of them inside the "
+          f"capture; the all-reduce a step: {n['reduce_bytes']} bytes in "
+          f"{n['reduce_ms']:.4f} ms eager; the steady step in turns (12 "
+          f"each): graphed {graphed['nccl']:.3f} ms over NCCL against "
+          f"{graphed['plain']:.3f} ms without a process group, eager "
+          f"{eagerly['nccl']:.3f} against {eagerly['plain']:.3f}")
+    if not equal:
+        fail("dist (a): the one-rank NCCL run is not the run without a "
+             "process group bit for bit")
+    if sum(reduces) != 1 or replays <= 0 or len(nccl) % replays:
+        fail(f"dist (a): {sum(reduces)} gradient sums captured, the trace "
+             f"holds {len(nccl)} NCCL kernels for {replays} replays")
+    return {"dist (a) stage 1 chunked, world 1 NCCL": n["launches"]}
+
+
+def _dist_two_ranks(seed: int, tmp: str, card: str) -> dict:
+    """The dist phase's (b) (see `dist_phase`); the launches by path."""
+    import torch
+    from tpunerf_torch.dist import launch
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.kernels import rasterize as rz
+    spec = Path(tmp) / "spec.json"
+    spec.write_text(json.dumps({"seed": seed, "dir": tmp,
+                                "init": launch.rendezvous_file(Path(tmp))}))
+    t0 = time.perf_counter()
+    try:
+        launch.run_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--dist-worker", str(spec)], 2, timeout=400,
+                         cwd=ROOT, log_dir=Path(tmp) / "logs")
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"dist (b): {exc}")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    guidance = build_guidance(seed, "float32")
+    failed, paths = [], {}
+    for label, case, batch, rays in DIST_CASES:
+        trainer = _dist_trainer(case, seed, guidance, f"{tmp}/one", batch,
+                                rays, *DIST_F32)
+        one = _dist_run(trainer, DIST_STEPS)
+        del trainer
+        _free_card()
+        got, other = ranks[0][label], ranks[1][label]
+        scale = max(abs(v) for v in one["losses"])
+        errs = [abs(a - b) / scale for a, b in zip(got["losses"],
+                                                   one["losses"])]
+        grad_err = max(_max_rel(a, b) for a, b in zip(got["grads"],
+                                                      one["grads"]))
+        state_err = max(_max_rel(a, b) for a, b in zip(got["state"],
+                                                       one["state"]))
+        flips = sum(int(((a > 0) != (b > 0)).sum())
+                    for a, b in zip(got["grads"], one["grads"]))
+        bit_equal = (other["losses"] == got["losses"] and all(
+            torch.equal(a, b) for a, b in zip(got["state"], other["state"])))
+        later_tol = DIST_TOL if case == "nerf" else DIST_MESH_LATER_TOL
+        in_step = [len(got["generator"]) == DIST_STEPS] + [
+            torch.equal(a, b) for r in ranks
+            for a, b in zip(r[label]["generator"], one["generator"])]
+        need = ([hg.FWD, hg.BWD, og.LOOKUP, at.ATTN] if case == "nerf"
+                else [at.ATTN, rz.DENSE, rz.SOFT_FWD_DENSE])
+        missing = [k for r in ranks for k in need
+                   if r[label]["launches"].get(k, 0) <= 0]
+        med = sorted(got["ms"][1:])[len(got["ms"][1:]) // 2]
+        med1 = sorted(one["ms"][1:])[len(one["ms"][1:]) // 2]
+        print(f"dist (b) two gloo ranks on cuda:0 ({card}), {label}, f32 "
+              f"UNet and MLP, {DIST_STEPS} eager steps: losses "
+              f"{got['losses']} against one rank's {one['losses']}: "
+              f"differences {', '.join(f'{e:.3e}' for e in errs)} of their "
+              f"scale (steps 2-{DIST_STEPS} gated at {later_tol:g}); the "
+              f"generator's state after each step equal to one rank's on "
+              f"both ranks: {all(in_step)}; step 1's gradients within "
+              f"{grad_err:.3e} of each "
+              f"tensor's largest value ({flips} elements on another side "
+              f"of 0); the state after step {DIST_STEPS} "
+              f"({len(got['state'])} tensors) within {state_err:.3e}; the "
+              f"ranks bit-equal: {bit_equal}; step median (steps "
+              f"2-{DIST_STEPS}) {med:.2f} ms at two ranks sharing the card, "
+              f"{med1:.2f} ms at one rank (not a scaling figure); the "
+              f"all-reduce a step {got['reduce_bytes']} bytes in "
+              f"{got['reduce_ms']:.3f} ms (gloo, through the host); "
+              f"launches rank 0 {json.dumps(got['launches'])}")
+        if missing:
+            failed.append(f"{label}: a rank never launched {missing}")
+        if not (bit_equal and errs[0] <= DIST_TOL and grad_err <= DIST_TOL):
+            failed.append(f"{label}: step 1 not the one-rank step within "
+                          f"{DIST_TOL}, or the ranks differ")
+        if not (all(in_step) and max(errs[1:]) <= later_tol):
+            failed.append(f"{label}: the generator out of step with the "
+                          f"one-rank run, or a loss of steps "
+                          f"2-{DIST_STEPS} beyond {later_tol:g}")
+        paths[f"dist (b) {label}, 2 gloo ranks"] = got["launches"]
+    del guidance
+    _free_card()
+    print(f"dist (b): the two ranks' processes {spawn_s:.1f} s (start, "
+          f"stack, {len(DIST_CASES)} cases)")
+    if failed:
+        fail("dist (b): " + "; ".join(failed))
+    return paths
+
+
+def dist_phase(seed: int, guidance, parts: str = "abc") -> dict:
+    """(a) stage 1 with `--optim.train_chunk 8` for 16 steps in a process
+    group of one rank over NCCL (rendezvous through a file), against the
+    same run without a process group: the losses, every parameter and
+    buffer and Adam's state bit for bit; the gradient sum called inside
+    the capture, and the trace's NCCL kernels (none: NCCL's in-place sum
+    on one rank is a no-op); the steady step of both; (b) two ranks
+    spawned on cuda:0 over gloo (NCCL refuses two ranks on one device),
+    eager, DIST_STEPS steps of each of DIST_CASES against the one-rank run
+    of the same case here, with the UNet and the field MLP in f32
+    (DIST_F32; its own f32 stack): step 1's loss within DIST_TOL of the
+    losses' scale and its gradients (the world's sum) within DIST_TOL of
+    each tensor's largest value, the two ranks bit-equal after the last
+    step; the generator's state after every step equal to the one-rank
+    run's, and the later steps' losses within DIST_TOL (latent-NeRF) or
+    DIST_MESH_LATER_TOL (paint-mesh) of their scale; the state after the
+    last step is printed (Adam's eps of 1e-15 makes each first update
+    lr·sign(g), so an element whose gradient sums to about 0 moves by
+    2·lr on another sign); the step at one rank
+    and at two ranks sharing the card (not a scaling figure), the
+    all-reduce's bytes and ms; (c) the scaling harness at one rank.
+    `parts` picks of "abc". Returns the launches by path."""
+    import shutil
+    import tempfile
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.scripts import bench_scaling
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    card = smi[0] if smi else "unavailable"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    paths = {}
+    if "a" in parts:
+        paths.update(_dist_world1(seed, guidance, tmp, card))
+    if "b" in parts:
+        paths.update(_dist_two_ranks(seed, tmp, card))
+    if "c" in parts:
+        rate = bench_scaling.measure(1, device="cuda", iters=8,
+                                     log_dir=Path(tmp) / "bench")
+        line = {"devices": [1], "steps_per_s": [round(rate, 3)],
+                "views_per_s": [round(rate, 3)], "efficiency": 1.0}
+        print(f"dist (c) bench_scaling ({card}): 1 rank, tiny guidance, 64² "
+              f"train grid, 128 samples: {rate:.3f} steps/s; its line: "
+              f"{json.dumps(line)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _build.reset_launches()
+    print(f"dist phase: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of the dist phase's (b), started by the phase
+    ap.add_argument("--dist-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not (ROOT / "tpunerf_torch" / "csrc").is_dir():
@@ -5834,6 +6222,9 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    if args.dist_worker is not None:
+        dist_worker(args.dist_worker)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5977,6 +6368,9 @@ def main() -> int:
     mark("chunked latent-paint-mesh")
     mesh_chunked = chunked_mesh_phase(args.seed, guidance)
     _free_card()
+    mark("dist")
+    dist_paths = dist_phase(args.seed, guidance)
+    _free_card()
     # the SD-v1 paths that differentiate through the UNet (#12, #13)
     mark("the SD-v1 gradient paths")
     grad_launches = sd_gradient_phases(args.seed, guidance)
@@ -6036,21 +6430,26 @@ def main() -> int:
         missing = [n for n in need if counts.get(n, 0) <= 0]
         if missing:
             fail(f"the {label} path never launched {missing}")
+    dist_mesh_paths = {k: c for k, c in dist_paths.items()
+                       if "paint-mesh" in k}
     paint_paths = {"latent-paint eager": paint_launches,
                    "latent-paint chunked": paint_chunked_launches,
                    "nerf→mesh bridge": bridge_launches, **own_stacks,
-                   **chunked_paths}
+                   **chunked_paths, **dist_mesh_paths}
     by_path = {"stage 1 eager": eager_launches, "stage 1 chunked": launches,
                "refine CLI (chunked)": refine_launches,
                "config #3": sketch_eager,
                "config #3 chunked": sketch_chunked,
                "latent-NeRF CLI from guide.model_dir": weights_launches,
+               **{k: c for k, c in dist_paths.items()
+                  if k not in dist_mesh_paths},
                **paint_paths, **grad_launches}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,
                          {"latent-paint-mesh mode 0": mesh_launches,
-                          **own_stacks, **chunked_paths}))
+                          **own_stacks, **chunked_paths,
+                          **dist_mesh_paths}))
     # #12/#13: the text-token run, beside null-text inversion
     kernels += counted(grad_rows, grad_launches["text-token optimisation"],
                        grad_launches)

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
               "profiling", "training.trainer", "train_latent_nerf_mesh",
               "fields.sketch_shape", "fields.marching", "native",
               "safetensors_io", "guidance.weights",
-              "scripts.convert_sd_weights"):
+              "scripts.convert_sd_weights", "dist.mesh", "debug",
+              "scripts.bench_scaling", "scripts.trace_edges"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -154,6 +155,17 @@ def test_entry_points_need_a_card_unless_told(monkeypatch, tmp_path):
     for argv in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             exp_hash_bwd_main(argv + ["--n", "64"])
+    # under torchrun (a rank of two) each CLI raises the same, before any
+    # rendezvous: a rank never waits for the others without a card
+    for k, v in (("RANK", "1"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(k, v)
+    for entry, extra in ((main, []), (paint_main, ["--guide.shape_path",
+                                                   "sphere"]),
+                         (mesh_main, ["--guide.shape_path", "sphere"]),
+                         (bridge_main, [])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(["--guide.tiny_diffusion", "true"] + extra)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("create", [

@@ -1828,3 +1828,40 @@ def test_attention_bwd_graph_replay_equals_eager():
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert torch.equal(a, b)
+
+
+def test_world_1_nccl_graphed_chunks_equal_the_run_without_a_group(
+        tmp_path):
+    """A process group of one rank over NCCL (rendezvous through a file):
+    the Trainer builds the (1, 1) mesh, each captured step sums the
+    gradients and the loss with NCCL's all-reduce inside the graph, and
+    two chunks of 2 replays end where the same chunks without a process
+    group end, bit for bit: the losses, every parameter and buffer, Adam's
+    state (a one-rank all-reduce is an identity)."""
+    from tpunerf_torch.dist import mesh as dist_mesh
+    dev = _card()
+
+    def run(name):
+        trainer = _tiny_trainer(tmp_path / name, "nerf", "latent", dev,
+                                "--optim.iters", "4",
+                                "--optim.train_chunk", "2")
+        losses = []
+        trainer.train(on_step=lambda s, loss: losses.append(loss.clone()))
+        state = dist_mesh.state_tensors(trainer.app.state_dict(),
+                                        trainer.optimizer)
+        return trainer, torch.stack(losses), [t.clone() for t in state]
+
+    _, plain_losses, plain = run("plain")
+    assert dist_mesh.initialize("nccl", f"file://{tmp_path / 'rdv'}",
+                                rank_=0, world=1)
+    try:
+        trainer, losses, state = run("nccl")
+        assert trainer.layout is not None
+        assert (trainer.layout.n_data, trainer.layout.n_rays) == (1, 1)
+        assert trainer.graph is not None
+    finally:
+        dist_mesh.dist.destroy_process_group()
+    assert torch.equal(losses, plain_losses)
+    assert len(state) == len(plain)
+    for a, b in zip(state, plain):
+        assert torch.equal(a, b)

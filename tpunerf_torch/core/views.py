@@ -3,8 +3,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpunerf_torch.core.camera import get_view_direction
@@ -64,6 +65,29 @@ def rand_poses(size: int, cfg: ViewSamplerConfig, device: torch.device,
                               math.radians(cfg.angle_front))
     return ViewBatch(theta=theta, phi=phi, radius=radius, dirs=dirs,
                      is_body=u[3] < cfg.body_prob)
+
+
+def train_view_stream(seed: int, batch_size: int, cfg: ViewSamplerConfig,
+                      device: torch.device, host_id: Optional[int] = None,
+                      draws: Optional[Iterable[torch.Tensor]] = None
+                      ) -> Iterator[ViewBatch]:
+    """Infinite per-step pose stream (← the JAX package's
+    `train_view_stream`): one generator seeded from `seed` and, where
+    `host_id` is given, the host id, so that each host draws other views
+    (the data-parallel axis) and a host draws the same views each time.
+    `draws` (an iterable of (4, batch_size) U[0, 1) tensors, as
+    `rand_poses` takes them) replaces the generator's."""
+    if draws is not None:
+        for u in draws:
+            yield rand_poses(batch_size, cfg, device, u=u)
+        return
+    if host_id is not None:
+        seed = int(np.random.SeedSequence([seed, host_id]).generate_state(
+            1, np.uint64)[0] >> 1)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    while True:
+        yield rand_poses(batch_size, cfg, device, generator=generator)
 
 
 def circle_poses(size: int, cfg: ViewSamplerConfig, device: torch.device

@@ -49,6 +49,9 @@ class LatentNeRFScene(nn.Module):
         self.train_grid_size = train_grid_size
         self.occ_update_interval = occ_update_interval
         self.latent_size = 64            # the guidance's latent grid
+        # the device mesh (dist.mesh.MeshLayout): where it splits each
+        # frame's pixels, a train render marches this rank's band only
+        self.layout = None
         dev = field.hash_table.device
         grid = occ_lib.init_occupancy(occ_cfg, dev)
         self.register_buffer("occ_grid", grid)
@@ -130,12 +133,20 @@ class LatentNeRFScene(nn.Module):
                      perturb: bool, use_occupancy: bool,
                      white_background: bool = False,
                      u: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     band: bool = False) -> Dict[str, torch.Tensor]:
+        """With `band`, this rank marches only its `layout.row_band` of the
+        H·W pixels (`u` holds the whole frames' draws); the image, mask and
+        depth are then the whole frames again (`layout.gather_rows`), and
+        `weights_sum` and the samples are the band's."""
         H, W = dims
         rays = vr.generate_rays(views.theta, views.phi, views.radius, H, W,
                                 fovy=self.fovy, look_at_height=self.dy,
                                 bound=self.march.bound)
+        if band:
+            px = self.layout.row_band(H * W)
+            rays = vr.Rays(*(r[:, px] for r in rays))
+            u = None if u is None else u[:, px]
         res = vr.render_rays(
             self.field, rays, self.march,
             occ_grid=self.occ_grid if use_occupancy else None,
@@ -149,10 +160,15 @@ class LatentNeRFScene(nn.Module):
             bg = self.field.background(rays.dirs.reshape(-1, 3)
                                        ).reshape(B, P, C)
         image = res.image + (1.0 - res.weights_sum)[..., None] * bg
+        mask, depth = res.weights_sum, res.depth
+        if band:
+            frame = self.layout.gather_rows(torch.cat(
+                [image, mask[..., None], depth[..., None]], dim=-1))
+            image, mask, depth = frame.split([C, 1, 1], dim=-1)
         return {
             "image": image.reshape(B, H, W, C),
-            "mask": res.weights_sum.reshape(B, H, W, 1),
-            "depth": res.depth.reshape(B, H, W, 1),
+            "mask": mask.reshape(B, H, W, 1),
+            "depth": depth.reshape(B, H, W, 1),
             "weights_sum": res.weights_sum,
             "sigmas": res.sigmas, "xyzs": res.xyzs, "valid": res.valid,
             "weights": res.weights,
@@ -163,17 +179,28 @@ class LatentNeRFScene(nn.Module):
                      ) -> Dict[str, torch.Tensor]:
         """Train render at the train grid with stratified jitter (`u` of
         shape (B, H·W, S), or drawn from `generator`), plus regularizers
-        and, with a guide shape, `shape_loss`."""
+        and, with a guide shape, `shape_loss`. On a mesh that splits the
+        step (`layout`), `views` and `u` are this rank's views and their
+        draws; the pixels are split too where the rays axis divides them
+        (JAX's condition), and the regularizers are this rank's shares of
+        the global means (`dist.mesh`)."""
+        split = self.layout is not None and self.layout.splits
+        P = self.train_grid_size ** 2
         out = self.render_views(views, (self.train_grid_size,) * 2,
                                 perturb=True, use_occupancy=True, u=u,
-                                generator=generator)
+                                generator=generator,
+                                band=split and self.layout.bands(P))
         wsum = out["weights_sum"]
-        out["sparsity_loss"] = torch.mean(torch.sqrt(wsum ** 2 + 0.01))
-        out["opacity_loss"] = torch.mean(-wsum * torch.log(wsum + 1e-5))
+        mean = self.layout.mean_share if split else torch.mean
+        out["sparsity_loss"] = mean(torch.sqrt(wsum ** 2 + 0.01))
+        out["opacity_loss"] = mean(-wsum * torch.log(wsum + 1e-5))
         if self.sdf is not None:
+            valid = out["valid"]
             out["shape_loss"] = sketch_shape_loss(
-                self.sdf, out["xyzs"], out["sigmas"], out["valid"],
-                self.proximal_surface)
+                self.sdf, out["xyzs"], out["sigmas"], valid,
+                self.proximal_surface,
+                valid_count=(self.layout.all_reduce_sum(valid.sum())
+                             if split else None))
         return out
 
     @torch.no_grad()

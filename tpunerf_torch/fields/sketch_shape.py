@@ -195,14 +195,18 @@ class SDFGrid(nn.Module):
 
 def sketch_shape_loss(sdf: SDFGrid, xyzs: torch.Tensor, sigmas: torch.Tensor,
                       valid: torch.Tensor, proximal_surface: float,
-                      delta: float = 0.05) -> torch.Tensor:
+                      delta: float = 0.05,
+                      valid_count: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Soft occupancy BCE over the valid samples: target occupancy
     sigmoid(−sdf(x)/proximal_surface) (`sample_fast`), predicted occupancy
-    α = 1 − exp(−σ·δ) clipped to [1e-5, 1 − 1e-5]."""
+    α = 1 − exp(−σ·δ) clipped to [1e-5, 1 − 1e-5]. `valid_count` replaces
+    the count of valid samples in the mean (on a mesh, the world's)."""
     target = torch.sigmoid(-sdf.sample_fast(xyzs) / proximal_surface)
     alpha = 1.0 - torch.exp(-sigmas * delta)
     alpha = torch.clamp(alpha, 1e-5, 1.0 - 1e-5)
     bce = -(target * torch.log(alpha) +
             (1.0 - target) * torch.log(1.0 - alpha))
-    denom = torch.clamp(valid.sum().to(bce.dtype), min=1.0)
+    count = valid.sum() if valid_count is None else valid_count
+    denom = torch.clamp(count.to(bce.dtype), min=1.0)
     return torch.sum(bce * valid) / denom

@@ -10,7 +10,7 @@ comes from `generator`.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +23,31 @@ def sample_timestep(min_step: int, max_step: int, device: torch.device,
     """t ~ U{min_step, …, max_step}, a 0-dim int64 tensor."""
     return torch.randint(min_step, max_step + 1, (), generator=generator,
                          device=device)
+
+
+def step_draws(order: Sequence[Tuple[str, str, Optional[Tuple[int, ...]]]],
+               given: Mapping[str, Optional[torch.Tensor]], min_step: int,
+               max_step: int, device: torch.device,
+               generator: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+    """A training step's random draws, made up front in the order the step
+    uses them: for each (name, kind, shape) of `order`, `given[name]` where
+    it is there and not None, else a draw from `generator` — kind
+    "timestep": `sample_timestep`; "uniform": U[0, 1) of `shape`;
+    "normal": N(0, 1) of `shape`. Other entries of `given` are kept."""
+    out = {k: v for k, v in given.items() if v is not None}
+    for name, kind, shape in order:
+        if name in out:
+            continue
+        if kind == "timestep":
+            out[name] = sample_timestep(min_step, max_step, device,
+                                        generator)
+        elif kind == "uniform":
+            out[name] = torch.rand(shape, generator=generator, device=device)
+        else:
+            out[name] = torch.randn(shape, generator=generator,
+                                    device=device)
+    return out
 
 
 def cfg_eps(unet_apply: Callable, latents_noisy: torch.Tensor,

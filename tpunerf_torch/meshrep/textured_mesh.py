@@ -15,8 +15,9 @@ package's params pytree holds them (no transposition):
 With `dual_camera` each view is rendered by the body and the head camera
 and picked by `views.is_body`; with `soft_mask_sigma` the mask is the DIB-R
 soft silhouette. The mesh, its UV attributes and the dome live on the
-scene's device from `create` on. The device-mesh layout belongs to a later
-slice of the port.
+scene's device from `create` on. On a device mesh whose rays axis divides
+the rows (`layout`), a train render's maps keep the gradient of this rank's
+rows (`_rank_rows`).
 """
 from __future__ import annotations
 
@@ -81,6 +82,7 @@ class TexturedMeshScene(nn.Module):
         # on the device once: a copy from the host inside a step would
         # synchronise (and a CUDA graph's capture refuses it)
         self.rgb_estimator = LINEAR_RGB_ESTIMATOR.to(dev)
+        self.layout = None                    # the device mesh, if any
 
     @property
     def device(self) -> torch.device:
@@ -225,7 +227,23 @@ class TexturedMeshScene(nn.Module):
             result["laplacian_loss"] = self.laplacian.loss(
                 self.mesh.vertices + disp, self.verts0_lap)
             result["displacement_norm"] = torch.mean(disp ** 2)
+        if self.layout is not None and self.layout.n_rays > 1:
+            self._rank_rows(result, with_lighting)
         return result
+
+    def _rank_rows(self, result: Dict[str, torch.Tensor],
+                   with_lighting: bool) -> None:
+        """On a mesh whose rays axis splits the frames' rows: the maps the
+        apps' guidance terms differentiate (the image, and with lighting
+        the lighting and normals) keep the gradient of this rank's rows
+        where the axis divides their H (`layout.band_grad`), so that it
+        reaches the parameters from those rows only. Every rank of the rays
+        row rasterizes the whole frames, as the JAX package's rasterizer is
+        not partitioned either."""
+        for k in ("image",) + (("lighting", "normals") if with_lighting
+                               else ()):
+            if self.layout.bands(result[k].shape[1]):
+                result[k] = self.layout.band_grad(result[k], dim=1)
 
     def _render_views(self, views: ViewBatch, texture: torch.Tensor, dims,
                       white_background: bool,

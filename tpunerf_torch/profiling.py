@@ -19,6 +19,13 @@ from typing import Dict, Iterator
 import torch
 
 TRACE_FILE = "trace.json"
+# seconds between the device's last kernel and the end of a trace window:
+# the profiler keeps a kernel only where its end, moved from the card's
+# clock onto the host's, falls inside the window, and that move can put the
+# last kernels a millisecond after the synchronisation that waited for them
+# (an H100 lost the last 49 device records of a window that closed at once;
+# `scripts/trace_edges.py`)
+TRACE_TAIL_S = 0.1
 
 
 def start_trace() -> torch.profiler.profile:
@@ -33,10 +40,12 @@ def start_trace() -> torch.profiler.profile:
 
 
 def stop_trace(prof: torch.profiler.profile, log_dir: Path) -> Path:
-    """Stop `prof` (after the device's queued work has finished) and write
-    its Chrome trace into `log_dir`; the file's path."""
+    """Stop `prof` (after the device's queued work has finished and
+    `TRACE_TAIL_S` more) and write its Chrome trace into `log_dir`; the
+    file's path."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+        time.sleep(TRACE_TAIL_S)
     prof.stop()
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)

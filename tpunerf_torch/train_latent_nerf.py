@@ -24,6 +24,12 @@ after the last step the orbit in `results/` and the 64³ iso-surface in
 continues from the newest checkpoint; `--log.eval_only true` renders the
 final orbit of the newest checkpoint and takes no step. A checkpoint feeds
 the NeRF→mesh bridge, `tpunerf_torch.train_latent_nerf_mesh`.
+
+Under `torchrun --nproc_per_node N -m tpunerf_torch.train_latent_nerf ...`
+the N ranks train one model in data parallel on the (data, rays) mesh of
+`--dist.data_axis` x `--dist.rays_axis` (`dist/mesh.py`; default: every
+rank on data): each rank runs on `cuda:$LOCAL_RANK` over NCCL, or with
+`--device cpu` on the CPU over gloo, and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import sys
 from typing import List, Optional, Sequence, Tuple
 
 from tpunerf_torch.core.config import parse
+from tpunerf_torch.dist import mesh as dist_mesh
 from tpunerf_torch.training.config import TrainConfig
 from tpunerf_torch.training.latent_nerf_app import LatentNeRFApp
 from tpunerf_torch.training.trainer import Trainer
@@ -57,8 +64,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device, args = split_device(sys.argv[1:] if argv is None else argv)
     cfg = parse(TrainConfig, args)
     cfg.render.backbone = "latent-nerf"
-    app = LatentNeRFApp.create(cfg, device=device)
-    run(Trainer(cfg, app, device=device))
+    with dist_mesh.launched(device) as device:
+        app = LatentNeRFApp.create(cfg, device=device)
+        run(Trainer(cfg, app, device=device))
 
 
 def run(trainer: Trainer) -> None:

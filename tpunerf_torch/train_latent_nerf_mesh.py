@@ -7,11 +7,13 @@ Usage:
         --optim.ckpt experiments/sand_castle/checkpoints/step_005000.ckpt
 
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
-given. The field of `optim.ckpt` (or, without it, of the newest checkpoint
-under `<log.exp_root>/<log.exp_name>/checkpoints/`) is evaluated on the
-device on a `render.mc_resolution`³ grid (128), and its `render.iso_level`
-surface (10.0) is extracted by marching tetrahedra on the host. The mesh is
-then painted by the latent-paint app as a fresh experiment,
+given (under torchrun on `cuda:$LOCAL_RANK`, one model in data parallel on
+the `--dist` mesh, as `train_latent_nerf`). The field of `optim.ckpt` (or,
+without it, of the newest checkpoint under
+`<log.exp_root>/<log.exp_name>/checkpoints/`) is evaluated on the device on
+a `render.mc_resolution`³ grid (128), and its `render.iso_level` surface
+(10.0) is extracted by marching tetrahedra on the host. The mesh is then
+painted by the latent-paint app as a fresh experiment,
 `<log.exp_name>_mesh` (no checkpoint loaded, no resume), which writes what
 `train_latent_paint` writes; `--log.eval_only true` renders its final orbit
 instead of training.
@@ -25,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from tpunerf_torch.core.config import parse
+from tpunerf_torch.dist import mesh as dist_mesh
 from tpunerf_torch.fields.scene import LatentNeRFScene
 from tpunerf_torch.meshrep.mesh import Mesh
 from tpunerf_torch.train_latent_nerf import run, split_device
@@ -74,10 +77,12 @@ def paint_config(cfg: TrainConfig) -> TrainConfig:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     device, args = split_device(sys.argv[1:] if argv is None else argv)
     cfg = parse(TrainConfig, args)
-    mesh = extract_mesh_from_checkpoint(cfg, device=device)
-    paint_cfg = paint_config(cfg)
-    app = LatentPaintApp.create(paint_cfg, mesh=mesh, device=device)
-    run(Trainer(paint_cfg, app, device=device))
+    with dist_mesh.launched(device) as device:
+        # every rank extracts the same mesh from the same checkpoint
+        mesh = extract_mesh_from_checkpoint(cfg, device=device)
+        paint_cfg = paint_config(cfg)
+        app = LatentPaintApp.create(paint_cfg, mesh=mesh, device=device)
+        run(Trainer(paint_cfg, app, device=device))
 
 
 if __name__ == "__main__":

@@ -6,11 +6,12 @@ Usage:
         --optim.mode 0 --render.body_prob 0.7 --log.exp_name goldfish
 
 Runs on the CUDA device unless `--device cpu` (or another torch device) is
-given. `optim.mode` is 0 (latent SDS at the train grid), 1 (TADA: give
-`--render.train_grid_size 512`) or 2 (SDEdit). `render.body_prob` below 1
-turns on the body and head cameras. Guidance is text-conditioned SD v1, or
-depth-conditioned SD where "depth" is in `guide.diffusion_name` (mode 0
-only), as eval config #5 runs it:
+given (under torchrun on `cuda:$LOCAL_RANK`, one model in data parallel on
+the `--dist` mesh, as `train_latent_nerf`). `optim.mode` is 0 (latent SDS
+at the train grid), 1 (TADA: give `--render.train_grid_size 512`) or 2
+(SDEdit). `render.body_prob` below 1 turns on the body and head cameras.
+Guidance is text-conditioned SD v1, or depth-conditioned SD where "depth"
+is in `guide.diffusion_name` (mode 0 only), as eval config #5 runs it:
 
     python -m tpunerf_torch.train_latent_paint_mesh \
         --config_path demo_configs/latent_paint_mesh/nascar_depth.yaml \
@@ -44,6 +45,7 @@ import sys
 from typing import Optional, Sequence
 
 from tpunerf_torch.core.config import parse
+from tpunerf_torch.dist import mesh as dist_mesh
 from tpunerf_torch.train_latent_nerf import run, split_device
 from tpunerf_torch.training.config import TrainConfig
 from tpunerf_torch.training.latent_paint_mesh import LatentPaintMeshApp
@@ -53,8 +55,9 @@ from tpunerf_torch.training.trainer import Trainer
 def main(argv: Optional[Sequence[str]] = None) -> None:
     device, args = split_device(sys.argv[1:] if argv is None else argv)
     cfg = parse(TrainConfig, args)
-    app = LatentPaintMeshApp.create(cfg, device=device)
-    run(Trainer(cfg, app, device=device))
+    with dist_mesh.launched(device) as device:
+        app = LatentPaintMeshApp.create(cfg, device=device)
+        run(Trainer(cfg, app, device=device))
 
 
 if __name__ == "__main__":

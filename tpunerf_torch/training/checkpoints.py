@@ -23,6 +23,10 @@ Three things differ from the reference, on purpose:
 * `save_debug` joins the writer without raising, writes its file, and
   hands the writer's failure back, so the error that asked for the debug
   save is the one the caller raises.
+
+As in the JAX package, `save` and `save_debug` take `is_main_process`: on
+any other rank of a process group they write nothing and return the path.
+The directory is made by the first save.
 """
 from __future__ import annotations
 
@@ -97,7 +101,6 @@ def optimizer_state_fits(opt_state: Dict[str, Any],
 class CheckpointManager:
     def __init__(self, ckpt_dir: Path, max_keep: int = 2):
         self.ckpt_dir = Path(ckpt_dir)
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.max_keep = max_keep
         self._thread: Optional[threading.Thread] = None
         self._worker_exc: Optional[BaseException] = None
@@ -132,14 +135,18 @@ class CheckpointManager:
 
     def save(self, step: int, params: Dict[str, Any],
              opt_state: Optional[Dict[str, Any]] = None, full: bool = True,
-             async_write: bool = False) -> Path:
+             async_write: bool = False,
+             is_main_process: bool = True) -> Path:
         """Save `params` (and `opt_state` when `full`) as step `step`. The
         tensors are copied to the host before this returns; with
         `async_write` the file is written on a background thread (a new
         save or `flush()` joins it, and `flush()` re-raises its failure).
         Call `flush()` before reading checkpoints and at the end of a
-        run."""
+        run. Not the main process: nothing is written."""
+        if not is_main_process:
+            return self._path(step)
         self.flush()
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         for stale in self.ckpt_dir.glob("*.tmp"):     # a crashed write's
             stale.unlink(missing_ok=True)
         path = self._path(step)
@@ -161,16 +168,21 @@ class CheckpointManager:
         self._thread.start()
         return path
 
-    def save_debug(self, name: str, step: int, params: Dict[str, Any]
+    def save_debug(self, name: str, step: int, params: Dict[str, Any],
+                   is_main_process: bool = True
                    ) -> Tuple[Path, Optional[BaseException]]:
         """Save `params` as `<name>.ckpt`, outside the `step_*` glob: never
         evicted by retention, never taken by a latest-checkpoint resume
         (the NaN post-mortem). Joins the write in flight without raising
         and returns (path, that write's failure or None); the failure is
-        logged, for the caller to chain to its own error."""
+        logged, for the caller to chain to its own error. Not the main
+        process: nothing is written."""
+        if not is_main_process:
+            return self.ckpt_dir / f"{name}.ckpt", None
         failed = self.join()
         if failed is not None:
             logger.error(f"an earlier checkpoint write failed: {failed!r}")
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         path = self.ckpt_dir / f"{name}.ckpt"
         _write_atomic(path, {"train_step": step, "params": snapshot(params)})
         return path, failed

@@ -23,8 +23,10 @@ import torch
 from tpunerf_torch.core.camera import VIEW_DIRECTION_SUFFIXES
 from tpunerf_torch.core.obj_io import save_obj_with_mtl
 from tpunerf_torch.core.views import ViewBatch
+from tpunerf_torch.dist.mesh import MeshLayout
 from tpunerf_torch.fields.latent_nerf import LatentNeRFField
 from tpunerf_torch.fields.scene import LatentNeRFScene
+from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.meshrep import uv_unwrap
 from tpunerf_torch.training.config import TrainConfig
@@ -59,6 +61,7 @@ class LatentNeRFApp:
     guidance: StableDiffusionGuidance
     scene: LatentNeRFScene
     text_z: torch.Tensor
+    layout: Optional[MeshLayout] = None
 
     @classmethod
     def create(cls, cfg: TrainConfig,
@@ -88,6 +91,28 @@ class LatentNeRFApp:
                     ) -> None:
         self.scene.init_params(generator)
 
+    def set_layout(self, layout: Optional[MeshLayout]) -> None:
+        """Wire the device mesh into the step and the renderer: each rank
+        renders its views of the global batch and, where the rays axis
+        divides the pixels, only its band of them."""
+        self.layout = layout
+        self.scene.layout = layout
+
+    def step_draws(self, B: int, given: Dict[str, Optional[torch.Tensor]],
+                   generator: Optional[torch.Generator]
+                   ) -> Dict[str, torch.Tensor]:
+        """The step's draws at the batch B, `given`'s where given, the rest
+        from `generator` in the order the step uses them: `u`, in RGB mode
+        `vae_noise`, `t`, `noise`."""
+        g, H = self.guidance, self.scene.train_grid_size
+        h = H if g.latent_mode else g.latent_size
+        order = [("u", "uniform", (B, H * H, self.scene.march.num_samples))]
+        if not g.latent_mode:
+            order.append(("vae_noise", "normal", (B, h, h, 4)))
+        order += [("t", "timestep", None), ("noise", "normal", (B, h, h, 4))]
+        return sds_lib.step_draws(order, given, g.min_step, g.max_step,
+                                  self.scene.occ_grid.device, generator)
+
     def loss_fn(self, views: ViewBatch, u: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
@@ -98,17 +123,34 @@ class LatentNeRFApp:
         has a guide shape). The draws — stratified jitter `u`
         (B, P, S), in RGB mode the VAE posterior's `vae_noise` (B, 64, 64,
         4), then SDS timestep `t` and noise (B, 64, 64, 4) — are taken from
-        `generator` unless given, in that order."""
-        out = self.scene.render_train(views, u=u, generator=generator)
+        `generator` unless given, in that order, before the render
+        (`step_draws`). On a mesh that splits the step (`set_layout`),
+        `views` and the draws are the global batch's: the rank takes its
+        slice, and the loss and each term in aux (`guidance_loss`,
+        `sparsity_loss`, `opacity_loss`, `shape_loss`) are its shares,
+        whose sum over the world is the one-rank value."""
+        B = views.batch_size
+        d = self.step_draws(B, dict(u=u, t=t, noise=noise,
+                                    vae_noise=vae_noise), generator)
+        layout = self.layout if self.layout and self.layout.splits else None
+        if layout is not None:
+            views, d = views[layout.data_rows(B)], layout.shard_draws(d, B)
+        out = self.scene.render_train(views, u=d["u"])
         text_z = select_text_embeddings(self.text_z, views.dirs)
-        loss = self.guidance.train_step_loss(
+        main = self.guidance.train_step_loss(
             text_z, out["image"], guidance_scale=self.cfg.guide.guidance_scale,
-            t=t, noise=noise, generator=generator, vae_noise=vae_noise)
-        loss = loss + self.cfg.optim.lambda_sparsity * out["sparsity_loss"]
+            t=d["t"], noise=d["noise"], generator=generator,
+            vae_noise=d.get("vae_noise"))
+        if layout is not None:
+            main = layout.sum_share(main)
+        loss = main + self.cfg.optim.lambda_sparsity * out["sparsity_loss"]
         if self.cfg.optim.lambda_opacity:
             loss = loss + self.cfg.optim.lambda_opacity * out["opacity_loss"]
         aux = {"image": out["image"].detach(),
-               "weights_sum": torch.mean(out["weights_sum"]).detach()}
+               "weights_sum": torch.mean(out["weights_sum"]).detach(),
+               "guidance_loss": main.detach(),
+               "sparsity_loss": out["sparsity_loss"].detach(),
+               "opacity_loss": out["opacity_loss"].detach()}
         if "shape_loss" in out:
             loss = loss + self.cfg.optim.lambda_shape * out["shape_loss"]
             aux["shape_loss"] = out["shape_loss"].detach()

@@ -16,6 +16,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from tpunerf_torch.core.views import ViewBatch
+from tpunerf_torch.dist import mesh as dist_mesh
+from tpunerf_torch.dist.mesh import MeshLayout
+from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance.stable_diffusion import StableDiffusionGuidance
 from tpunerf_torch.meshrep.mesh import Mesh
 from tpunerf_torch.meshrep.textured_mesh import TexturedMeshScene
@@ -31,6 +34,7 @@ class LatentPaintApp:
     guidance: StableDiffusionGuidance
     scene: TexturedMeshScene
     text_z: torch.Tensor
+    layout: Optional[MeshLayout] = None
 
     @classmethod
     def create(cls, cfg: TrainConfig,
@@ -50,14 +54,16 @@ class LatentPaintApp:
                 device=device,
                 generator=make_generator(cfg.optim.seed, device))
             guidance.maybe_load_concept(cfg.guide.concept_name)
-        scene = TexturedMeshScene.create(
-            mesh=mesh, shape_path=cfg.guide.shape_path,
-            shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,
-            latent_mode=latent_mode,
-            texture_resolution=cfg.guide.texture_resolution,
-            render_grid_size=cfg.render.train_grid_size,
-            interpolation_mode=cfg.guide.texture_interpolation_mode,
-            cache_dir=cfg.log.exp_dir, device=device)
+        # rank 0 unwraps the UVs and writes their cache, the others read it
+        with dist_mesh.main_process_first():
+            scene = TexturedMeshScene.create(
+                mesh=mesh, shape_path=cfg.guide.shape_path,
+                shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,
+                latent_mode=latent_mode,
+                texture_resolution=cfg.guide.texture_resolution,
+                render_grid_size=cfg.render.train_grid_size,
+                interpolation_mode=cfg.guide.texture_interpolation_mode,
+                cache_dir=cfg.log.exp_dir, device=device)
         scene.latent_size = guidance.latent_size
         neg = cfg.guide.negative_text if cfg.guide.append_neg_text else ""
         text_z = directional_text_embeddings(guidance, cfg.guide.text,
@@ -69,6 +75,13 @@ class LatentPaintApp:
                     ) -> None:
         self.scene.init_params(generator)
 
+    def set_layout(self, layout: Optional[MeshLayout]) -> None:
+        """Wire the device mesh into the step and the renderer: each rank
+        renders its views of the global batch, and its rays row splits the
+        gradient of the frames' rows (`TexturedMeshScene._rank_rows`)."""
+        self.layout = layout
+        self.scene.layout = layout
+
     def loss_fn(self, views: ViewBatch, t: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -77,14 +90,34 @@ class LatentPaintApp:
         """Render → SDS. The draws — in RGB mode the VAE posterior's
         `vae_noise` (B, 64, 64, 4), then the SDS timestep `t` and the noise
         (B, 64, 64, 4) — are taken from `generator` unless given, in that
-        order."""
+        order, before the render (`sds.step_draws`). On a mesh that splits
+        the step (`set_layout`), `views` and the draws are the global
+        batch's: the rank takes its slice, and the loss (aux's
+        `guidance_loss`) is its share."""
+        B = views.batch_size
+        g = self.guidance
+        h = self.scene.latent_size if g.latent_mode else g.latent_size
+        order = [("t", "timestep", None), ("noise", "normal", (B, h, h, 4))]
+        if not g.latent_mode:
+            order.insert(0, ("vae_noise", "normal", (B, h, h, 4)))
+        d = sds_lib.step_draws(order, dict(t=t, noise=noise,
+                                           vae_noise=vae_noise),
+                               g.min_step, g.max_step, self.scene.device,
+                               generator)
+        layout = self.layout if self.layout and self.layout.splits else None
+        if layout is not None:
+            views, d = views[layout.data_rows(B)], layout.shard_draws(d, B)
         render = self.scene.render_train(views)
         text_z = select_text_embeddings(self.text_z, views.dirs)
         loss = self.guidance.train_step_loss(
             text_z, render["image"],
-            guidance_scale=self.cfg.guide.guidance_scale, t=t, noise=noise,
-            generator=generator, vae_noise=vae_noise)
-        return loss, {"image": render["image"].detach()}
+            guidance_scale=self.cfg.guide.guidance_scale, t=d["t"],
+            noise=d["noise"], generator=generator,
+            vae_noise=d.get("vae_noise"))
+        if layout is not None:
+            loss = layout.sum_share(loss)
+        return loss, {"image": render["image"].detach(),
+                      "guidance_loss": loss.detach()}
 
     @torch.no_grad()
     def eval_render(self, views: ViewBatch, dims: Tuple[int, int]

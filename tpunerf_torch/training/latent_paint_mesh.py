@@ -46,6 +46,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from tpunerf_torch.core.views import ViewBatch
+from tpunerf_torch.dist import mesh as dist_mesh
+from tpunerf_torch.dist.mesh import MeshLayout
 from tpunerf_torch.guidance import sds as sds_lib
 from tpunerf_torch.guidance.clip_vision import (CLIPImageEmbedder,
                                                 CLIPVisionConfig,
@@ -130,6 +132,7 @@ class LatentPaintMeshApp:
     image_embeds: Optional[torch.Tensor] = None
     ref_image: Optional[torch.Tensor] = None
     clip: Optional[CLIPImageEmbedder] = None
+    layout: Optional[MeshLayout] = None
 
     @classmethod
     def create(cls, cfg: TrainConfig,
@@ -185,16 +188,18 @@ class LatentPaintMeshApp:
                 latent_mode=latent_mode, min_step=cfg.optim.min_step,
                 max_step=cfg.optim.max_step, **stack)
             guidance.maybe_load_concept(cfg.guide.concept_name)
-        scene = TexturedMeshScene.create(
-            mesh=mesh, shape_path=cfg.guide.shape_path,
-            shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,
-            latent_mode=latent_mode,
-            texture_resolution=cfg.guide.texture_resolution,
-            render_grid_size=cfg.render.train_grid_size,
-            interpolation_mode=cfg.guide.texture_interpolation_mode,
-            cache_dir=cfg.log.exp_dir, enable_displacement=True,
-            dual_camera=cfg.render.body_prob < 1.0,
-            soft_mask_sigma=SOFT_MASK_SIGMA, device=device)
+        # rank 0 unwraps the UVs and writes their cache, the others read it
+        with dist_mesh.main_process_first():
+            scene = TexturedMeshScene.create(
+                mesh=mesh, shape_path=cfg.guide.shape_path,
+                shape_scale=cfg.guide.shape_scale, dy=cfg.guide.dy,
+                latent_mode=latent_mode,
+                texture_resolution=cfg.guide.texture_resolution,
+                render_grid_size=cfg.render.train_grid_size,
+                interpolation_mode=cfg.guide.texture_interpolation_mode,
+                cache_dir=cfg.log.exp_dir, enable_displacement=True,
+                dual_camera=cfg.render.body_prob < 1.0,
+                soft_mask_sigma=SOFT_MASK_SIGMA, device=device)
         image_embeds = ref_image = clip = None
         if use_pbe:
             # no text: banks of zeros; the scene keeps its 64² latent grid,
@@ -250,6 +255,35 @@ class LatentPaintMeshApp:
         sel2 = torch.cat([sel, sel])[:, None, None]
         return body * sel2 + head * (1.0 - sel2)
 
+    def set_layout(self, layout: Optional[MeshLayout]) -> None:
+        """Wire the device mesh into the step and the renderer: each rank
+        renders its views of the global batch, and its rays row splits the
+        gradient of the frames' rows (`TexturedMeshScene._rank_rows`)."""
+        self.layout = layout
+        self.scene.layout = layout
+
+    def step_draws(self, B: int, given: Mapping[str, torch.Tensor],
+                   generator: Optional[torch.Generator]
+                   ) -> Dict[str, torch.Tensor]:
+        """The step's draws at the batch B (see `loss_fn`), `given`'s where
+        given, the rest from `generator` in the order the step uses them."""
+        g, mode = self.guidance, self.cfg.optim.mode
+        # a render's latents (mode 0), an encoded render's (modes 1, 2)
+        img = (B,) + (self.scene.latent_size,) * 2 + (4,)
+        enc = (B,) + (getattr(g, "latent_size", self.scene.latent_size),) * 2 \
+            + (4,)
+        order = {0: (("t", "timestep", None), ("noise", "normal", img)),
+                 1: (("vae_noise_img", "normal", enc),
+                     ("vae_noise_nrm", "normal", enc),
+                     ("t_img", "timestep", None),
+                     ("noise_img", "normal", enc),
+                     ("t_nrm", "timestep", None),
+                     ("noise_nrm", "normal", enc)),
+                 2: (("vae_noise", "normal", enc),
+                     ("noise", "normal", enc))}[mode]
+        return sds_lib.step_draws(order, given, g.min_step, g.max_step,
+                                  self.scene.device, generator)
+
     def branches(self) -> bool:
         """Whether the step's loss branches on a draw: Paint-by-Example
         with `optim.use_clip`, whose t takes the CLIP branch or the SDS
@@ -274,8 +308,8 @@ class LatentPaintMeshApp:
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Render → the mode's guidance loss + the displacement's
         regularisers. Each random draw is taken from `draws` where it is
-        there and from `generator` otherwise, in the order listed (the
-        render draws nothing):
+        there and from `generator` otherwise, before the render, in the
+        order listed (`step_draws`; the render draws nothing):
         mode 0: `t`, `noise` (B, h, w, 4) of the SDS term (with depth and
         Paint-by-Example too). With Paint-by-Example and `optim.use_clip`
         the trainer draws `t` before the step (`draw_branch`, right after
@@ -286,13 +320,25 @@ class LatentPaintMeshApp:
         mode 1: `vae_noise_img`, `vae_noise_nrm` (the two encodes'
         posterior samples), `t_img`, `noise_img`, `t_nrm`, `noise_nrm`;
         mode 2: `vae_noise`, `noise`.
-        Every entry of the returned aux is a tensor."""
+        Every entry of the returned aux is a tensor.
+        On a mesh that splits the step (`set_layout`), `views` and the draws
+        are the global batch's: the rank takes its slice, and the loss and
+        each term in aux (`guidance_loss`, `laplacian_loss`,
+        `displacement_norm`) are its shares, whose sum over the world is
+        the one-rank value."""
         cfg, mode = self.cfg, self.cfg.optim.mode
-        draws = dict(draws or {})
+        B = views.batch_size
+        draws = self.step_draws(B, draws or {}, generator)
+        layout = self.layout if self.layout and self.layout.splits else None
+        if layout is not None:
+            views = views[layout.data_rows(B)]
+            draws = layout.shard_draws(draws, B)
         render = self.scene.render_train(views, with_lighting=mode != 0)
         aux: Dict[str, Any] = {"image": render["image"].detach()}
+        mean = mode == 2         # SDEdit's term is a mean, the others sums
         if mode == 0 and isinstance(self.guidance, PaintByExampleGuidance):
-            main = self._pbe_loss(render, draws, generator, aux, branch)
+            main, mean = self._pbe_loss(render, draws, generator, aux,
+                                        branch)
         elif mode == 0:
             depth = ()           # the depth backend's condition
             if isinstance(self.guidance, StableDiffusionDepthGuidance):
@@ -307,22 +353,26 @@ class LatentPaintMeshApp:
             main = self._tada_loss(render, views, draws, generator)
         else:
             main = self._sdedit_loss(render, views, draws, generator)
-        loss = (main + cfg.optim.lambda_laplacian * render["laplacian_loss"]
-                + cfg.optim.lambda_displacement * render["displacement_norm"])
-        aux["laplacian_loss"] = render["laplacian_loss"].detach()
+        lap, disp = render["laplacian_loss"], render["displacement_norm"]
+        if layout is not None:
+            main = (layout.world_share(main) if mean
+                    else layout.sum_share(main))
+            lap, disp = layout.world_share(lap), layout.world_share(disp)
+        loss = (main + cfg.optim.lambda_laplacian * lap
+                + cfg.optim.lambda_displacement * disp)
+        aux.update(laplacian_loss=lap.detach(), guidance_loss=main.detach(),
+                   displacement_norm=disp.detach())
         return loss, aux
 
     def _pbe_loss(self, render, draws, generator, aux,
-                  branch: Optional[bool]) -> torch.Tensor:
+                  branch: Optional[bool]) -> Tuple[torch.Tensor, bool]:
         """Paint-by-Example's SDS term on the latent render and its
         detached mask; with `optim.use_clip`, the CLIP branch at low t
-        (`branch` where the caller read it, else read here)."""
+        (`branch` where the caller read it, else read here). With whether
+        the term is a mean over the views (the CLIP branch's)."""
         g = self.guidance
         image = render["image"]
-        t = draws.get("t")
-        if t is None:
-            t = sds_lib.sample_timestep(g.min_step, g.max_step, image.device,
-                                        generator)
+        t = draws["t"]
         use_clip = self.branches()
         clip_branch = None
         if use_clip:
@@ -337,7 +387,7 @@ class LatentPaintMeshApp:
             clip_image_size=(self.clip.config.image_size if use_clip
                              else 224),
             t=t, noise=draws.get("noise"), generator=generator,
-            clip_branch=clip_branch)
+            clip_branch=clip_branch), bool(clip_branch)
 
     def _encode_render(self, image01: torch.Tensor,
                        noise: Optional[torch.Tensor],
@@ -379,12 +429,9 @@ class LatentPaintMeshApp:
                                   draws.get("vae_noise"), generator)
         ts = ddim_timesteps(steps, device=lat.device)
         t = ts[min(SDEDIT_STEP_INDEX, ts.shape[0] - 1)]
-        noise = draws.get("noise")
-        if noise is None:
-            noise = torch.randn(lat.shape, generator=generator,
-                                device=lat.device)
         with torch.no_grad():
-            lat_noisy = g.sched.add_noise(lat.detach(), noise.to(lat), t)
+            lat_noisy = g.sched.add_noise(lat.detach(),
+                                          draws["noise"].to(lat), t)
             eps = sds_lib.cfg_eps(g.unet_apply, lat_noisy, t, text_z,
                                   self.cfg.guide.guidance_scale)
             target = ddim_step(g.sched, eps, t, lat_noisy, steps).pred_x0

@@ -58,7 +58,19 @@ Around the step, as the JAX package's trainer does (`<exp_dir>/` below):
 * `log.trace_steps` [a, b): a `torch.profiler` trace of those steps into
   `<exp_dir>/trace/trace.json`, started and stopped at chunk granularity
   in a chunked run, and stopped as well at the end of the run (an upper
-  bound past `optim.iters`) and when a step raises.
+  bound past `optim.iters`) and when a step raises;
+* a process group (`dist.mesh.initialize`, torchrun): the (data, rays) mesh
+  of `cfg.dist` over its ranks, as the JAX package's trainer builds it over
+  its devices. Rank 0's parameters and buffers are broadcast, the app is
+  wired to the mesh (`set_layout`: each rank takes its slice of the global
+  draws), and each step sums the gradients and the loss over the world
+  (`all_reduce_grads`) before Adam, in a captured step too (NCCL only: a
+  CUDA graph cannot capture gloo's collectives). A mesh that does not tile
+  the world, or a data axis that does not divide `render.batch_size`, logs
+  the JAX package's warning and every rank runs the whole batch. Only rank
+  0 writes files (checkpoints, metric rows, images, evals, the orbit, the
+  export, the trace); the others wait at a barrier where it writes. A
+  resume reads after a barrier and broadcasts rank 0's state again.
 
 On a card Adam is `capturable` (its step count a device tensor), in eager
 steps too, so that an eager and a replayed step compute alike.
@@ -74,6 +86,7 @@ text-token optimisation is the function
 from __future__ import annotations
 
 import concurrent.futures
+import logging
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
@@ -85,6 +98,7 @@ from tpunerf_torch import profiling
 from tpunerf_torch.core.config import dump_yaml
 from tpunerf_torch.core.views import (ViewSamplerConfig, circle_poses,
                                       rand_poses)
+from tpunerf_torch.dist import mesh as dist_mesh
 from tpunerf_torch.kernels import _build
 from tpunerf_torch.training.checkpoints import CheckpointManager
 from tpunerf_torch.training.config import TrainConfig
@@ -126,14 +140,24 @@ class Trainer:
         self.app = app
         seed_everything(cfg.optim.seed)
 
-        self.exp_dir = make_path(cfg.log.exp_dir)
-        self.ckpt_dir = make_path(self.exp_dir / "checkpoints")
-        self.train_vis_dir = make_path(self.exp_dir / "vis" / "train")
-        self.eval_vis_dir = make_path(self.exp_dir / "vis" / "eval")
-        self.results_dir = make_path(self.exp_dir / "results")
-        self.logger = init_logger(self.exp_dir)
-        self.metrics = MetricsWriter(self.exp_dir / "metrics.jsonl")
-        dump_yaml(cfg, self.exp_dir / "config.yaml")
+        # only rank 0 (or a process without a process group) writes files
+        self.is_main = dist_mesh.is_main_process()
+        self.exp_dir = Path(cfg.log.exp_dir)
+        self.ckpt_dir = self.exp_dir / "checkpoints"
+        self.train_vis_dir = self.exp_dir / "vis" / "train"
+        self.eval_vis_dir = self.exp_dir / "vis" / "eval"
+        self.results_dir = self.exp_dir / "results"
+        self.metrics: Optional[MetricsWriter] = None
+        if self.is_main:
+            for d in (self.ckpt_dir, self.train_vis_dir, self.eval_vis_dir,
+                      self.results_dir):
+                make_path(d)
+            self.logger = init_logger(self.exp_dir)
+            self.metrics = MetricsWriter(self.exp_dir / "metrics.jsonl")
+            dump_yaml(cfg, self.exp_dir / "config.yaml")
+        else:
+            self.logger = init_logger(None)
+            self.logger.setLevel(logging.WARNING)
 
         self.view_cfg = self.view_config(cfg)
 
@@ -146,6 +170,7 @@ class Trainer:
         n_params = sum(p.numel() for p in self.params)
         self.logger.info(f"Scene has {n_params} learnable parameters")
         self.train_step_idx = 0
+        self.layout = self._make_layout(cfg)
 
         self.ckpts = CheckpointManager(self.ckpt_dir,
                                        max_keep=cfg.log.max_keep_ckpts)
@@ -157,6 +182,47 @@ class Trainer:
         if cfg.optim.resume or cfg.optim.ckpt:
             self._load_checkpoint(cfg.optim.ckpt,
                                   model_only=cfg.optim.ckpt is not None)
+
+    def _make_layout(self, cfg: TrainConfig
+                     ) -> Optional[dist_mesh.MeshLayout]:
+        """The mesh of `cfg.dist` over the process group's ranks (←
+        trainer.py:106-138): `dist.rays_axis` ranks on rays, the rest (or
+        `dist.data_axis`) on data; rank 0's state broadcast and the app
+        wired to it. None without a process group, or, with the JAX
+        package's warning, where the mesh does not tile the ranks or its
+        data axis does not divide the batch."""
+        if not dist_mesh.initialized():
+            return None
+        n_dev = dist_mesh.world_size()
+        n_rays = max(1, cfg.dist.rays_axis)
+        n_data = (n_dev // n_rays if cfg.dist.data_axis == -1
+                  else cfg.dist.data_axis)
+        if n_data * n_rays != n_dev:
+            self.logger.warning(
+                f"dist mesh ({n_data}×{n_rays}) does not tile the {n_dev} "
+                f"ranks — running SINGLE-device (every rank the whole "
+                f"batch); set dist.data_axis/dist.rays_axis to factor "
+                f"{n_dev}")
+            return None
+        if cfg.render.batch_size % n_data != 0:
+            self.logger.warning(
+                f"batch_size {cfg.render.batch_size} not divisible by the "
+                f"data axis ({n_data}) — running SINGLE-device (every rank "
+                f"the whole batch); set render.batch_size to a multiple of "
+                f"{n_data} to enable the {n_dev}-rank mesh")
+            return None
+        layout = dist_mesh.make_mesh(n_data=n_data, n_rays=n_rays)
+        self.replicate()
+        if hasattr(self.app, "set_layout"):
+            self.app.set_layout(layout)
+        self.logger.info(f"device mesh: data={n_data} × rays={n_rays} "
+                         f"(batch {cfg.render.batch_size})")
+        return layout
+
+    def replicate(self) -> None:
+        """Rank 0's parameters, buffers and Adam state on every rank."""
+        dist_mesh.replicate_(dist_mesh.state_tensors(self.app.state_dict(),
+                                                     self.optimizer))
 
     @staticmethod
     def view_config(cfg: TrainConfig) -> ViewSamplerConfig:
@@ -207,8 +273,9 @@ class Trainer:
         Adam. The gradients must be unset (`zero_grad(set_to_none=True)`)
         before. `drawn` is `draw()`'s result (drawn here where not given);
         where the app branches, `branch` is the branch its flag names (read
-        here from the flag where not given). Returns the loss and the app's
-        aux, as device tensors."""
+        here from the flag where not given). On a mesh the gradients and the
+        loss are summed over the world before Adam. Returns the loss (the
+        world's) and the app's aux (this rank's), as device tensors."""
         views, lead, flag = self.draw() if drawn is None else drawn
         kwargs: Dict[str, Any] = {}
         if flag is not None:
@@ -217,8 +284,11 @@ class Trainer:
         loss, aux = self.app.loss_fn(views, generator=self.generator,
                                      **kwargs)
         loss.backward()
+        loss = loss.detach()
+        if self.layout is not None:
+            (loss,) = dist_mesh.all_reduce_grads(self.params, loss)
         self.optimizer.step()
-        return loss.detach(), aux
+        return loss, aux
 
     def post_step(self) -> None:
         """The app's post-step hook (the occupancy refresh) after step
@@ -278,8 +348,17 @@ class Trainer:
         return self.device.type == "cuda" and self.cfg.optim.train_chunk > 1
 
     def capture(self) -> "GraphedStep":
-        """The captured step (captured at the first call)."""
+        """The captured step (captured at the first call). On a mesh the
+        process group must be NCCL's: a CUDA graph cannot capture gloo's
+        collectives (they run on the host)."""
         if self.graph is None:
+            if (self.layout is not None
+                    and dist_mesh.dist.get_backend() != "nccl"):
+                raise RuntimeError(
+                    f"optim.train_chunk > 1 on a card with the "
+                    f"{dist_mesh.dist.get_backend()} backend: a CUDA graph "
+                    f"captures only NCCL's collectives; use the nccl "
+                    f"backend or --optim.train_chunk 1")
             self.graph = GraphedStep(self)
         return self.graph
 
@@ -333,7 +412,7 @@ class Trainer:
         """Open the `log.trace_steps` window [a, b) before the chunk that
         holds step a."""
         ts = self.cfg.log.trace_steps
-        if (ts and self._trace is None
+        if (ts and self._trace is None and self.is_main
                 and self.train_step_idx < ts[0] <= self.train_step_idx + k):
             self._trace = profiling.start_trace()
 
@@ -359,6 +438,7 @@ class Trainer:
         cfg = self.cfg
         try:
             self.evaluate(self.train_step_idx, size=cfg.log.eval_size)
+            dist_mesh.barrier()
             if self.graphed():
                 self.capture()
             rng = np.random.default_rng(cfg.optim.seed + 1)
@@ -390,20 +470,23 @@ class Trainer:
                     now = time.perf_counter()
                     dt = now - last_time - aside
                     steps = step - last_step
-                    self.metrics.write(
-                        step, loss=loss_f, grad_norm=gnorm.item(),
-                        steps_per_s=steps / dt,
-                        rays_per_s=steps * cfg.render.batch_size
-                        * cfg.render.train_grid_size ** 2 / dt,
-                        aside_s=aside, **self._app_metric_scalars(),
-                        **self._device_memory_scalars())
+                    if self.metrics is not None:     # rank 0's rows
+                        self.metrics.write(
+                            step, loss=loss_f, grad_norm=gnorm.item(),
+                            steps_per_s=steps / dt,
+                            rays_per_s=steps * cfg.render.batch_size
+                            * cfg.render.train_grid_size ** 2 / dt,
+                            aside_s=aside, **self._app_metric_scalars(),
+                            **self._device_memory_scalars())
                     last_time, last_step, aside = now, step, 0.0
                 if step % cfg.log.save_interval == 0:
                     aside += self._timed(self.save_checkpoint, True)
                     aside += self._timed(self.evaluate, step,
                                          cfg.log.eval_size)
+                    dist_mesh.barrier()
                 if (cfg.log.log_images and "image" in aux
-                        and rng.random() < cfg.log.vis_train_prob):
+                        and rng.random() < cfg.log.vis_train_prob
+                        and self.is_main):
                     aside += self._timed(self._log_train_render, aux)
             self._stop_trace(end=True)
             self.logger.info("Finished Training ^_^")
@@ -425,7 +508,9 @@ class Trainer:
         if bool(finite.all()):
             return
         bad = step0 + 1 + int(torch.argmin(finite.to(torch.int8)))
-        path, failed = self.ckpts.save_debug("nan_debug", step0, prev)
+        # the losses are the world's: every rank raises here, rank 0 saves
+        path, failed = self.ckpts.save_debug(
+            "nan_debug", step0, prev, is_main_process=self.is_main)
         if len(losses) == 1:
             msg = f"last-good params saved to {path}"
         else:
@@ -445,11 +530,12 @@ class Trainer:
         chunk has one shape). Frames are uint8 by clip-then-truncate; the
         first chunk's decoded texture is saved beside them. The frames'
         PNGs are queued on the image pool (the previous evaluation's are
-        joined first). Returns the frames."""
+        joined first). Returns the frames. Rank 0 alone renders and writes
+        (other ranks return no frame)."""
         cfg = self.cfg
         out_dir = out_dir or self.eval_vis_dir
         frames: List[np.ndarray] = []
-        if size <= 0:
+        if size <= 0 or not self.is_main:
             return frames
         self._drain_io()
         views = circle_poses(size, self.view_cfg, self.device)
@@ -497,7 +583,7 @@ class Trainer:
         try:
             self.evaluate(self.train_step_idx, size=cfg.log.full_eval_size,
                           save_as_video=True, out_dir=self.results_dir)
-            if cfg.log.save_mesh:
+            if cfg.log.save_mesh and self.is_main:
                 try:
                     export_dir = make_path(self.exp_dir / "mesh")
                     self.app.export(export_dir)
@@ -505,6 +591,7 @@ class Trainer:
                 except NotImplementedError as e:
                     self.logger.info(f"mesh export skipped: {e}")
             self.flush()
+            dist_mesh.barrier()
         finally:
             self.close()
 
@@ -565,13 +652,17 @@ class Trainer:
         step's checkpoint; the tensors are copied before this returns."""
         self.ckpts.save(self.train_step_idx, self.app.state_dict(),
                         self.optimizer.state_dict(), full=full,
-                        async_write=self.cfg.log.async_ckpt)
+                        async_write=self.cfg.log.async_ckpt,
+                        is_main_process=self.is_main)
 
     def _load_checkpoint(self, path: Optional[Path], model_only: bool
                          ) -> None:
         """`path` (model only: parameters and buffers) or the newest
         checkpoint (with the optimizer state where it fits, and the step).
-        The app's `migrate_params` sees every load."""
+        The app's `migrate_params` sees every load. On a mesh every rank
+        reads after a barrier, then rank 0's state is broadcast again (←
+        trainer.py:635-646)."""
+        dist_mesh.barrier()
         params, opt_state, next_step = self.ckpts.load(
             path, optimizer=None if model_only else self.optimizer)
         if params is None:
@@ -585,6 +676,8 @@ class Trainer:
             if opt_state is not None:
                 self.optimizer.load_state_dict(opt_state)
                 self._set_capturable()
+        if self.layout is not None:
+            self.replicate()
         self.logger.info(f"Restored checkpoint (step {next_step - 1}, "
                          f"model_only={model_only})")
 
