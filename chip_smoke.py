@@ -231,6 +231,19 @@
     their scale, every state tensor within 1e-5 of its largest value, the
     ranks bit-equal), with the step at one and two ranks and the
     all-reduce's bytes and ms; (c) `scripts/bench_scaling.py` at one rank.
+16. The measuring tools (`tools_phase`, after 15), each through its
+    `main(argv)` at full width with `--iters 5`: `profile_render` at B = 1
+    and B = 8 after 100 EMA refreshes (the render by stage, fwd and
+    fwd+bwd, with the warmed grid's occupied fraction and, at B = 8, the
+    peak memory), `profile_unet --dtype bf16` with its backward (the UNet
+    by layer family; the operations that issue its f32 `sgemm` kernels),
+    `exp_unet_ablate` (three variants in f32 and bf16) and
+    `occ_rate_curve` on the seven blob grids; it fails where a tool exits
+    non-zero, a time in its report is not finite and positive, a blob
+    point's occupied fraction is more than 0.01 from its target, the bf16
+    UNet pass issues an f32 `sgemm` kernel, or the render tools never
+    launched #1-#3 or `profile_unet` #4, #12 or #13.
+    Each tool's launches go into the kernels line under its name.
 For each path the launch counters are reset just before and read just after;
 a replay counts the launches its capture recorded.
 
@@ -6210,6 +6223,86 @@ def dist_phase(seed: int, guidance, parts: str = "abc") -> dict:
     return paths
 
 
+TOOLS_ITERS = 5    # calls a graph in the measuring tools' phase
+BLOB_POINTS = "0.02,0.05,0.1,0.185,0.3,0.5,1.0"   # occ_rate_curve's, no teddy
+BLOB_TOL = 0.01    # a blob grid's occupied fraction from its target at 128³
+
+
+class _Tee:
+    """A text stream that writes to each of `streams`."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
+def tools_phase(seed: int) -> dict:
+    """The four measuring tools of tpunerf_torch/scripts/ through their
+    `main(argv)` at full width, TOOLS_ITERS calls a graph; each tool's
+    report (its last line) read back. Fails where a tool exits non-zero, a
+    time is not finite and positive, a blob point's occupied fraction is
+    more than BLOB_TOL from its target, the bf16 UNet pass issues f32
+    `sgemm` kernels, or a tool's path misses its kernels. Returns the
+    launches by tool."""
+    import importlib
+    import io
+    from tpunerf_torch.kernels import _build
+    from tpunerf_torch.kernels import attention as at
+    from tpunerf_torch.kernels import hashgrid as hg
+    from tpunerf_torch.kernels import occgrid as og
+    from tpunerf_torch.scripts.card import report_times
+    t_phase = time.perf_counter()
+    render = [hg.FWD, hg.BWD, og.LOOKUP]
+    runs = [("profile_render (B = 1)", "profile_render",
+             ["--batch", "1", "--occ-warm", "100"], render),
+            ("profile_render (B = 8)", "profile_render",
+             ["--batch", "8", "--occ-warm", "100"], render),
+            ("profile_unet (bf16)", "profile_unet", ["--dtype", "bf16"],
+             [at.ATTN, at.ATTN_DKV, at.ATTN_DQ]),
+            ("exp_unet_ablate", "exp_unet_ablate", [], [at.ATTN]),
+            ("occ_rate_curve", "occ_rate_curve", ["--points", BLOB_POINTS],
+             render)]
+    launches = {}
+    for label, tool, argv, kernels in runs:
+        print(f"tools: {label}", flush=True)
+        mod = importlib.import_module(f"tpunerf_torch.scripts.{tool}")
+        out = io.StringIO()
+        _build.reset_launches()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+            rc = mod.main(argv + ["--seed", str(seed),
+                                  "--iters", str(TOOLS_ITERS)])
+        launches[label] = dict(_build.LAUNCHES)
+        if rc != 0:
+            fail(f"{tool} {' '.join(argv)} exited {rc}")
+        report = json.loads(out.getvalue().strip().splitlines()[-1])
+        times = report_times(report)
+        if not times or not all(math.isfinite(t) and t > 0 for t in times):
+            fail(f"{label}: a time is not finite and positive: {times}")
+        missing = [n for n in kernels if launches[label].get(n, 0) <= 0]
+        if missing:
+            fail(f"the {label} path never launched {missing}")
+        if report.get("sgemm_issuers"):
+            fail(f"{label}: the bf16 UNet pass issues f32 sgemm kernels: "
+                 f"{report['sgemm_issuers']}")
+        for point in report.get("points", []):
+            if abs(point["occ_frac"] - float(point["tag"])) > BLOB_TOL:
+                fail(f"occ_rate_curve: blob {point['tag']} occupies "
+                     f"{point['occ_frac']}")
+        _free_card()
+    _build.reset_launches()
+    print(f"measuring tools phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6371,6 +6464,8 @@ def main() -> int:
     mark("dist")
     dist_paths = dist_phase(args.seed, guidance)
     _free_card()
+    mark("measuring tools")
+    tools_launches = tools_phase(args.seed)
     # the SD-v1 paths that differentiate through the UNet (#12, #13)
     mark("the SD-v1 gradient paths")
     grad_launches = sd_gradient_phases(args.seed, guidance)
@@ -6443,7 +6538,7 @@ def main() -> int:
                "latent-NeRF CLI from guide.model_dir": weights_launches,
                **{k: c for k, c in dist_paths.items()
                   if k not in dist_mesh_paths},
-               **paint_paths, **grad_launches}
+               **paint_paths, **grad_launches, **tools_launches}
     kernels = (counted(rows, launches, by_path)
                + counted(paint_rows, paint_launches, paint_paths)
                + counted(soft_rows, soft_counts,
@@ -6452,7 +6547,7 @@ def main() -> int:
                           **dist_mesh_paths}))
     # #12/#13: the text-token run, beside null-text inversion
     kernels += counted(grad_rows, grad_launches["text-token optimisation"],
-                       grad_launches)
+                       {**grad_launches, **tools_launches})
     # launches from the experiment's own runs
     kernels += [split_row, variant_row]
     if any(k["launches"] <= 0 for k in kernels):

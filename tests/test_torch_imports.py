@@ -53,7 +53,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
               "fields.sketch_shape", "fields.marching", "native",
               "safetensors_io", "guidance.weights",
               "scripts.convert_sd_weights", "dist.mesh", "debug",
-              "scripts.bench_scaling", "scripts.trace_edges"):
+              "scripts.bench_scaling", "scripts.trace_edges",
+              "scripts.profile_render", "scripts.profile_unet",
+              "scripts.exp_unet_ablate", "scripts.occ_rate_curve"):
         assert f"tpunerf_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

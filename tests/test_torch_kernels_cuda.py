@@ -1865,3 +1865,79 @@ def test_world_1_nccl_graphed_chunks_equal_the_run_without_a_group(
     assert len(state) == len(plain)
     for a, b in zip(state, plain):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tool, argv", [
+    ("profile_render", ["--occ-warm", "4"]),
+    ("profile_unet", ["--dtype", "bf16"]),
+    ("exp_unet_ablate", []),
+    ("occ_rate_curve", ["--points", "0.02,0.5,1"]),
+])
+def test_measuring_tools_print_finite_times_on_the_card(tool, argv, capsys):
+    """Each measuring tool at its tiny size, two calls a graph: it exits 0
+    and every time of its JSON report is finite and positive; the render
+    tools' paths launch #1-#3. (The tiny UNet has no level of 2048 tokens,
+    so the UNet tools launch no attention kernel here; chip_smoke.py holds
+    them to #4, #12 and #13 at full width.)"""
+    import importlib
+    import json
+    import math
+    from tpunerf_torch.scripts import card
+    _card()
+    mod = importlib.import_module(f"tpunerf_torch.scripts.{tool}")
+    _build.reset_launches()
+    assert mod.main(["--tiny", "--iters", "2"] + argv) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    times = card.report_times(report)
+    assert times and all(math.isfinite(t) and t > 0 for t in times)
+    if tool in ("profile_render", "occ_rate_curve"):
+        for name in (hg.FWD, hg.BWD, og.LOOKUP):
+            assert _build.LAUNCHES.get(name, 0) > 0, name
+
+
+def test_plain_attention_multiplies_bf16_operands_in_bf16():
+    """The UNet's plain attention (cross-attention, self-attention below
+    2048 tokens) takes q·kᵀ from the bf16 operands with f32 output, as the
+    JAX package's `preferred_element_type=f32` einsum: no product of the
+    forward gets f32 operands (widened operands ran on the CUDA cores as
+    f32 `sgemm`s), the logits equal the widened product's within f32
+    summation order, and the backward runs, giving bf16 gradients."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from tpunerf_torch.guidance.unet import Attention
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    products = (torch.ops.aten.bmm.default, torch.ops.aten.bmm.dtype,
+                torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                torch.ops.aten.baddbmm.default)
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.dtypes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in products:
+                self.dtypes.append((str(func), tuple(
+                    a.dtype for a in args if isinstance(a, torch.Tensor))))
+            return func(*args, **(kwargs or {}))
+
+    self_attn = Attention(64, 64, 4).to(dev, torch.bfloat16)
+    cross_attn = Attention(64, 32, 4).to(dev, torch.bfloat16)
+    x = torch.randn((2, 1024, 64), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    ctx = torch.randn((2, 77, 32), generator=gen, device=dev).to(
+        torch.bfloat16)
+    with Products() as seen:
+        out = self_attn(x) + cross_attn(x, ctx)
+    assert seen.dtypes
+    assert not [d for d in seen.dtypes if torch.float32 in d[1]], seen.dtypes
+    out.float().square().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and x.grad.isfinite().all()
+    q = torch.randn((2, 4, 300, 16), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((2, 4, 77, 16), generator=gen, device=dev).to(
+        torch.bfloat16)
+    logits = at.attention_logits(q, k)
+    assert logits.dtype == torch.float32
+    _close_to_max(logits, torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                                       k.float()), 1e-6, "bf16 logits")

@@ -1,7 +1,8 @@
 """The port's occupancy grid (tpunerf_torch.fields.occupancy and
 kernels/occgrid.py) against the JAX package's: bit packing, the lookup
 (exact, cell walls included), the Pallas lookup kernel in interpret mode,
-fixed-K compaction (exact), and the EMA refresh with injected jitter."""
+fixed-K compaction (exact; `compact_samples`' indices too), and the EMA
+refresh with injected jitter."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,6 +89,27 @@ def test_compact_gather_exact(k):
     # a one-hot contraction with a single 1.0 on the JAX side: exact
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("case", ["none", "some", "all", "more_than_k"])
+def test_compact_samples_matches_jax_exactly(case):
+    """Indices and valid flags equal JAX's, invalid slots holding index 0:
+    rays with no occupied sample, a few, all S, and more than K (the first
+    K in depth order)."""
+    S, k = 24, 8
+    rng = np.random.default_rng(len(case))
+    occ = {"none": np.zeros((3, 5, S), bool),
+           "some": rng.uniform(size=(3, 5, S)) < 0.2,
+           "all": np.ones((3, 5, S), bool),
+           "more_than_k": rng.uniform(size=(3, 5, S)) < 0.7}[case]
+    ref_idx, ref_valid = jocc.compact_samples(jnp.asarray(occ), k)
+    idx, valid = tocc.compact_samples(torch.from_numpy(occ), k)
+    assert idx.dtype == torch.int32 and valid.dtype == torch.bool
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
+    assert not idx[~valid].any()
+    if case == "more_than_k":
+        assert occ.sum(-1).max() > k and valid.all()
 
 
 def test_update_with_injected_jitter_matches_jax():

@@ -142,3 +142,13 @@ def sh_encode(dirs: torch.Tensor, degree: int = 4) -> torch.Tensor:
                    1.4453057213202769 * z * (xx - yy),
                    0.59004358992664352 * x * (-xx + 3.0 * yy)]
     return torch.stack(result, dim=-1)
+
+
+def frequency_encode(x: torch.Tensor, n_freqs: int = 6) -> torch.Tensor:
+    """Classic NeRF positional encoding (the JAX package's fallback
+    encoder): [x, sin(2^i x), cos(2^i x)] with the sines of every frequency
+    before the cosines, (..., D) → (..., D·(1 + 2·n_freqs))."""
+    freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+    xb = x[..., None, :] * freqs[:, None]
+    enc = torch.cat([torch.sin(xb), torch.cos(xb)], dim=-1)
+    return torch.cat([x, enc.reshape(*x.shape[:-1], -1)], dim=-1)

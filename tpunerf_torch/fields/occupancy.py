@@ -81,21 +81,48 @@ def update(grid: torch.Tensor,
     return torch.maximum(grid * cfg.ema_decay, sigma.float())
 
 
+def mean_density(grid: torch.Tensor) -> torch.Tensor:
+    return torch.mean(grid)
+
+
+def _slots(occ_mask: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot (..., S) int64, valid (..., K) bool): each occupied sample's
+    exclusive prefix count is its slot; unoccupied samples and those past
+    slot K−1 get the spare slot K."""
+    occ_i = occ_mask.to(torch.int64)
+    rank = torch.cumsum(occ_i, dim=-1) - occ_i
+    n_occ = occ_i.sum(dim=-1, keepdim=True)
+    valid = torch.arange(k, device=occ_mask.device) < n_occ
+    slot = torch.where(occ_mask & (rank < k), rank, torch.full_like(rank, k))
+    return slot, valid
+
+
+def compact_samples(occ_mask: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape stream compaction: occ_mask (..., S) bool →
+    (gather_idx (..., K) int32, valid (..., K) bool), the indices of the
+    first K occupied samples of each ray in depth order; invalid slots hold
+    index 0. A scatter of each sample's index to its slot (`_slots`)."""
+    S = occ_mask.shape[-1]
+    slot, valid = _slots(occ_mask, k)
+    src = torch.arange(S, dtype=torch.int32, device=occ_mask.device)
+    buf = torch.zeros((*occ_mask.shape[:-1], k + 1), dtype=torch.int32,
+                      device=occ_mask.device)
+    gather_idx = buf.scatter_(-1, slot, src.expand(occ_mask.shape))[..., :k]
+    return gather_idx, valid
+
+
 def compact_gather(occ_mask: torch.Tensor, k: int, *arrays: torch.Tensor
                    ) -> Tuple[torch.Tensor, ...]:
     """Compact + gather: returns (valid (..., K) bool, *compacted arrays).
 
     Each array is (..., S) or (..., S, C) and comes back as (..., K[, C]):
     slot j holds the j-th occupied sample in depth order, and invalid slots
-    hold 0. Each occupied sample's exclusive prefix count is its slot; a
-    scatter puts it there (samples past slot K−1 go to a spare slot that is
-    dropped)."""
+    hold 0. A scatter puts each occupied sample in its slot (`_slots`; the
+    spare slot is dropped)."""
     S = occ_mask.shape[-1]
-    occ_i = occ_mask.to(torch.int64)
-    rank = torch.cumsum(occ_i, dim=-1) - occ_i
-    n_occ = occ_i.sum(dim=-1, keepdim=True)
-    valid = torch.arange(k, device=occ_mask.device) < n_occ
-    slot = torch.where(occ_mask & (rank < k), rank, torch.full_like(rank, k))
+    slot, valid = _slots(occ_mask, k)
     outs = []
     for a in arrays:
         if a.ndim == occ_mask.ndim and a.shape[-1] == S:

@@ -4,8 +4,9 @@ plain PyTorch versions.
 
 The UNet's long self-attention calls `attention`. On CPU tensors it runs
 `attention_plain`, the softmax(q·kᵀ·scale)·v of the JAX package's XLA path
-(guidance/unet.py:209-212): f32 logits, f32 softmax, probabilities cast to
-v's dtype; autograd differentiates it. On CUDA tensors it launches the
+(guidance/unet.py:209-212): f32 logits from a product in the operands'
+dtype (`attention_logits`), f32 softmax, probabilities cast to v's dtype;
+autograd differentiates it. On CUDA tensors it launches the
 forward kernel; where grad mode is on and an input needs a gradient, it
 does so through `AttentionFunction`, whose forward also keeps each query
 row's log-sum-exp and whose backward is JAX's two-kernel flash backward:
@@ -37,11 +38,49 @@ ATTN_DQ_MMA = "attention_bwd_dq_mma"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class _Bf16Logits(torch.autograd.Function):
+    """q·kᵀ in f32 from bf16 operands of the same (B, H): the forward on
+    the tensor cores (`bmm` with an f32 output, which has no derivative in
+    PyTorch); the backward multiplies the f32 gradient by the other operand
+    widened to f32 and rounds to bf16, as autograd did through the widened
+    product."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        B, H, N, D = q.shape
+        M = k.shape[2]
+        logits = torch.bmm(q.reshape(B * H, N, D),
+                           k.reshape(B * H, M, D).transpose(1, 2),
+                           out_dtype=torch.float32)
+        return logits.view(B, H, N, M)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        dq = torch.einsum("bhqk,bhkd->bhqd", g, k.float()).to(q.dtype)
+        dk = torch.einsum("bhqk,bhqd->bhkd", g, q.float()).to(k.dtype)
+        return dq, dk
+
+
+def attention_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q·kᵀ (B, H, N, M) in f32, the product taken in the operands' dtype
+    as the JAX package's `einsum(..., preferred_element_type=f32)`: bf16
+    operands on the card go to the tensor cores with f32 accumulation and
+    output (`_Bf16Logits`). The CPU has no such product: there the
+    operands are widened first (the same products, exact in f32, summed in
+    another order)."""
+    if (q.is_cuda and q.dtype == k.dtype == torch.bfloat16
+            and q.shape[:2] == k.shape[:2]):
+        return _Bf16Logits.apply(q, k)
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """q, k, v (B, H, N, D) → (B, H, N, D) in v's dtype."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    attn = torch.softmax(logits * scale, dim=-1)
+    attn = torch.softmax(attention_logits(q, k) * scale, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", attn.to(v.dtype), v)
 
 

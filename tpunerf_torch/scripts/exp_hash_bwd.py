@@ -66,10 +66,8 @@ import torch
 
 from tpunerf_torch.fields.encoding import (HashGridConfig,
                                            corner_indices_and_weights)
-from tpunerf_torch.kernels import _build
 from tpunerf_torch.kernels import hashgrid as hg
 from tpunerf_torch.scripts import card
-from tpunerf_torch.utils import resolve_device
 
 CFG = HashGridConfig()   # the JAX script's grid: L=12, T=2^11, F=2
 FULL_N = 262144          # 64² rays × 64 samples, the JAX script's N
@@ -92,27 +90,10 @@ def make_inputs(n: int, seed: int, device):
 
 def graph_ms(fn, iters: int = ITERS):
     """(ms per call, the last call's output): `iters` calls of `fn`
-    captured in one CUDA graph after WARMUP calls on a side stream; one
-    untimed replay, then one replay between CUDA events. The capture runs
-    no kernel; each replay counts the launches it runs."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    _build.CAPTURED.clear()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            out = fn()
-    per_replay = dict(_build.CAPTURED)
-
-    def replay():
-        graph.replay()
-        for name, times in per_replay.items():
-            _build.count_launch(name, times)
-
+    captured in one CUDA graph after WARMUP calls (`card.capture`); one
+    untimed replay, then one replay between CUDA events. Each replay
+    counts the launches it runs."""
+    replay, out = card.capture(fn, iters, WARMUP)
     replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -340,10 +321,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (plain versions)")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "(device='cpu') to run the plain versions")
+    device = card.device_of(args.device)
     on_card = device.type == "cuda"
     L, T, F = CFG.n_levels, CFG.table_size, CFG.n_features_per_level
     print(f"L={L} T={T} F={F} N={args.n}")
